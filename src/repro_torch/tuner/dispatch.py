@@ -1,0 +1,238 @@
+"""Model-guided dispatch: the executable back half of the tuner.
+
+``matmul`` / ``trsm`` / ``cholesky`` take *global* (unsharded) tensors,
+ask the :class:`~repro_torch.tuner.autotune.Tuner` for an
+:class:`~repro_torch.tuner.plan.ExecutionPlan`, build the planned 2D / 2.5D
+process grid, block-distribute the operands (padding to the grid where
+needed — identity-extended for triangular/SPD structure), and run the
+chosen variant with the planned local kernels:
+
+* ``local_kernel="pallas"`` (the CUDA default) wires the hand-written
+  kernels (``kernels.matmul/trsm/cholesky``) in as the local matmul /
+  triangular solve / diagonal factor — one batched launch over all the
+  stacked ranks; on CPU tensors they run their plain versions;
+* ``local_kernel="jnp"`` (the CPU default) uses the ``torch.matmul`` /
+  ``torch.linalg`` locals.
+
+The plan strings are the reference's, so its frozen plans load here.
+Executors are memoized per (grid, devices, variant, kernel, tiles).  The
+telemetry and observability hooks come with a later slice: ``observe=True``
+raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from ..devices import canonical, default_devices
+from ..kernels.cholesky.ops import cholesky as _kchol
+from ..kernels.common import TilePlan
+from ..kernels.matmul.ops import matmul as _kmm
+from ..kernels.trsm.ops import trsm as _ktrsm
+# NB: import the factories, not the modules — the linalg package shadows
+# the trsm/cholesky module attributes with the dispatch wrappers.
+from ..linalg.cannon import make as _make_cannon
+from ..linalg.cholesky import make as _make_cholesky
+from ..linalg.grid import (BLOCK, ROWS_OVER_LAYERS, Grid, collect,
+                           distribute, make_grid_mesh)
+from ..linalg.summa import make as _make_summa
+from ..linalg.trsm import make as _make_trsm
+from .autotune import Tuner, default_tuner
+from .plan import ExecutionPlan
+
+_LOCK = threading.Lock()
+_EXECUTORS: Dict[tuple, object] = {}
+
+
+# -- local kernel hooks -----------------------------------------------------
+
+def _tiles_key(tiles: Dict[str, Dict[str, int]]) -> tuple:
+    """Canonical hashable form of a plan's tiles map (executor memo key)."""
+    return tuple(sorted((fam, tuple(sorted(blocks.items())))
+                        for fam, blocks in (tiles or {}).items()))
+
+
+def _tile_plans(tiles: Dict[str, Dict[str, int]]) -> Dict[str, TilePlan]:
+    """The plan's JSON tile map as TilePlan objects."""
+    return {fam: TilePlan.from_blocks(fam, blocks, source="plan")
+            for fam, blocks in (tiles or {}).items()}
+
+
+def _local_hooks(algo: str, local_kernel: str,
+                 tiles: Optional[Dict[str, Dict[str, int]]] = None) -> dict:
+    """The kernel wrappers as the variants' local hooks.  Every hook takes
+    the stacked ``(c, g, g, ...)`` blocks of all ranks at once, so each
+    kernel launch covers the whole grid (the ranks on ``blockIdx.z``)."""
+    if local_kernel != "pallas":
+        return {}
+    plans = _tile_plans(tiles)
+    mm_tp = plans.get("matmul")
+    trsm_tp = plans.get("trsm")
+    chol_tp = plans.get("cholesky")
+
+    def local_mm(a, b):
+        return _kmm(a, b, out_dtype=a.dtype, tiles=mm_tp)
+
+    if algo in ("cannon", "summa"):
+        return {"local_mm": local_mm}
+    if algo == "trsm":
+        def local_solve(b, u):
+            return _ktrsm(u, b, tiles=trsm_tp, mm_tiles=mm_tp)
+        return {"local_mm": local_mm, "local_solve": local_solve}
+    if algo == "cholesky":
+        def local_chol(a):
+            return _kchol(a, tiles=chol_tp, mm_tiles=mm_tp)
+
+        def local_panel_solve(a, ljj):
+            # panel width is fixed by the diagonal factor's extent; only
+            # the dgemm tail inherits a tile choice here
+            return _ktrsm(ljj.mT, a, mm_tiles=mm_tp)
+        return {"local_mm": local_mm, "local_chol": local_chol,
+                "local_solve": local_panel_solve}
+    raise ValueError(algo)
+
+
+_MAKERS = {"cannon": _make_cannon, "summa": _make_summa, "trsm": _make_trsm,
+           "cholesky": _make_cholesky}
+
+
+def _executor(plan: ExecutionPlan, grid: Grid):
+    key = (plan.algo, plan.variant, plan.g, plan.c, grid.device,
+           plan.local_kernel, _tiles_key(plan.tiles))
+    with _LOCK:
+        fn = _EXECUTORS.get(key)
+    if fn is None:
+        hooks = _local_hooks(plan.algo, plan.local_kernel, plan.tiles)
+        fn = _MAKERS[plan.algo](grid, plan.variant, **hooks)
+        with _LOCK:
+            if len(_EXECUTORS) > 64:
+                _EXECUTORS.clear()
+            _EXECUTORS[key] = fn
+    return fn
+
+
+# -- padding ----------------------------------------------------------------
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _pad_zero(x, rows: int, cols: int):
+    return torch.nn.functional.pad(x, (0, cols - x.shape[1],
+                                       0, rows - x.shape[0]))
+
+
+def _pad_eye(x, size: int):
+    """blockdiag(x, I): structure-preserving pad for triangular/SPD args."""
+    n = x.shape[0]
+    if size == n:
+        return x
+    out = _pad_zero(x, size, size)
+    idx = torch.arange(n, size, device=x.device)
+    out[idx, idx] = 1
+    return out
+
+
+def _check_square(name: str, x) -> int:
+    if x.ndim != 2 or x.shape[0] != x.shape[1]:
+        raise ValueError(f"{name} must be square 2-D, got {tuple(x.shape)} "
+                         "(the paper's algorithms are square-grid)")
+    return int(x.shape[0])
+
+
+def _dtype_key(x) -> str:
+    """Plan-cache dtype key: the bare type name ("float32"), as in the
+    reference's plan keys."""
+    return str(x.dtype).removeprefix("torch.")
+
+
+# -- execution --------------------------------------------------------------
+
+def _resolve(devices: Optional[Sequence], plan_p: int) -> Tuple:
+    devices = list(devices) if devices is not None else default_devices()
+    if len(devices) < plan_p:
+        raise ValueError(f"plan needs {plan_p} devices, have {len(devices)}")
+    return tuple(canonical(d) for d in devices[:plan_p])
+
+
+def execute(plan: ExecutionPlan, *operands,
+            devices: Optional[Sequence] = None, observe: bool = False):
+    """Run an already-resolved plan on its operands (benchmarks use this to
+    force specific — including deliberately bad — variants)."""
+    if observe:
+        raise NotImplementedError(
+            "observe=True records into the telemetry store, which the "
+            "telemetry slice of the port brings")
+    devs = _resolve(devices, plan.p)
+    grid = make_grid_mesh(plan.g, plan.g, layers=plan.c, devices=devs)
+    fn = _executor(plan, grid)
+    n = plan.n
+    g, c = plan.g, plan.c
+    ops = [torch.as_tensor(x, device=grid.device) for x in operands]
+    m = _round_up(n, g)
+    if plan.algo in ("cannon", "summa"):
+        a, b = ops
+        ad = distribute(_pad_zero(a, m, m), grid, BLOCK)
+        bd = distribute(_pad_zero(b, m, m), grid, BLOCK)
+        return collect(fn(ad, bd), grid, BLOCK)[:n, :n]
+    if plan.algo == "trsm":
+        u, b = ops
+        mb = _round_up(n, c * g)
+        bx_spec = ROWS_OVER_LAYERS if c > 1 else BLOCK
+        ud = distribute(_pad_eye(u, m), grid, BLOCK)
+        bd = distribute(_pad_zero(b, mb, m), grid, bx_spec)
+        return collect(fn(ud, bd), grid, bx_spec)[:n, :n]
+    if plan.algo == "cholesky":
+        (a,) = ops
+        ad = distribute(_pad_eye(a, m), grid, BLOCK)
+        return collect(fn(ad), grid, BLOCK)[:n, :n]
+    raise ValueError(f"unknown algo {plan.algo!r}")
+
+
+def matmul(A, B, *, devices: Optional[Sequence] = None,
+           tuner: Optional[Tuner] = None,
+           local_kernel: Optional[str] = None,
+           observe: bool = False):
+    """C = A @ B, model-guided: the tuner races the Cannon and SUMMA models
+    over every realizable 2D/2.5D grid and executes the winner."""
+    n = _check_square("A", A)
+    if tuple(B.shape) != tuple(A.shape):
+        raise ValueError(f"A {tuple(A.shape)} and B {tuple(B.shape)} must "
+                         "match")
+    t = tuner or default_tuner()
+    devs = list(devices) if devices is not None else default_devices()
+    plan = t.plan("matmul", n, devices=devs, dtype=_dtype_key(A),
+                  local_kernel=local_kernel, observe=observe)
+    return execute(plan, A, B, devices=devs)
+
+
+def trsm(U, B, *, devices: Optional[Sequence] = None,
+         tuner: Optional[Tuner] = None,
+         local_kernel: Optional[str] = None,
+         observe: bool = False):
+    """Solve X U = B (U upper-triangular), model-guided."""
+    n = _check_square("U", U)
+    if tuple(B.shape) != tuple(U.shape):
+        raise ValueError(f"U {tuple(U.shape)} and B {tuple(B.shape)} must "
+                         "match")
+    t = tuner or default_tuner()
+    devs = list(devices) if devices is not None else default_devices()
+    plan = t.plan("trsm", n, devices=devs, dtype=_dtype_key(U),
+                  local_kernel=local_kernel, observe=observe)
+    return execute(plan, U, B, devices=devs)
+
+
+def cholesky(A, *, devices: Optional[Sequence] = None,
+             tuner: Optional[Tuner] = None,
+             local_kernel: Optional[str] = None,
+             observe: bool = False):
+    """L with A = L L^T (A SPD), model-guided."""
+    n = _check_square("A", A)
+    t = tuner or default_tuner()
+    devs = list(devices) if devices is not None else default_devices()
+    plan = t.plan("cholesky", n, devices=devs, dtype=_dtype_key(A),
+                  local_kernel=local_kernel, observe=observe)
+    return execute(plan, A, devices=devs)

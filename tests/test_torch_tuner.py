@@ -1,0 +1,172 @@
+"""The port's copy of the planning closure against the reference.
+
+Plans, model values and profiles must agree exactly, so that state frozen
+by the reference (a plan in the cache, a refitted machine profile) loads
+and executes in the port.
+"""
+
+import dataclasses
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core.machine import CPU_HOST as REF_CPU_HOST
+from repro.core.machine import MACHINES as REF_MACHINES
+from repro.tuner import PlanCache as RefPlanCache
+from repro.tuner import Tuner as RefTuner
+from repro.tuner import build_default_registry as ref_registry
+from repro_torch.core import (HOPPER, AlgoContext, CommModel, ComputeModel,
+                              IdentityCalibration, ParametricCalibration,
+                              evaluate)
+from repro_torch.core.machine import H100_SXM, Machine
+from repro_torch.core.perfmodel import HOPPER_EFFICIENCY
+from repro_torch.tuner import (ExecutionPlan, PlanCache, Tuner,
+                               build_default_registry, machine_for_platform)
+from repro_torch.tuner import dispatch
+
+GOLD_PATH = os.path.join(os.path.dirname(__file__), "golden",
+                         "model_values.json")
+with open(GOLD_PATH) as _f:
+    ENTRIES = json.load(_f)["entries"]
+KEYS = sorted({(e["algo"], e["variant"]) for e in ENTRIES})
+CTX = {
+    "param": AlgoContext(CommModel(HOPPER, ParametricCalibration()),
+                         ComputeModel(HOPPER, HOPPER_EFFICIENCY)),
+    "identity": AlgoContext(CommModel(HOPPER, IdentityCalibration()),
+                            ComputeModel(HOPPER, HOPPER_EFFICIENCY)),
+}
+CPU = torch.device("cpu")
+
+
+def _tuners(tmp_path, ref_reg=None, port_reg=None):
+    return (RefTuner(registry=ref_reg,
+                     cache=RefPlanCache(str(tmp_path / "ref"))),
+            Tuner(registry=port_reg, cache=PlanCache(str(tmp_path / "port"))))
+
+
+@pytest.mark.parametrize("n", [96, 4096, 16384])
+@pytest.mark.parametrize("p", [1, 4, 8, 9])
+@pytest.mark.parametrize("op", ["matmul", "trsm", "cholesky"])
+def test_plan_equals_reference(op, p, n, tmp_path):
+    ref, port = _tuners(tmp_path)
+    want = ref.plan(op, n, device_count=p, platform="cpu")
+    got = port.plan(op, n, device_count=p, platform="cpu")
+    assert got.to_dict() == want.to_dict()
+
+
+@pytest.mark.parametrize("algo,variant", KEYS)
+def test_evaluator_matches_golden(algo, variant):
+    for e in ENTRIES:
+        if (e["algo"], e["variant"]) != (algo, variant):
+            continue
+        res = evaluate(CTX[e["calibration"]], algo, variant,
+                       e["n"], e["p"], c=e["c"], r=e["r"])
+        for field in ("total", "comm", "comp"):
+            assert getattr(res, field) == pytest.approx(e[field], rel=1e-9)
+        for name, want in e["terms"].items():
+            assert res.terms[name] == pytest.approx(want, rel=1e-9,
+                                                    abs=1e-300)
+
+
+@pytest.mark.parametrize("name", sorted(REF_MACHINES))
+def test_machine_from_dict_round_trips_reference_profiles(name):
+    ref = REF_MACHINES[name]
+    d = json.loads(json.dumps(dataclasses.asdict(ref)))
+    got = Machine.from_dict(d)
+    assert got.fingerprint() == ref.fingerprint()
+    assert got == Machine.from_dict(dataclasses.asdict(got))
+
+
+def test_refitted_profile_carries_across(tmp_path):
+    """A telemetry-refitted revision of a reference profile, rebuilt in the
+    port, keys and chooses the same plan."""
+    refit = dataclasses.replace(REF_CPU_HOST, revision=3,
+                                peak_flops_per_unit=7.5e9)
+    ref_reg, port_reg = ref_registry(), build_default_registry()
+    surface = ref_reg.machine(refit.name)
+    ref_reg.register_machine(refit, surface.efficiency, overwrite=True)
+    port_surface = port_reg.machine(refit.name)
+    port_reg.register_machine(
+        Machine.from_dict(json.loads(json.dumps(dataclasses.asdict(refit)))),
+        port_surface.efficiency, overwrite=True)
+    ref, port = _tuners(tmp_path, ref_reg, port_reg)
+    want = ref.plan("cholesky", 4096, device_count=8, platform="cpu")
+    got = port.plan("cholesky", 4096, device_count=8, platform="cpu")
+    assert got.to_dict() == want.to_dict()
+
+
+def test_reference_plan_cache_is_served_to_the_port(tmp_path):
+    ref = RefTuner(cache=RefPlanCache(str(tmp_path)))
+    ref.plan("trsm", 96, device_count=4, platform="cpu")
+    port = Tuner(cache=PlanCache(str(tmp_path)))
+    port.plan("trsm", 96, devices=[CPU] * 4)
+    assert port.stats == {"model_evals": 0, "cache_hits": 1}
+
+
+@pytest.mark.parametrize("local_kernel", ["jnp", "pallas"])
+@pytest.mark.parametrize("op", ["matmul", "trsm", "cholesky"])
+def test_reference_frozen_plan_executes_in_port(op, local_kernel, tmp_path):
+    n, p = 96, 8
+    frozen = RefTuner(cache=RefPlanCache(str(tmp_path))).plan(
+        op, n, device_count=p, platform="cpu", local_kernel=local_kernel)
+    plan = ExecutionPlan.from_dict(json.loads(json.dumps(frozen.to_dict())))
+    assert plan.local_kernel == local_kernel
+    rng = np.random.default_rng(11)
+    a = rng.standard_normal((n, n))
+    b = rng.standard_normal((n, n))
+    if op == "matmul":
+        args, want = (a, b), a @ b
+    elif op == "trsm":
+        u = np.triu(a) + 3 * np.eye(n)
+        args, want = (u, b), b @ np.linalg.inv(u)
+    else:
+        s = a @ a.T + n * np.eye(n)
+        args, want = (s,), np.linalg.cholesky(s)
+    got = dispatch.execute(plan, *(torch.tensor(x, dtype=torch.float32)
+                                   for x in args), devices=[CPU] * p)
+    assert np.abs(got.numpy() - want).max() / np.abs(want).max() < 1e-4
+
+
+def test_h100_profile_is_the_cuda_machine(tmp_path):
+    assert machine_for_platform("cuda") == H100_SXM.name == "h100-sxm"
+    assert H100_SXM.kernel_constants is None
+    assert "spec-sheet" in H100_SXM.notes
+    plan = Tuner(cache=PlanCache(str(tmp_path))).plan(
+        "cholesky", 16384, device_count=1, platform="cuda",
+        device_kind="NVIDIA H100 80GB HBM3")
+    assert plan.machine == "h100-sxm"
+    assert plan.local_kernel == "pallas"
+    # no kernel constants: the heuristic tiles, block 256
+    assert plan.tiles["cholesky"] == {"block": 256}
+    assert plan.tiles["trsm"] == {"block": 256}
+
+
+def test_torch_devices_key_like_the_reference(tmp_path):
+    ref, port = _tuners(tmp_path)
+    want = ref.plan("matmul", 96, device_count=4, platform="cpu")
+    got = port.plan("matmul", 96, devices=[CPU] * 4)
+    assert got.fingerprint == want.fingerprint
+    assert got.local_kernel == "jnp"
+    assert dispatch._dtype_key(torch.zeros(1)) == "float32"
+
+
+@pytest.mark.parametrize("kwargs", [{"refine": "sim"}, {"observe": True}])
+def test_later_slices_raise(kwargs, tmp_path):
+    tuner = Tuner(cache=PlanCache(str(tmp_path)))
+    with pytest.raises(NotImplementedError):
+        tuner.plan("matmul", 96, device_count=4, platform="cpu", **kwargs)
+
+
+def test_lm_helpers_raise(tmp_path):
+    tuner = Tuner(cache=PlanCache(str(tmp_path)))
+    with pytest.raises(NotImplementedError):
+        tuner.recommend_fsdp(None, None, {"data": 4})
+    with pytest.raises(NotImplementedError):
+        tuner.serve_chunk(64, ctx0=0, cost=None, budget_s=1.0)
+    plan = tuner.plan("matmul", 96, devices=[CPU])
+    with pytest.raises(NotImplementedError):
+        dispatch.execute(plan, torch.eye(96), torch.eye(96), devices=[CPU],
+                         observe=True)
