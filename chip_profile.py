@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
-"""Where the time goes on the port's main path, on one GPU.
+"""Where the time goes on the port's paths, on one GPU.
 
 Runs ``repro_torch.linalg.matmul / trsm / cholesky`` at n = 16384, fp32,
-on the default device (p = 1) once to warm up and once under
-``torch.profiler``, and prints one JSON line per op: the wall time of the
-profiled call, the device time summed over device-side events (kernels and
-copies; the host ops that launch them carry the same time again and are
-left out), the device-busy share of the wall time, and the kernels by
-device time.  Builds the CUDA kernels first, as chip_smoke.py does.  Exits
-non-zero without a CUDA device or when the profile holds no device time.
+on the default device (p = 1), and the LM prefill
+(``repro_torch.launch.prefill``) of starcoder2-3b and hymba-1.5b at full
+width and depth, bf16, 4 prompts of 4096 tokens, each once to warm up and
+once under ``torch.profiler``.  It prints one JSON line per call: the wall
+time of the profiled call, the device time summed over device-side events
+(kernels and copies; the host ops that launch them carry the same time
+again and are left out), the device-busy share of the wall time, and the
+kernels by device time; for a prefill also the device time of K4 or K5
+against cuBLAS's bf16 and fp32 products against the rest.  Builds the
+CUDA kernels first, as chip_smoke.py does.  Exits non-zero without a CUDA
+device or when a profile holds no device time.
 
 Usage, from the root of a checkout on a machine with a CUDA GPU:
 
@@ -19,6 +23,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import sys
 import time
@@ -26,12 +31,19 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 N = 16384
 TOP = 8
+# the prefill calls, each with its kernel's CUDA function name
+PREFILL = (("starcoder2-3b", "flash_kernel"), ("hymba-1.5b",
+                                                "ssm_scan_kernel"))
+BATCH = 4
+PROMPT_LEN = 4096
+# cuBLAS's matrix product kernels (nvjet_* are its Hopper kernels); those
+# with f32f32 in the name take fp32 operands: on the prefill path the plain
+# chunked attention (hymba's window) and the fp32 decay gate wdt
+PRODUCT = re.compile(r"gemm|xmma|cutlass|cublas|nvjet", re.IGNORECASE)
 
 
 def main() -> int:
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
         return 2
@@ -48,31 +60,75 @@ def main() -> int:
     for op in ("matmul", "trsm", "cholesky"):
         args = operands(torch, op, N, gen)
         getattr(linalg, op)(*args, tuner=tuner)          # warm-up
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            getattr(linalg, op)(*args, tuner=tuner)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-                for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and e.self_device_time_total > 0]
-        rows.sort(key=lambda r: -r[1])
-        device_ms = sum(r[1] for r in rows)
-        print(json.dumps({
-            "op": op, "n": N, "wall_ms": wall * 1e3, "device_ms": device_ms,
-            "device_busy_share": device_ms / (wall * 1e3),
-            "top": [{"name": k[:90], "ms": ms, "count": c}
-                    for k, ms, c in rows[:TOP]]}), flush=True)
-        if device_ms <= 0:
+        record = profiled(torch, lambda: getattr(linalg, op)(*args,
+                                                            tuner=tuner))
+        del record["all"]
+        print(json.dumps({"op": op, "n": N, **record}), flush=True)
+        if record["device_ms"] <= 0:
             print("chip_profile: the profile holds no device time",
                   file=sys.stderr)
             return 1
         del args
         torch.cuda.empty_cache()
+
+    from repro_torch.configs import get
+    from repro_torch.launch.prefill import make_prefill_step
+    from repro_torch.models import build_model
+    for arch, kernel in PREFILL:
+        cfg = get(arch)
+        model = build_model(cfg)
+        net = model.init(0)
+        tokens = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN),
+                               device="cuda", generator=gen)
+        step = make_prefill_step(model)
+        step(net, tokens)                                # warm-up
+        record = profiled(torch, lambda: step(net, tokens))
+        groups = {kernel: 0.0, "bf16 products": 0.0, "fp32 products": 0.0,
+                  "rest": 0.0}
+        for row in record["all"]:
+            if kernel in row["name"]:
+                groups[kernel] += row["ms"]
+            elif PRODUCT.search(row["name"]):
+                fp32 = "f32f32" in row["name"]
+                groups["fp32 products" if fp32 else "bf16 products"] += \
+                    row["ms"]
+            else:
+                groups["rest"] += row["ms"]
+        del record["all"]
+        print(json.dumps({"prefill": arch, "batch": BATCH,
+                          "prompt_len": PROMPT_LEN, "groups_ms": groups,
+                          **record}), flush=True)
+        if record["device_ms"] <= 0 or groups[kernel] <= 0:
+            print(f"chip_profile: no device time, or none in {kernel}",
+                  file=sys.stderr)
+            return 1
+        del net
+        torch.cuda.empty_cache()
     return 0
+
+
+def profiled(torch, fn):
+    """Wall and device time of one call of ``fn`` under the profiler, and
+    the device-side events by time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [{"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
+             "count": e.count}
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r["ms"])
+    device_ms = sum(r["ms"] for r in rows)
+    return {"wall_ms": wall * 1e3, "device_ms": device_ms,
+            "device_busy_share": device_ms / (wall * 1e3),
+            "top": rows[:TOP], "all": rows}
 
 
 def operands(torch, op, n, gen):

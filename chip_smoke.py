@@ -3,17 +3,28 @@
 
 1. Prints the card's name and power limit (``nvidia-smi``) and builds the
    CUDA kernels from this checkout's sources (``build/torch_ext/``).
-2. Holds each kernel (K1 matmul, K2 diagonal-block trsm, K3 block Cholesky)
-   to its plain PyTorch version on the card at the main path's shapes, and
-   times kernel, plain version and the nearest single PyTorch call with
-   CUDA events.
-3. Drives the main path: ``repro_torch.linalg.matmul / trsm / cholesky``
+2. Holds each kernel (K1 matmul, K2 diagonal-block trsm, K3 block Cholesky,
+   K4 flash attention, K5 the SSD scan) to its plain PyTorch version on the
+   card at its path's shapes (K4 and K5 there in the path's layouts, with
+   the error taken per output row), and times kernel, plain version and
+   the nearest single PyTorch call with CUDA events; K5 must refuse a state
+   that does not fit a block.
+3. Drives the linalg path: ``repro_torch.linalg.matmul / trsm / cholesky``
    at n = 16384, fp32, on the default devices (one card, p = 1), with the
    kernels' launch counts set to 0 before each call and read after it, and
    the residuals checked against the library.
 4. Runs multi-rank plans stacked on the one card (``[cuda:0] * 4`` and
    ``* 8`` at n = 4096) and all 16 variants forced through ``execute`` on
    2x2 and 2x2x2 grids at n = 2048.
+5. Drives the LM prefill path (``repro_torch.launch.prefill``) at full
+   width and depth for starcoder2-3b and hymba-1.5b, bf16, 4 prompts of
+   4096 tokens, weights drawn from seed 0 on the card: a cold and a warm
+   call each, the counts set to 0 before each and read after it, the peak
+   memory, finite logits, K4 (starcoder2) and K5 (hymba) launched.
+6. Holds that path to the plain versions: each model at full width and
+   depth 2, fp32, one prompt of 2304 tokens (above the 2048 at which
+   attention leaves ``_sdpa``), on the card and on the CPU with the same
+   state dict: last-position logits within 1e-3 relative, equal argmax.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero, as do
@@ -86,13 +97,16 @@ def main() -> int:
     emit({"build_s": time.perf_counter() - t0, "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
-    kernels = kernel_checks(torch)
+    kernels = kernel_checks(torch) + lm_kernel_checks(torch)
     main_counts = main_path(torch)
     multi_rank(torch)
     forced_variants(torch)
+    prefill_counts = prefill_path(torch)
+    prefill_against_cpu(torch)
 
     for entry in kernels:
-        entry["launches"] = main_counts[entry["wrapper"]]
+        entry["launches"] = (main_counts[entry["wrapper"]]
+                             + prefill_counts[entry["wrapper"]])
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -115,14 +129,49 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare(torch, name, got, want, tol):
+def compare(torch, name, got, want, tol, per_row):
+    """Largest absolute error, and the largest error relative to the
+    largest value of the reference: over the whole output, or per output
+    row (its last axis) when ``per_row``, so that rows of small values are
+    held as tightly as rows of large ones."""
     got = got.float()
     want = want.float()
     check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
-    abs_err = float((got - want).abs().max())
-    rel_err = abs_err / max(float(want.abs().max()), 1e-30)
+    err = (got - want).abs()
+    abs_err = float(err.max())
+    if per_row:
+        rel_err = float((err.amax(-1)
+                         / want.abs().amax(-1).clamp(min=1e-30)).max())
+    else:
+        rel_err = abs_err / max(float(want.abs().max()), 1e-30)
     check(rel_err < tol, f"{name}: rel err {rel_err:.3e} >= {tol}")
     return abs_err, rel_err
+
+
+def kernel_entry(torch, name, wrapper, source, replaces, shape, got, want,
+                 tol, kernel, plain, library, reps, ops, peak, nbytes, *,
+                 plain_reps=None, library_note=None, per_row=False,
+                 layout="contiguous"):
+    """Check one kernel result against its plain version, time kernel,
+    plain version and library call, and emit the entry of the kernels
+    line (its launches are filled in from the path runs)."""
+    abs_err, rel_err = compare(torch, name, got, want, tol, per_row)
+    ms = time_ms(torch, kernel, reps)
+    e = {"name": name, "route": "cuda", "source": source,
+         "replaces": replaces, "wrapper": wrapper, "shape": shape,
+         "layout": layout, "launches": None, "max_abs_err": abs_err,
+         "max_rel_err": rel_err, "rel_to": "row max" if per_row else "max",
+         "tol": tol, "ms": ms, "kernel_ms": ms,
+         "plain_ms": time_ms(torch, plain, plain_reps or reps),
+         "bound_ms": max(ops / peak, nbytes / PEAK_BYTES) * 1e3,
+         "bound_by": ("operations" if ops / peak >= nbytes / PEAK_BYTES
+                      else "bytes"),
+         "library_ms": (time_ms(torch, library, reps)
+                        if library is not None else None)}
+    if library_note:
+        e["library_note"] = library_note
+    emit({"kernel_check": e})
+    return e
 
 
 def kernel_checks(torch):
@@ -133,23 +182,8 @@ def kernel_checks(torch):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     out = []
 
-    def entry(name, wrapper, source, replaces, shape, got, want, tol,
-              kernel, plain, library, reps, ops, peak, nbytes):
-        abs_err, rel_err = compare(torch, name, got, want, tol)
-        ms = time_ms(torch, kernel, reps)
-        bound = max(ops / peak, nbytes / PEAK_BYTES) * 1e3
-        e = {"name": name, "route": "cuda", "source": source,
-             "replaces": replaces, "wrapper": wrapper, "shape": shape,
-             "launches": None, "max_abs_err": abs_err,
-             "max_rel_err": rel_err, "tol": tol, "ms": ms, "kernel_ms": ms,
-             "plain_ms": time_ms(torch, plain, reps),
-             "bound_ms": bound,
-             "bound_by": ("operations" if ops / peak >= nbytes / PEAK_BYTES
-                          else "bytes"),
-             "library_ms": (time_ms(torch, library, reps)
-                            if library is not None else None)}
-        emit({"kernel_check": e})
-        out.append(e)
+    def entry(*args, **kw):
+        out.append(kernel_entry(torch, *args, **kw))
 
     # K1 at the yardstick shapes and at the main path's product
     for m, k, n, dt, odt, reps in (
@@ -210,6 +244,119 @@ def kernel_checks(torch):
               lambda a=a: cholesky_block_ref(a),
               lambda a=a: torch.linalg.cholesky(a), reps, nb ** 3 / 3.0,
               PEAK_FP32, (nb * (nb + 1) // 2 + nb * nb) * 4)
+    return out
+
+
+def heads_view(torch, b, h, s, d, gen, dt, scale=1.0):
+    """(B, H, S, D) operands laid out as the prefill path gives them: heads
+    split out of a (B, S, H * D) projection, a transposed view with head
+    stride D and row stride H * D."""
+    x = torch.randn(b, s, h, d, device="cuda", generator=gen) * scale
+    return x.to(dt).transpose(1, 2)
+
+
+def lm_kernel_checks(torch):
+    """K4 at starcoder2-3b's prefill shape and at the reference's test
+    shapes; K5 at hymba-1.5b's SSD shape and at the widest state the
+    reference tests, and its refusal of a state that does not fit.  The
+    path's shapes take the path's layouts: the heads as transposed views
+    of the projections.  The error is taken per output row, relative to
+    the row's largest value: bf16 within one rounding of the output
+    (2^-7 of the row's largest value; 8e-3), fp32 within the summation
+    order."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention_cuda, ssm_scan_cuda
+    from repro_torch.kernels.flash_attention.ops import _ref4 as flash_ref
+    from repro_torch.kernels.ssm_scan.ops import _ref4 as scan_ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    out = []
+
+    def entry(*args, **kw):
+        out.append(kernel_entry(torch, *args, per_row=True, **kw))
+
+    # K4: (B, H, KV, S, D, causal, dtype, path layout, reps)
+    for b, h, kv, s, d, causal, dt, path, reps in (
+            (4, 24, 2, 4096, 128, True, torch.bfloat16, True, 5),
+            (1, 8, 1, 384, 128, True, torch.float32, False, 20),
+            (2, 4, 4, 300, 64, False, torch.float32, False, 20),
+            (1, 6, 3, 256, 96, True, torch.float32, False, 20)):
+        if path:
+            q = heads_view(torch, b, h, s, d, gen, dt)
+            k = heads_view(torch, b, kv, s, d, gen, dt)
+            v = heads_view(torch, b, kv, s, d, gen, dt)
+        else:
+            q = torch.randn(b, h, s, d, device=dev, generator=gen).to(dt)
+            k = torch.randn(b, kv, s, d, device=dev, generator=gen).to(dt)
+            v = torch.randn(b, kv, s, d, device=dev, generator=gen).to(dt)
+        pairs = s * (s + 1) // 2 if causal else s * s
+        isz = q.element_size()
+        entry(f"K4 flash_attention B{b} H{h} KV{kv} S{s} D{d} "
+              f"{'causal' if causal else 'full'} {str(dt)[6:]}",
+              "flash_attention_cuda",
+              "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention/flash_attention.py:95",
+              [b, h, kv, s, d],
+              flash_attention_cuda(q, k, v, causal=causal),
+              flash_ref(q, k, v, causal),
+              8e-3 if dt == torch.bfloat16 else 1e-5,
+              lambda q=q, k=k, v=v, c=causal: flash_attention_cuda(
+                  q, k, v, causal=c),
+              lambda q=q, k=k, v=v, c=causal: flash_ref(q, k, v, c),
+              lambda q=q, k=k, v=v, c=causal:
+                  F.scaled_dot_product_attention(q, k, v, is_causal=c,
+                                                 enable_gqa=True),
+              reps, 4.0 * b * h * d * pairs,
+              PEAK_BF16 if dt == torch.bfloat16 else PEAK_FP32,
+              2 * (b * h + b * kv) * s * d * isz, plain_reps=2,
+              layout="heads of a projection" if path else "contiguous")
+        del q, k, v
+        torch.cuda.empty_cache()
+
+    # K5: (B, H, S, DK, DV, dtype, path layout, reps); the bound counts the
+    # recurrence's 4 DK DV operations a step, the least work of the
+    # function
+    for b, h, s, dk, dv, dt, path, reps in (
+            (4, 25, 4096, 16, 64, torch.bfloat16, True, 5),
+            (1, 1, 512, 128, 129, torch.float32, False, 5)):
+        if path:
+            q = heads_view(torch, b, h, s, dk, gen, dt, 0.3)
+            k = heads_view(torch, b, h, s, dk, gen, dt, 0.3)
+            v = heads_view(torch, b, h, s, dv, gen, dt)
+            la = (-torch.rand(b, s, h, device=dev, generator=gen)
+                  * 0.1).transpose(1, 2)
+        else:
+            q = (torch.randn(b, h, s, dk, device=dev, generator=gen)
+                 * 0.3).to(dt)
+            k = (torch.randn(b, h, s, dk, device=dev, generator=gen)
+                 * 0.3).to(dt)
+            v = torch.randn(b, h, s, dv, device=dev, generator=gen).to(dt)
+            la = -torch.rand(b, h, s, device=dev, generator=gen) * 0.1
+        isz = q.element_size()
+        entry(f"K5 ssm_scan BH{b * h} S{s} DK{dk} DV{dv} {str(dt)[6:]}",
+              "ssm_scan_cuda", "src/repro_torch/kernels/csrc/ssm_scan.cu",
+              "src/repro/kernels/ssm_scan/ssm_scan.py:81",
+              [b * h, s, dk, dv], ssm_scan_cuda(q, k, v, la),
+              scan_ref(q, k, v, la),
+              8e-3 if dt == torch.bfloat16 else 1e-4,
+              lambda q=q, k=k, v=v, la=la: ssm_scan_cuda(q, k, v, la),
+              lambda q=q, k=k, v=v, la=la: scan_ref(q, k, v, la),
+              None, reps, 4.0 * b * h * s * dk * dv,
+              PEAK_BF16 if dt == torch.bfloat16 else PEAK_FP32,
+              b * h * s * ((2 * dk + 2 * dv) * isz + 4), plain_reps=1,
+              library_note="no single PyTorch call computes it",
+              layout="heads of a projection" if path else "contiguous")
+
+    # xlstm's 256 x 257 state does not fit a block: refused, not run
+    q = torch.zeros(1, 1, 128, 256, device=dev)
+    v = torch.zeros(1, 1, 128, 257, device=dev)
+    try:
+        ssm_scan_cuda(q, q, v, torch.zeros(1, 1, 128, device=dev))
+        refused = ""
+    except ValueError as exc:
+        refused = str(exc)
+    emit({"k5_refuses_state": [256, 257], "message": refused})
+    check("do not fit" in refused, "K5 ran a 256x257 state")
     return out
 
 
@@ -367,6 +514,116 @@ def forced_variants(torch):
         for name in PATH_KERNELS[op]:
             check(counts[name] > 0, f"variant {algo} {variant}: {name} "
                   "never launched")
+
+
+# -- 5. the LM prefill path at full width and depth --------------------------
+
+PREFILL_ARCHS = {"starcoder2-3b": "flash_attention_cuda",
+                 "hymba-1.5b": "ssm_scan_cuda"}
+PREFILL_BATCH = 4
+PREFILL_LEN = 4096
+
+
+def prefill_path(torch):
+    """A cold and a warm prefill call per model; returns the cold calls'
+    launch counts, summed over the models."""
+    from repro_torch import kernels
+    from repro_torch.configs import get
+    from repro_torch.launch.prefill import make_prefill_step
+    from repro_torch.models import build_model
+    totals = {name: 0 for name in kernels.launches()}
+    for arch, wrapper in PREFILL_ARCHS.items():
+        cfg = get(arch)
+        model = build_model(cfg)
+        net = model.init(SEED)                    # the current GPU
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        tokens = torch.randint(0, cfg.vocab_size,
+                               (PREFILL_BATCH, PREFILL_LEN), device="cuda",
+                               generator=gen)
+        step = make_prefill_step(model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        calls = []
+        for _ in ("cold", "warm"):
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            logits = step(net, tokens)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            calls.append((wall, kernels.launches(), logits))
+        (cold, cold_counts, logits), (warm, warm_counts, warm_logits) = calls
+        tokens_n = PREFILL_BATCH * PREFILL_LEN
+        finite = bool(torch.isfinite(logits).all())
+        emit({"prefill": arch, "dtype": cfg.dtype, "batch": PREFILL_BATCH,
+              "prompt_len": PREFILL_LEN, "layers": cfg.n_layers,
+              "params": sum(p.numel() for p in net.parameters()),
+              "cold_s": cold, "warm_s": warm,
+              "cold_tokens_per_s": tokens_n / cold,
+              "warm_tokens_per_s": tokens_n / warm,
+              "max_memory_allocated": torch.cuda.max_memory_allocated(),
+              "launches_cold": cold_counts, "launches_warm": warm_counts,
+              "logits_shape": list(logits.shape), "logits_finite": finite,
+              "argmax": logits[:, -1].argmax(-1).tolist()})
+        check(tuple(logits.shape) == (PREFILL_BATCH, 1, cfg.vocab_size),
+              f"prefill {arch}: logits shape {tuple(logits.shape)}")
+        check(finite, f"prefill {arch}: non-finite logits")
+        check(torch.equal(logits, warm_logits),
+              f"prefill {arch}: the warm call's logits differ")
+        for counts in (cold_counts, warm_counts):
+            check(counts[wrapper] > 0, f"prefill {arch}: {wrapper} never "
+                  "launched")
+        for name, count in cold_counts.items():
+            totals[name] += count
+        del net, logits, warm_logits, calls
+        torch.cuda.empty_cache()
+    return totals
+
+
+# -- 6. the prefill path against the plain versions ---------------------------
+
+CHECK_LEN = 2304
+
+
+def prefill_against_cpu(torch):
+    import dataclasses
+    from repro_torch import kernels
+    from repro_torch.configs import get
+    from repro_torch.launch.prefill import make_prefill_step
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import Decoder
+    for arch, wrapper in PREFILL_ARCHS.items():
+        cfg = dataclasses.replace(get(arch), n_layers=2, dtype="float32")
+        model = build_model(cfg)
+        net = model.init(SEED, device="cuda")
+        net_cpu = Decoder(cfg, device="cpu")
+        net_cpu.load_state_dict({k: v.cpu()
+                                 for k, v in net.state_dict().items()})
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        tokens = torch.randint(0, cfg.vocab_size, (1, CHECK_LEN),
+                               device="cuda", generator=gen)
+        step = make_prefill_step(model)
+        kernels.reset_launches()
+        got = step(net, tokens)
+        torch.cuda.synchronize()
+        counts = kernels.launches()
+        t0 = time.perf_counter()
+        want = step(net_cpu, tokens.cpu())
+        cpu_s = time.perf_counter() - t0
+        got = got.cpu()
+        abs_err = float((got - want).abs().max())
+        rel_err = abs_err / float(want.abs().max())
+        same = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+        emit({"prefill_vs_cpu": arch, "layers": 2, "dtype": "float32",
+              "prompt_len": CHECK_LEN, "max_abs_err": abs_err,
+              "max_rel_err": rel_err, "tol": 1e-3, "argmax_equal": same,
+              "launches": counts, "cpu_s": cpu_s})
+        check(counts[wrapper] == 2, f"prefill vs cpu {arch}: {wrapper} "
+              f"launched {counts[wrapper]} times, not once a layer")
+        check(rel_err < 1e-3, f"prefill vs cpu {arch}: rel err "
+              f"{rel_err:.3e}")
+        check(same, f"prefill vs cpu {arch}: argmax differs")
+        del net, net_cpu
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

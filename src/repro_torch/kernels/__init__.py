@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels (sm_90a) for the linalg hot spots.
+"""Hand-written CUDA kernels (sm_90a): the linalg hot spots (K1-K3) and the
+LM prefill's attention and scan (K4, K5).
 
 Each kernel family keeps the reference's layout: ``ops.py`` holds the
 launch wrapper (``*_cuda``, with its launch count on ``.launches``) and the
@@ -13,8 +14,12 @@ from .matmul import matmul, matmul_cuda, matmul_ref
 from .trsm import trsm, trsm_diag_cuda, trsm_diag_ref, trsm_ref
 from .cholesky import (cholesky, cholesky_block_cuda, cholesky_block_ref,
                        cholesky_ref)
+from .flash_attention import (flash_attention, flash_attention_cuda,
+                              flash_attention_ref)
+from .ssm_scan import ssm_scan, ssm_scan_cuda, ssm_scan_ref
 
-LAUNCH_COUNTED = (matmul_cuda, trsm_diag_cuda, cholesky_block_cuda)
+LAUNCH_COUNTED = (matmul_cuda, trsm_diag_cuda, cholesky_block_cuda,
+                  flash_attention_cuda, ssm_scan_cuda)
 
 
 def reset_launches() -> None:

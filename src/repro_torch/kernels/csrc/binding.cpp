@@ -8,6 +8,8 @@
 
 #include <c10/cuda/CUDAException.h>
 
+#include <vector>
+
 #include "kernels.h"
 
 namespace {
@@ -46,6 +48,36 @@ void cholesky_block(i64 a, i64 l, int batch, int nb, i64 sa, i64 lda, i64 sl,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void flash_attention(i64 q, i64 k, i64 v, i64 o, int dtype, int batch,
+                     int heads, int kv_heads, int sq, int skv, int d,
+                     std::vector<i64> strides, double scale, bool causal,
+                     i64 stream) {
+  TORCH_CHECK(strides.size() == 12, "flash_attention: 12 strides");
+  repro_flash_attention(ptr<const void>(q), ptr<const void>(k),
+                        ptr<const void>(v), ptr<void>(o), dtype, batch, heads,
+                        kv_heads, sq, skv, d,
+                        reinterpret_cast<const long long*>(strides.data()),
+                        static_cast<float>(scale), causal ? 1 : 0,
+                        as_stream(stream));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// Returns false, having launched nothing, when the dk x dv state and one
+// chunk do not fit a block's shared memory; the wrapper raises.
+bool ssm_scan(i64 q, i64 k, i64 v, i64 log_a, i64 y, int dtype, int batch,
+              int heads, int s, int dk, int dv, std::vector<i64> strides,
+              i64 stream) {
+  TORCH_CHECK(strides.size() == 15, "ssm_scan: 15 strides");
+  const cudaError_t err = repro_ssm_scan(
+      ptr<const void>(q), ptr<const void>(k), ptr<const void>(v),
+      ptr<const float>(log_a), ptr<void>(y), dtype, batch, heads, s, dk, dv,
+      reinterpret_cast<const long long*>(strides.data()), as_stream(stream));
+  if (err == cudaErrorInvalidValue) return false;
+  TORCH_CHECK(err == cudaSuccess, cudaGetErrorString(err));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return true;
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -53,4 +85,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("trsm_diag", &trsm_diag, "K2: batched X U = B, one diagonal block");
   m.def("cholesky_block", &cholesky_block,
         "K3: batched Cholesky factor of one SPD block");
+  m.def("flash_attention", &flash_attention,
+        "K4: GQA forward attention with an online softmax");
+  m.def("ssm_scan", &ssm_scan, "K5: chunked decayed linear attention");
 }

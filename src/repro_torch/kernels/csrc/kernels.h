@@ -1,9 +1,10 @@
-// Plain C interface of the port's CUDA kernels (K1-K3).
+// Plain C interface of the port's CUDA kernels (K1-K5).
 //
 // Every launcher takes device pointers, element strides and the CUDA stream
 // the caller (PyTorch's current stream) wants the work on.  A launcher only
 // enqueues: it allocates nothing, does not synchronise and leaves the launch
-// status for the caller to check with cudaGetLastError().  Leading batch
+// status for the caller to check with cudaGetLastError() (K5 also returns
+// what it refused before launching).  Leading batch
 // dimensions (the stacked ranks of a process grid) run on blockIdx.z; a
 // batch stride of 0 shares one operand across the batch.
 #pragma once
@@ -36,6 +37,28 @@ void repro_trsm_diag(const float* u, const float* b, float* x, int batch,
 void repro_cholesky_block(const float* a, float* l, int batch, int nb,
                           long long sa, long long lda, long long sl,
                           long long ldl, cudaStream_t stream);
+
+// K4: o[b, h] = softmax(q[b, h] k[b, h / (H / KV)]^T * scale) v[b, h / (H /
+// KV)], causal or not, with q, o (batch, heads, sq, d) and k, v (batch,
+// kv_heads, skv, d) addressed by element strides, 12 of them in the order
+// (batch, head, row) for q, k, v, o; unit stride along d. d is 64, 96 or
+// 128; the type (REPRO_F32 or REPRO_BF16) is that of all four.
+void repro_flash_attention(const void* q, const void* k, const void* v,
+                           void* o, int dtype, int batch, int heads,
+                           int kv_heads, int sq, int skv, int d,
+                           const long long* strides, float scale, int causal,
+                           cudaStream_t stream);
+
+// K5: y[b, h] = the decayed linear attention of q, k (s, dk), v (s, dv) and
+// log_a (s,) <= 0 (fp32), addressed by element strides, 15 of them in the
+// order (batch, head, row) for q, k, v, log_a, y; unit stride along dk and
+// dv. q, k, v and y share the type (REPRO_F32 or REPRO_BF16). Returns
+// cudaErrorInvalidValue, and launches nothing, when the dk x dv state and
+// one chunk do not fit a block's shared memory on the current device.
+cudaError_t repro_ssm_scan(const void* q, const void* k, const void* v,
+                           const float* log_a, void* y, int dtype, int batch,
+                           int heads, int s, int dk, int dv,
+                           const long long* strides, cudaStream_t stream);
 
 #ifdef __cplusplus
 }

@@ -1,0 +1,2 @@
+from .ops import flash_attention, flash_attention_cuda
+from .ref import flash_attention_ref

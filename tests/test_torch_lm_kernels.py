@@ -1,0 +1,172 @@
+"""The port's attention and scan kernel wrappers (K4, K5) against the
+reference's, on the CPU.
+
+The same numpy-seeded inputs go through the reference's Pallas wrappers
+(interpret mode, as tests/test_kernels.py runs them) and through the port's
+wrappers on CPU tensors, which run the kernels' plain PyTorch versions.
+Tolerances: K4 fp32 2e-5 absolute (the reference's own); K5 fp32 1e-4
+relative (the chunked scan against the step-by-step recurrence); bf16
+3e-2 relative.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention as ref_flash
+from repro.kernels.ssm_scan import ssm_scan as ref_scan
+from repro_torch import kernels as tk
+from repro_torch.kernels.common import TilePlan
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _rel(got, ref):
+    g = np.asarray(got, np.float32)
+    r = np.asarray(ref, np.float32)
+    return np.abs(g - r).max() / max(np.abs(r).max(), 1e-6)
+
+
+def _both(x, dt="float32"):
+    """One numpy array as a reference (jnp) and a port (torch) operand."""
+    jdt, tdt = DTYPES[dt]
+    x = np.asarray(x, np.float32)
+    return jnp.asarray(x, jdt), torch.tensor(x).to(tdt)
+
+
+def _np(t):
+    return t.to(torch.float32).numpy()
+
+
+class TestFlashAttention:
+    @pytest.mark.parametrize("b,h,kv,s,d,causal", [
+        (2, 4, 2, 256, 64, True), (1, 8, 1, 384, 128, True),
+        (2, 4, 4, 300, 64, False), (1, 2, 2, 64, 64, True),
+        (1, 6, 3, 256, 96, True),
+    ])
+    def test_sweep(self, b, h, kv, s, d, causal):
+        rng = np.random.default_rng(b * 1000 + h * 100 + s + d)
+        jq, tq = _both(rng.standard_normal((b, h, s, d)))
+        jk, tk_ = _both(rng.standard_normal((b, kv, s, d)))
+        jv, tv = _both(rng.standard_normal((b, kv, s, d)))
+        got = tk.flash_attention(tq, tk_, tv, causal=causal)
+        want = ref_flash(jq, jk, jv, causal=causal)
+        assert got.shape == (b, h, s, d) and got.dtype == torch.float32
+        assert np.abs(_np(got) - np.asarray(want)).max() < 2e-5
+
+    def test_bf16(self):
+        rng = np.random.default_rng(7)
+        b, h, s, d = 1, 4, 256, 64
+        jq, tq = _both(rng.standard_normal((b, h, s, d)), "bfloat16")
+        jk, tk_ = _both(rng.standard_normal((b, h, s, d)), "bfloat16")
+        jv, tv = _both(rng.standard_normal((b, h, s, d)), "bfloat16")
+        got = tk.flash_attention(tq, tk_, tv)
+        assert got.dtype == torch.bfloat16
+        assert _rel(_np(got), ref_flash(jq, jk, jv)) < 3e-2
+
+    def test_identical_values_pass_through(self):
+        """Attention over identical values returns that value."""
+        rng = np.random.default_rng(8)
+        q = torch.tensor(rng.standard_normal((1, 2, 256, 64)),
+                         dtype=torch.float32)
+        k = torch.tensor(rng.standard_normal((1, 2, 256, 64)),
+                         dtype=torch.float32)
+        v = torch.full((1, 2, 256, 64), 3.25)
+        got = tk.flash_attention(q, k, v, causal=True)
+        assert torch.allclose(got, torch.full_like(got, 3.25), atol=1e-4)
+
+    def test_strided_heads_match_contiguous(self):
+        """q, k, v split out of a projection are transposed views; the
+        result does not depend on the layout."""
+        rng = np.random.default_rng(9)
+        x = torch.tensor(rng.standard_normal((2, 256, 8, 64)),
+                         dtype=torch.float32)
+        kv = torch.tensor(rng.standard_normal((2, 256, 2, 64)),
+                          dtype=torch.float32)
+        q, k = x.transpose(1, 2), kv.transpose(1, 2)
+        assert not q.is_contiguous()
+        got = tk.flash_attention(q, k, k)
+        want = tk.flash_attention(q.contiguous(), k.contiguous(),
+                                  k.contiguous())
+        assert torch.equal(got, want)
+
+    def test_wrong_family_plan_raises(self):
+        q = torch.zeros(1, 1, 128, 64)
+        plan = TilePlan.make("matmul", bm=128, bn=128, bk=128)
+        with pytest.raises(ValueError, match="matmul"):
+            tk.flash_attention(q, q, q, tiles=plan)
+        ok = TilePlan.make("flash_attention", bq=128, bkv=128)
+        assert tk.flash_attention(q, q, q, tiles=ok).shape == q.shape
+
+    def test_cpu_runs_the_plain_version_and_counts_no_launch(self):
+        rng = np.random.default_rng(10)
+        q = torch.tensor(rng.standard_normal((1, 2, 128, 32)),
+                         dtype=torch.float32)
+        before = tk.flash_attention_cuda.launches
+        got = tk.flash_attention_cuda(q, q, q, causal=True)
+        want = tk.flash_attention_ref(q[0], q[0], q[0], causal=True)
+        assert tk.flash_attention_cuda.launches == before
+        assert torch.equal(got[0], want)
+
+
+class TestSSMScan:
+    @pytest.mark.parametrize("b,h,s,dk,dv", [
+        (2, 2, 256, 64, 64), (1, 4, 300, 64, 128), (1, 1, 512, 128, 129),
+        (1, 2, 64, 32, 32),
+    ])
+    def test_sweep(self, b, h, s, dk, dv):
+        rng = np.random.default_rng(b * 100 + h * 10 + s + dk + dv)
+        jq, tq = _both(rng.standard_normal((b, h, s, dk)) * 0.3)
+        jk, tk_ = _both(rng.standard_normal((b, h, s, dk)) * 0.3)
+        jv, tv = _both(rng.standard_normal((b, h, s, dv)))
+        jla, tla = _both(-np.abs(rng.standard_normal((b, h, s))) * 0.1)
+        got = tk.ssm_scan(tq, tk_, tv, tla)
+        assert got.shape == (b, h, s, dv)
+        assert _rel(_np(got), ref_scan(jq, jk, jv, jla)) < 1e-4
+
+    def test_bf16(self):
+        rng = np.random.default_rng(11)
+        b, h, s, dk, dv = 1, 2, 256, 16, 64
+        jq, tq = _both(rng.standard_normal((b, h, s, dk)) * 0.3, "bfloat16")
+        jk, tk_ = _both(rng.standard_normal((b, h, s, dk)) * 0.3, "bfloat16")
+        jv, tv = _both(rng.standard_normal((b, h, s, dv)), "bfloat16")
+        jla, tla = _both(-np.abs(rng.standard_normal((b, h, s))) * 0.1)
+        got = tk.ssm_scan(tq, tk_, tv, tla)
+        assert got.dtype == torch.bfloat16
+        assert _rel(_np(got), ref_scan(jq, jk, jv, jla)) < 3e-2
+
+    def test_no_decay_equals_cumulative_linear_attention(self):
+        """log_a = 0 -> plain (unnormalized) linear attention prefix sums."""
+        rng = np.random.default_rng(12)
+        q, k = (rng.standard_normal((256, 32)) * 0.2 for _ in range(2))
+        v = rng.standard_normal((256, 32))
+        t = [torch.tensor(x, dtype=torch.float32)[None, None]
+             for x in (q, k, v)]
+        got = tk.ssm_scan(*t, torch.zeros(1, 1, 256))[0, 0].numpy()
+        want = np.tril(q @ k.T) @ v
+        assert np.abs(got - want).max() / np.abs(want).max() < 1e-4
+
+    def test_wrong_family_plan_raises(self):
+        q = torch.zeros(1, 1, 128, 16)
+        plan = TilePlan.make("flash_attention", bq=128, bkv=128)
+        with pytest.raises(ValueError, match="flash_attention"):
+            tk.ssm_scan(q, q, q, torch.zeros(1, 1, 128), tiles=plan)
+
+    def test_cpu_runs_the_plain_version_and_counts_no_launch(self):
+        rng = np.random.default_rng(13)
+        q = torch.tensor(rng.standard_normal((1, 1, 128, 8)),
+                         dtype=torch.float32)
+        la = -torch.rand(1, 1, 128, generator=torch.Generator().manual_seed(0))
+        before = tk.ssm_scan_cuda.launches
+        got = tk.ssm_scan_cuda(q, q, q, la)
+        assert tk.ssm_scan_cuda.launches == before
+        assert torch.equal(got[0], tk.ssm_scan_ref(q[0], q[0], q[0], la[0]))
+
+
+def test_launch_counters_cover_k4_and_k5():
+    tk.reset_launches()
+    counts = tk.launches()
+    assert {"flash_attention_cuda", "ssm_scan_cuda"} <= set(counts)
+    assert all(c == 0 for c in counts.values())
