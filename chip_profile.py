@@ -31,9 +31,10 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 N = 16384
 TOP = 8
-# the prefill calls, each with its kernel's CUDA function name
-PREFILL = (("starcoder2-3b", "flash_kernel"), ("hymba-1.5b",
-                                                "ssm_scan_kernel"))
+# the prefill calls, each with its kernel's CUDA function name (K4's bf16
+# body: flash_tc_kernel)
+PREFILL = (("starcoder2-3b", "flash_tc_kernel"), ("hymba-1.5b",
+                                                   "ssm_scan_kernel"))
 BATCH = 4
 PROMPT_LEN = 4096
 # cuBLAS's matrix product kernels (nvjet_* are its Hopper kernels); those

@@ -48,17 +48,24 @@ void cholesky_block(i64 a, i64 l, int batch, int nb, i64 sa, i64 lda, i64 sl,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// Raises, having launched nothing, for a head dim other than 64, 96 and 128
+// and for bf16 operands that the TMA loads cannot take.
 void flash_attention(i64 q, i64 k, i64 v, i64 o, int dtype, int batch,
                      int heads, int kv_heads, int sq, int skv, int d,
                      std::vector<i64> strides, double scale, bool causal,
                      i64 stream) {
   TORCH_CHECK(strides.size() == 12, "flash_attention: 12 strides");
-  repro_flash_attention(ptr<const void>(q), ptr<const void>(k),
-                        ptr<const void>(v), ptr<void>(o), dtype, batch, heads,
-                        kv_heads, sq, skv, d,
-                        reinterpret_cast<const long long*>(strides.data()),
-                        static_cast<float>(scale), causal ? 1 : 0,
-                        as_stream(stream));
+  const cudaError_t err = repro_flash_attention(
+      ptr<const void>(q), ptr<const void>(k), ptr<const void>(v),
+      ptr<void>(o), dtype, batch, heads, kv_heads, sq, skv, d,
+      reinterpret_cast<const long long*>(strides.data()),
+      static_cast<float>(scale), causal ? 1 : 0, as_stream(stream));
+  TORCH_CHECK(err != cudaErrorInvalidValue,
+              "flash_attention: head dim must be 64, 96 or 128");
+  TORCH_CHECK(err != cudaErrorMisalignedAddress,
+              "flash_attention: bf16 q, k and v must be 16-byte aligned, "
+              "with strides that are multiples of 8 elements");
+  TORCH_CHECK(err == cudaSuccess, cudaGetErrorString(err));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 

@@ -3,10 +3,10 @@
 // Every launcher takes device pointers, element strides and the CUDA stream
 // the caller (PyTorch's current stream) wants the work on.  A launcher only
 // enqueues: it allocates nothing, does not synchronise and leaves the launch
-// status for the caller to check with cudaGetLastError() (K5 also returns
-// what it refused before launching).  Leading batch
-// dimensions (the stacked ranks of a process grid) run on blockIdx.z; a
-// batch stride of 0 shares one operand across the batch.
+// status for the caller to check with cudaGetLastError() (K4 and K5 also
+// return what they refused before launching).  Leading batch dimensions (the
+// stacked ranks of a process grid) run on blockIdx.z; a batch stride of 0
+// shares one operand across the batch.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -41,13 +41,17 @@ void repro_cholesky_block(const float* a, float* l, int batch, int nb,
 // K4: o[b, h] = softmax(q[b, h] k[b, h / (H / KV)]^T * scale) v[b, h / (H /
 // KV)], causal or not, with q, o (batch, heads, sq, d) and k, v (batch,
 // kv_heads, skv, d) addressed by element strides, 12 of them in the order
-// (batch, head, row) for q, k, v, o; unit stride along d. d is 64, 96 or
-// 128; the type (REPRO_F32 or REPRO_BF16) is that of all four.
-void repro_flash_attention(const void* q, const void* k, const void* v,
-                           void* o, int dtype, int batch, int heads,
-                           int kv_heads, int sq, int skv, int d,
-                           const long long* strides, float scale, int causal,
-                           cudaStream_t stream);
+// (batch, head, row) for q, k, v, o; unit stride along d. The type
+// (REPRO_F32 or REPRO_BF16) is that of all four: fp32 runs on the CUDA
+// cores, bf16 on the tensor cores with TMA loads. Launches nothing and
+// returns cudaErrorInvalidValue unless d is 64, 96 or 128, and
+// cudaErrorMisalignedAddress for bf16 operands that TMA cannot load (q, k
+// and v 16-byte aligned, their strides multiples of 8 elements).
+cudaError_t repro_flash_attention(const void* q, const void* k, const void* v,
+                                  void* o, int dtype, int batch, int heads,
+                                  int kv_heads, int sq, int skv, int d,
+                                  const long long* strides, float scale,
+                                  int causal, cudaStream_t stream);
 
 // K5: y[b, h] = the decayed linear attention of q, k (s, dk), v (s, dv) and
 // log_a (s,) <= 0 (fp32), addressed by element strides, 15 of them in the

@@ -27,12 +27,27 @@ def _ref4(q, k, v, causal):
         v.reshape(b * kv, skv, d), causal=causal).reshape(b, h, s, d)
 
 
+def loadable(t: torch.Tensor) -> bool:
+    """Whether K4 takes ``t`` as it lies: unit stride along D and, for the
+    bf16 body's TMA loads, a 16-byte aligned start and (batch, head, row)
+    strides that are multiples of 8 elements wherever the axis is longer
+    than 1."""
+    if t.stride(-1) != 1:
+        return False
+    if t.dtype != torch.bfloat16:
+        return True
+    return t.data_ptr() % 16 == 0 and all(
+        st % 8 == 0 for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1)
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True) -> torch.Tensor:
     """K4 (``csrc/flash_attention.cu``), the counterpart of the reference's
     ``flash_attention_pallas``: q (B, H, Sq, D), k and v (B, KV, Skv, D),
-    any strides with unit stride along D, scaled by D^-0.5.  CPU tensors
-    take the plain version; CUDA tensors launch the kernel or raise."""
+    scaled by D^-0.5; operands the kernel cannot take as they lie (see
+    :func:`loadable`) are copied first.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel (fp32: the FFMA body; bf16: the
+    tensor-core body) or raise."""
     b, h, sq, d = q.shape
     _, kv, skv, _ = k.shape
     if all(t.device.type == "cpu" for t in (q, k, v)):
@@ -50,7 +65,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not match")
     if causal and sq != skv:
         raise ValueError("flash_attention: causal needs Sq == Skv")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    q, k, v = (t if loadable(t) else t.clone(
+        memory_format=torch.contiguous_format) for t in (q, k, v))
     out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     if out.numel():
         strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]

@@ -6,7 +6,9 @@ The same numpy-seeded inputs go through the reference's Pallas wrappers
 wrappers on CPU tensors, which run the kernels' plain PyTorch versions.
 Tolerances: K4 fp32 2e-5 absolute (the reference's own); K5 fp32 1e-4
 relative (the chunked scan against the step-by-step recurrence); bf16
-3e-2 relative.
+3e-2 relative.  K4's bf16 body is held on the card to 8e-3 of each output
+row's largest value; ``TestTensorCoreNumerics`` shows here that its
+arithmetic fits that budget.
 """
 
 import jax.numpy as jnp
@@ -15,9 +17,11 @@ import pytest
 import torch
 
 from repro.kernels.flash_attention import flash_attention as ref_flash
+from repro.kernels.flash_attention import flash_attention_ref as ref_flash_ref
 from repro.kernels.ssm_scan import ssm_scan as ref_scan
 from repro_torch import kernels as tk
 from repro_torch.kernels.common import TilePlan
+from repro_torch.kernels.flash_attention.ops import _ref4, loadable
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -109,6 +113,90 @@ class TestFlashAttention:
         want = tk.flash_attention_ref(q[0], q[0], q[0], causal=True)
         assert tk.flash_attention_cuda.launches == before
         assert torch.equal(got[0], want)
+
+
+def _tensor_core_numerics(q, k, v, causal, bkv=128):
+    """K4's bf16 body, its arithmetic in plain PyTorch on (B, H, S, D) bf16
+    operands: fp32 products and sums of the bf16 values, key tiles of
+    ``bkv`` with a running max and sum, S scaled in fp32 after the product,
+    P rounded to bf16 before P V, l summed in fp32 from the unrounded P,
+    and the output divided by l and rounded to bf16 once."""
+    b, h, s, d = q.shape
+    group = h // k.shape[1]
+    qf = q.float()
+    kf = k.float().repeat_interleave(group, 1)
+    vf = v.float().repeat_interleave(group, 1)
+    m = torch.full((b, h, s, 1), -1e30)
+    l = torch.zeros(b, h, s, 1)
+    acc = torch.zeros(b, h, s, d)
+    rows = torch.arange(s)[:, None]
+    for k0 in range(0, k.shape[2], bkv):
+        sc = torch.einsum("bhqd,bhkd->bhqk", qf,
+                          kf[:, :, k0:k0 + bkv]) * d ** -0.5
+        if causal:
+            cols = k0 + torch.arange(sc.shape[-1])[None, :]
+            sc = torch.where(rows >= cols, sc, -1e30)
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        p = torch.exp(sc - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum(
+            "bhqk,bhkd->bhqd", p.bfloat16().float(), vf[:, :, k0:k0 + bkv])
+        m = m_new
+    return (acc / torch.where(l == 0, 1.0, l)).bfloat16()
+
+
+def _row_err(got, want):
+    """Largest error of an output row relative to the row's largest
+    value, the measure the card's check takes."""
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    return (np.abs(got - want).max(-1)
+            / np.maximum(np.abs(want).max(-1), 1e-30)).max()
+
+
+class TestTensorCoreNumerics:
+    """The bf16 body's error budget on the CPU: one bf16 rounding of the
+    output (at most 2^-8 of a value, 3.9e-3) and P's rounding before P V
+    (errors of either sign, about 1e-3 of a row's largest value) stay
+    within the 8e-3 per row that the card's check allows, against the fp32
+    plain version and against the reference's jnp version."""
+
+    @pytest.mark.parametrize("b,h,kv,s,d,causal", [
+        (1, 4, 1, 512, 128, True), (2, 4, 4, 300, 64, False),
+        (1, 6, 3, 256, 96, True), (1, 8, 1, 384, 128, True),
+    ])
+    def test_within_budget(self, b, h, kv, s, d, causal):
+        rng = np.random.default_rng(b * 1000 + h * 100 + s + d + 5)
+        q, k, v = (torch.tensor(rng.standard_normal((b, n, s, d)),
+                                dtype=torch.float32).bfloat16()
+                   for n in (h, kv, kv))
+        got = _tensor_core_numerics(q, k, v, causal)
+        want = _ref4(q.float(), k.float(), v.float(), causal)
+        jq, jk, jv = (jnp.asarray(t.float().reshape(-1, s, d).numpy())
+                      for t in (q, k, v))
+        jax_want = np.asarray(ref_flash_ref(jq, jk, jv, causal=causal))
+        assert got.dtype == torch.bfloat16
+        assert _row_err(_np(got), _np(want)) < 8e-3
+        assert _row_err(_np(got).reshape(-1, s, d), jax_want) < 8e-3
+        # the budget is spent: the emulation is not the fp32 result
+        assert _row_err(_np(got), _np(want)) > 1e-4
+
+    def test_loadable(self):
+        """Operands K4 takes as they lie, and those the wrapper copies
+        first: the bf16 body's TMA loads need a 16-byte aligned start and
+        strides in multiples of 8 elements."""
+        proj = torch.zeros(2, 256, 4 * 64, dtype=torch.bfloat16)
+        heads = proj.unflatten(-1, (4, 64)).transpose(1, 2)
+        assert loadable(heads) and loadable(heads.contiguous())
+        # rows of 4 * 64 + 4 elements: a row stride of 260
+        wide = torch.zeros(2, 256, 4 * 64 + 4, dtype=torch.bfloat16)
+        odd = wide[..., :256].unflatten(-1, (4, 64)).transpose(1, 2)
+        assert not loadable(odd)
+        assert loadable(odd.float())          # fp32 takes any row stride
+        shifted = proj.flatten()[4:4 + 256 * 64].view(1, 1, 256, 64)
+        assert shifted.data_ptr() % 16 == 8 and not loadable(shifted)
+        assert not loadable(heads.transpose(-1, -2))
 
 
 class TestSSMScan:

@@ -236,3 +236,32 @@ def test_prefill_main_runs_on_the_cpu(arch, capsys):
     assert [line.split()[0] for line in out[:4]] == ["[0]", "[1]", "[2]",
                                                     "[3]"]
     assert out[-1].startswith(f"prefill {arch} B=4 S=8 on cpu")
+
+
+@pytest.mark.parametrize("d_model,n_heads", [(512, 4), (1024, 8)])
+def test_bf16_prefill_stays_near_fp32(d_model, n_heads):
+    """chip_smoke.py holds the card's bf16 starcoder2-3b prefill (depth 2,
+    S = 2304, K4's tensor-core body) to the CPU's fp32 run of the same
+    bf16-valued weights within 2e-2 of the largest logit.  The CPU's own
+    bf16 run of that path at reduced widths (head dim 128 as on the card,
+    the full vocabulary), which rounds the activations at every layer as
+    the card does, lands within 1e-2: the tolerance leaves room for the
+    card's other summation orders and P's rounding in K4."""
+    base = get("starcoder2-3b")
+    cfg = dataclasses.replace(
+        base.reduced(d_model=d_model, n_heads=n_heads,
+                     vocab=base.vocab_size), dtype="bfloat16")
+    assert cfg.hd == 128
+    model = build_model(cfg)
+    net = model.init(0, device="cpu")
+    net32 = transformer.Decoder(dataclasses.replace(cfg, dtype="float32"),
+                                device="cpu")
+    net32.load_state_dict({k: v.float() for k, v in net.state_dict().items()})
+    tokens = torch.from_numpy(np.random.default_rng(d_model).integers(
+        0, cfg.vocab_size, (1, 2304)))
+    step = prefill.make_prefill_step(model)
+    got = step(net, tokens)
+    want = step(net32, tokens)
+    assert got.dtype == torch.bfloat16
+    rel = float((got.float() - want).abs().max() / want.abs().max())
+    assert rel < 1e-2
