@@ -11,8 +11,14 @@ time of the profiled call, the device time summed over device-side events
 again and are left out), the device-busy share of the wall time, and the
 kernels by device time; for a prefill also the device time of K4 or K5
 against cuBLAS's bf16 and fp32 products against the rest.  Builds the
-CUDA kernels first, as chip_smoke.py does.  Exits non-zero without a CUDA
-device or when a profile holds no device time.
+CUDA kernels first, as chip_smoke.py does, and prints what ptxas reports
+for each kernel function of the sources (registers, spills, static shared
+memory; nvcc -Xptxas -v with the build's flags).  Last, the device time
+of one call of K2 and K3 at the shapes chip_smoke.py checks, and of the
+library call beside each (the profiler's device events only: at small
+shapes the CUDA-event times of chip_smoke.py are the wrappers' host
+time).  Exits non-zero without a CUDA device or when a profile holds no
+device time.
 
 Usage, from the root of a checkout on a machine with a CUDA GPU:
 
@@ -25,6 +31,7 @@ import json
 import os
 import re
 import shutil
+import subprocess
 import sys
 import time
 
@@ -54,6 +61,7 @@ def main() -> int:
     from repro_torch.tuner import PlanCache, Tuner
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.extension()
+    ptxas_report(_build)
     plan_dir = os.path.join(HERE, "build", "profile_plans")
     shutil.rmtree(plan_dir, ignore_errors=True)
     tuner = Tuner(cache=PlanCache(plan_dir))
@@ -105,7 +113,80 @@ def main() -> int:
             return 1
         del net
         torch.cuda.empty_cache()
+    kernel_device_times(torch, gen)
     return 0
+
+
+def kernel_device_times(torch, gen) -> None:
+    """Device time per call of K2 and K3 and of the library call computing
+    the same function, at the shapes chip_smoke.py checks; one JSON line
+    each."""
+    from repro_torch.kernels import cholesky_block_cuda, trsm_diag_cuda
+    dev = torch.device("cuda")
+    for nb, m, ldb in ((256, N - 256, None), (512, N - 512, None),
+                       (1024, N - 1024, None), (256, 256, None),
+                       (256, N, N), (130, 1000, None)):
+        u = (torch.triu(torch.randn(nb, nb, device=dev, generator=gen), 1)
+             / nb ** 0.5 + 4.0 * torch.eye(nb, device=dev))
+        if ldb:
+            b = torch.randn(m, ldb, device=dev, generator=gen)[:, nb:2 * nb]
+        else:
+            b = torch.randn(m, nb, device=dev, generator=gen)
+        print(json.dumps({
+            "kernel": "K2 trsm_diag", "nb": nb, "m": m, "ldb": b.stride(0),
+            "device_ms": device_ms(torch, lambda: trsm_diag_cuda(u, b)),
+            "library_device_ms": device_ms(
+                torch, lambda: torch.linalg.solve_triangular(
+                    u, b, upper=True, left=False))}), flush=True)
+        del u, b
+    for nb in (256, 200, 130, 512, 1024):
+        g = torch.randn(nb, nb, device=dev, generator=gen)
+        a = g @ g.mT + nb * torch.eye(nb, device=dev)
+        print(json.dumps({
+            "kernel": "K3 cholesky_block", "nb": nb,
+            "device_ms": device_ms(torch, lambda: cholesky_block_cuda(a)),
+            "library_device_ms": device_ms(
+                torch, lambda: torch.linalg.cholesky(a))}), flush=True)
+
+
+def device_ms(torch, fn, reps: int = 10) -> float:
+    """Device time of one call of ``fn``: the device-side events of
+    ``reps`` calls under the profiler, summed, over ``reps``."""
+    fn()
+    return profiled(torch, lambda: [fn() for _ in range(reps)])[
+        "device_ms"] / reps
+
+
+def ptxas_report(build) -> None:
+    """One JSON line per kernel function of each ``.cu`` source, as ptxas
+    reports it when the source is compiled again with the build's flags and
+    ``-Xptxas -v`` (to /dev/null)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
+    for src in build.sources():
+        if not src.endswith(".cu"):
+            continue
+        res = subprocess.run(
+            [nvcc, *build.CUDA_FLAGS, "-Xptxas", "-v", "-c", src, "-o",
+             os.devnull], capture_output=True, text=True, check=True)
+        entry = None
+        for line in res.stderr.splitlines():
+            name = re.search(r"Compiling entry function '(\w+)'", line)
+            if name:
+                entry = {"ptxas": os.path.basename(src),
+                         "function": name.group(1)}
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                               r"spill loads", line)
+            if spills and entry is not None:
+                entry["spill_stores"] = int(spills.group(1))
+                entry["spill_loads"] = int(spills.group(2))
+            regs = re.search(r"Used (\d+) registers", line)
+            if regs and entry is not None:
+                smem = re.search(r"(\d+) bytes smem", line)
+                entry["registers"] = int(regs.group(1))
+                entry["static_smem"] = int(smem.group(1)) if smem else 0
+                print(json.dumps(entry), flush=True)
+                entry = None
 
 
 def profiled(torch, fn):

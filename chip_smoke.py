@@ -5,11 +5,12 @@
    CUDA kernels from this checkout's sources (``build/torch_ext/``).
 2. Holds each kernel (K1 matmul, K2 diagonal-block trsm, K3 block Cholesky,
    K4 flash attention, K5 the SSD scan) to its plain PyTorch version on the
-   card at its path's shapes (K4 and K5 there in the path's layouts, with
-   the error taken per output row), and times kernel, plain version and
-   the nearest single PyTorch call with CUDA events; K4's launcher must
-   refuse a head dim it has no body for, and K5 a state that does not fit
-   a block.
+   card at its path's shapes (K2 also on a strided B and at the Cholesky's
+   last panel, K3 also at a ragged width; K4 and K5 in the path's layouts,
+   with the error taken per output row), and times kernel, plain version
+   and the nearest single PyTorch call with CUDA events; K3's launcher must
+   refuse a block wider than one CTA holds, K4's a head dim it has no body
+   for, and K5 a state that does not fit a block.
 3. Drives the linalg path: ``repro_torch.linalg.matmul / trsm / cholesky``
    at n = 16384, fp32, on the default devices (one card, p = 1), with the
    kernels' launch counts set to 0 before each call and read after it, and
@@ -218,15 +219,28 @@ def kernel_checks(torch):
 
     # K2 and K3 at the main path's block (256: the Cholesky panel's first
     # shape and the diagonal block) and at the wider blocks a profile with
-    # kernel constants may plan (perf/kernel.py candidate_tiles): 512 takes
-    # K3's in-place body (nb > 336) and both take wider strips.  The bytes
-    # count what each function needs: U's upper and A's lower triangle.
-    for nb, reps in ((256, 20), (512, 5), (1024, 2)):
-        m = N_MAIN - nb
+    # kernel constants may plan (perf/kernel.py candidate_tiles): above 336
+    # K3 is a composition of K3, K2 and K1 launches.  Besides: K3 at a
+    # ragged 200 (the last panel 8 wide), K2 at the Cholesky's last panel
+    # (B 256 x 256: 4 strips of 64 rows) and K2 on a column slice of a
+    # 16384-wide B (row stride 16384), as the trsm path hands it over; and
+    # each at 130, whose rows are not 16-byte aligned, so the kernels take
+    # their 4-byte copies.  The bytes count what each function needs: U's
+    # upper and A's lower triangle.
+    for nb, m, ldb, reps in ((256, N_MAIN - 256, None, 20),
+                             (512, N_MAIN - 512, None, 5),
+                             (1024, N_MAIN - 1024, None, 2),
+                             (256, 256, None, 20),
+                             (256, N_MAIN, N_MAIN, 20),
+                             (130, 1000, None, 20)):
         u = (torch.triu(torch.randn(nb, nb, device=dev, generator=gen), 1)
              / nb ** 0.5 + 4.0 * torch.eye(nb, device=dev))
-        b = torch.randn(m, nb, device=dev, generator=gen)
-        entry(f"K2 trsm_diag U {nb}x{nb}, B {m}x{nb} f32", "trsm_diag_cuda",
+        if ldb:
+            b = torch.randn(m, ldb, device=dev, generator=gen)[:, nb:2 * nb]
+        else:
+            b = torch.randn(m, nb, device=dev, generator=gen)
+        entry(f"K2 trsm_diag U {nb}x{nb}, B {m}x{nb} f32"
+              + (f" (row stride {ldb})" if ldb else ""), "trsm_diag_cuda",
               "src/repro_torch/kernels/csrc/trsm.cu",
               "src/repro/kernels/trsm/trsm.py:57", [m, nb],
               trsm_diag_cuda(u, b), trsm_diag_ref(u, b), 1e-4,
@@ -235,11 +249,16 @@ def kernel_checks(torch):
               lambda u=u, b=b: torch.linalg.solve_triangular(
                   u, b, upper=True, left=False),
               reps, float(m) * nb * nb, PEAK_FP32,
-              (nb * (nb + 1) // 2 + 2 * m * nb) * 4)
+              (nb * (nb + 1) // 2 + 2 * m * nb) * 4,
+              layout=f"row stride {ldb}" if ldb else "contiguous")
+        del u, b
 
+    for nb, reps in ((256, 20), (200, 20), (130, 20), (512, 5), (1024, 2)):
         g = torch.randn(nb, nb, device=dev, generator=gen)
         a = g @ g.mT + nb * torch.eye(nb, device=dev)
-        entry(f"K3 cholesky_block {nb}x{nb} f32", "cholesky_block_cuda",
+        entry(f"K3 cholesky_block {nb}x{nb} f32"
+              + (" (K3 + K2 + K1)" if nb > 336 else ""),
+              "cholesky_block_cuda",
               "src/repro_torch/kernels/csrc/cholesky.cu",
               "src/repro/kernels/cholesky/cholesky.py:47", [nb],
               cholesky_block_cuda(a), cholesky_block_ref(a), 1e-4,
@@ -247,6 +266,7 @@ def kernel_checks(torch):
               lambda a=a: cholesky_block_ref(a),
               lambda a=a: torch.linalg.cholesky(a), reps, nb ** 3 / 3.0,
               PEAK_FP32, (nb * (nb + 1) // 2 + nb * nb) * 4)
+    k3_refuses_width(torch, cholesky_block_cuda)
     return out
 
 
@@ -402,6 +422,32 @@ def k4_refuses_head_dim(torch, wrapper):
               f"K4's launcher took d = 80 in {dt}")
         check(untouched and counted == 0,
               f"K4 ran or counted a d = 80 launch in {dt}")
+
+
+def k3_refuses_width(torch, wrapper):
+    """One K3 launch factors at most 336 columns (the wrapper composes
+    wider blocks): given 337, the binding raises and nothing runs.  The
+    binding is called directly, past the wrapper."""
+    from repro_torch.kernels import _build
+    nb = 337
+    a = torch.eye(nb, device="cuda")
+    out = torch.full_like(a, float("nan"))
+    before = wrapper.launches
+    try:
+        _build.extension().cholesky_block(
+            a.data_ptr(), out.data_ptr(), 1, nb, a.stride(0), a.stride(0),
+            out.stride(0), out.stride(0),
+            torch.cuda.current_stream().cuda_stream)
+        refused = ""
+    except RuntimeError as exc:
+        refused = str(exc).splitlines()[0]
+    torch.cuda.synchronize()
+    untouched = bool(torch.isnan(out).all())
+    counted = wrapper.launches - before
+    emit({"k3_refuses_width": nb, "message": refused,
+          "output_untouched": untouched, "launches_counted": counted})
+    check("one launch factors" in refused, "K3's launcher took nb = 337")
+    check(untouched and counted == 0, "K3 ran or counted an nb = 337 launch")
 
 
 def mm_takes_out_dtype(torch) -> bool:

@@ -34,17 +34,28 @@ void matmul(i64 a, i64 b, i64 c, int in_type, int out_type, int batch, int m,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// Raises, having launched nothing, for an empty m or nb.
 void trsm_diag(i64 u, i64 b, i64 x, int batch, int m, int nb, i64 su,
                i64 ldu, i64 sb, i64 ldb, i64 sx, i64 ldx, i64 stream) {
-  repro_trsm_diag(ptr<const float>(u), ptr<const float>(b), ptr<float>(x),
-                  batch, m, nb, su, ldu, sb, ldb, sx, ldx, as_stream(stream));
+  const cudaError_t err = repro_trsm_diag(
+      ptr<const float>(u), ptr<const float>(b), ptr<float>(x), batch, m, nb,
+      su, ldu, sb, ldb, sx, ldx, as_stream(stream));
+  TORCH_CHECK(err != cudaErrorInvalidValue,
+              "trsm_diag: m and nb must be positive");
+  TORCH_CHECK(err == cudaSuccess, cudaGetErrorString(err));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// Raises, having launched nothing, for a block wider than one CTA holds
+// (336 columns) and when the CTA's shared-memory limit cannot be raised.
 void cholesky_block(i64 a, i64 l, int batch, int nb, i64 sa, i64 lda, i64 sl,
                     i64 ldl, i64 stream) {
-  repro_cholesky_block(ptr<const float>(a), ptr<float>(l), batch, nb, sa, lda,
-                       sl, ldl, as_stream(stream));
+  const cudaError_t err =
+      repro_cholesky_block(ptr<const float>(a), ptr<float>(l), batch, nb, sa,
+                           lda, sl, ldl, as_stream(stream));
+  TORCH_CHECK(err != cudaErrorInvalidValue,
+              "cholesky_block: one launch factors 1 to 336 columns");
+  TORCH_CHECK(err == cudaSuccess, cudaGetErrorString(err));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 

@@ -3,10 +3,10 @@
 // Every launcher takes device pointers, element strides and the CUDA stream
 // the caller (PyTorch's current stream) wants the work on.  A launcher only
 // enqueues: it allocates nothing, does not synchronise and leaves the launch
-// status for the caller to check with cudaGetLastError() (K4 and K5 also
-// return what they refused before launching).  Leading batch dimensions (the
-// stacked ranks of a process grid) run on blockIdx.z; a batch stride of 0
-// shares one operand across the batch.
+// status for the caller to check with cudaGetLastError() (K2-K5 also return
+// what they refused, or what failed, before launching).  Leading batch
+// dimensions (the stacked ranks of a process grid) run on blockIdx.z; a
+// batch stride of 0 shares one operand across the batch.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -26,17 +26,22 @@ void repro_matmul(const void* a, const void* b, void* c, int in_type,
                   long long sc, long long ldc, cudaStream_t stream);
 
 // K2: X[z] U[z] = B[z] for one upper-triangular diagonal block U (nb, nb);
-// B and X are (m, nb); fp32.
-void repro_trsm_diag(const float* u, const float* b, float* x, int batch,
-                     int m, int nb, long long su, long long ldu, long long sb,
-                     long long ldb, long long sx, long long ldx,
-                     cudaStream_t stream);
+// B and X are (m, nb); fp32.  Returns cudaErrorInvalidValue, and launches
+// nothing, unless m and nb are positive.
+cudaError_t repro_trsm_diag(const float* u, const float* b, float* x,
+                            int batch, int m, int nb, long long su,
+                            long long ldu, long long sb, long long ldb,
+                            long long sx, long long ldx, cudaStream_t stream);
 
 // K3: L[z] L[z]^T = A[z] for one SPD block (nb, nb); L is lower-triangular
-// with its upper triangle written as zeros; fp32.
-void repro_cholesky_block(const float* a, float* l, int batch, int nb,
-                          long long sa, long long lda, long long sl,
-                          long long ldl, cudaStream_t stream);
+// with its upper triangle written as zeros; fp32.  Returns
+// cudaErrorInvalidValue, and launches nothing, unless 1 <= nb <= 336 (the
+// widest block one CTA holds; the wrapper composes wider ones), and the
+// error of raising the CTA's shared-memory limit if that fails.
+cudaError_t repro_cholesky_block(const float* a, float* l, int batch,
+                                 int nb, long long sa, long long lda,
+                                 long long sl, long long ldl,
+                                 cudaStream_t stream);
 
 // K4: o[b, h] = softmax(q[b, h] k[b, h / (H / KV)]^T * scale) v[b, h / (H /
 // KV)], causal or not, with q, o (batch, heads, sq, d) and k, v (batch,

@@ -37,19 +37,30 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
                          f"{tuple(b.shape)} do not contract")
     batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
     a3, b3 = as_batched(a, batch), as_batched(b, batch)
-    out = torch.empty((a3.shape[0], m, n), dtype=out_dtype, device=a.device)
-    if out.numel():
-        with torch.cuda.device(a.device):
-            _build.extension().matmul(
-                a3.data_ptr(), b3.data_ptr(), out.data_ptr(),
-                _CODES[a.dtype], _CODES[out_dtype], out.shape[0], m, n, k,
-                a3.stride(0), a3.stride(1), b3.stride(0), b3.stride(1),
-                out.stride(0), out.stride(1), stream_of(a))
-        matmul_cuda.launches += 1
+    if a3.shape[0] * m * n == 0:
+        return torch.empty((*batch, m, n), dtype=out_dtype, device=a.device)
+    with torch.cuda.device(a.device):
+        out = launch_matmul(a3, b3, out_dtype, stream_of(a))
     return out.reshape(*batch, m, n)
 
 
 matmul_cuda.launches = 0
+
+
+def launch_matmul(a3: torch.Tensor, b3: torch.Tensor,
+                  out_dtype: torch.dtype, stream: int) -> torch.Tensor:
+    """One K1 launch, counted on ``matmul_cuda``, for operands that are
+    already checked: (batch, m, k) and (batch, k, n) of one type the kernel
+    takes, on the current CUDA device, unit column stride."""
+    batch, m, k = a3.shape
+    n = b3.shape[-1]
+    out = torch.empty((batch, m, n), dtype=out_dtype, device=a3.device)
+    _build.extension().matmul(
+        a3.data_ptr(), b3.data_ptr(), out.data_ptr(), _CODES[a3.dtype],
+        _CODES[out_dtype], batch, m, n, k, a3.stride(0), a3.stride(1),
+        b3.stride(0), b3.stride(1), out.stride(0), out.stride(1), stream)
+    matmul_cuda.launches += 1
+    return out
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *,

@@ -28,18 +28,31 @@ def trsm_diag_cuda(u: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                          f"{tuple(b.shape)} do not match")
     batch = torch.broadcast_shapes(u.shape[:-2], b.shape[:-2])
     u3, b3 = as_batched(u, batch), as_batched(b, batch)
-    x = torch.empty((b3.shape[0], m, nb), dtype=b.dtype, device=b.device)
-    if x.numel():
-        with torch.cuda.device(b.device):
-            _build.extension().trsm_diag(
-                u3.data_ptr(), b3.data_ptr(), x.data_ptr(), x.shape[0], m,
-                nb, u3.stride(0), u3.stride(1), b3.stride(0), b3.stride(1),
-                x.stride(0), x.stride(1), stream_of(b))
-        trsm_diag_cuda.launches += 1
+    if b3.numel() == 0:
+        return torch.empty((*batch, m, nb), dtype=b.dtype, device=b.device)
+    with torch.cuda.device(b.device):
+        x = launch_trsm_diag(u3, b3, stream_of(b))
     return x.reshape(*batch, m, nb)
 
 
 trsm_diag_cuda.launches = 0
+
+
+def launch_trsm_diag(u3: torch.Tensor, b3: torch.Tensor, stream: int,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One K2 launch, counted on ``trsm_diag_cuda``, for operands that are
+    already checked: fp32 (batch, nb, nb) and (batch, m, nb) on the current
+    CUDA device, unit column stride; X goes into ``out`` (any row stride)
+    or a new tensor.  Skips the wrapper's checks, for callers that launch
+    many small solves (the blocked Cholesky)."""
+    x = out if out is not None else torch.empty(
+        b3.shape, dtype=b3.dtype, device=b3.device)
+    _build.extension().trsm_diag(
+        u3.data_ptr(), b3.data_ptr(), x.data_ptr(), x.shape[0], x.shape[1],
+        x.shape[2], u3.stride(0), u3.stride(1), b3.stride(0), b3.stride(1),
+        x.stride(0), x.stride(1), stream)
+    trsm_diag_cuda.launches += 1
+    return x
 
 
 def trsm(u: torch.Tensor, b: torch.Tensor, *, block: int = 256,

@@ -18,6 +18,8 @@ from repro.kernels import matmul as ref_matmul
 from repro.kernels import pad_axes as ref_pad_axes
 from repro.kernels import trsm as ref_trsm
 from repro_torch import kernels as tk
+from repro_torch.kernels.cholesky.ops import (ONE_CTA_MAX, SUB_BLOCK,
+                                              blocked_factor)
 from repro_torch.kernels.common import TilePlan, pad_axes, round_up, tile_block
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -171,6 +173,160 @@ class TestCholesky:
         for i, (ja, _) in enumerate(blocks):
             want = cholesky_block_pallas(ja, interpret=True)
             assert _rel(_np(got[i]), want) < 1e-4
+
+
+# -- the kernels' blocked orders, emulated on the CPU -------------------------
+#
+# K2 and K3 run only on the card.  These emulations repeat their algorithms
+# in fp32 PyTorch ops, in the kernels' order of summation, and are held to
+# the reference's Pallas kernels (interpret mode) and to the float64 numpy
+# oracle within 1e-5 relative to the output's largest value: in fp32 only
+# the summation order (and the kernels' fused multiply-adds and reciprocal
+# pivots) differ, which moves results by a few ulp of the largest entry.
+
+PANEL = 32  # the kernels' panel width
+
+
+def k3_blocked(a):
+    """K3's order (csrc/cholesky.cu), right-looking by panels of 32:
+    1. the diagonal tile factored column by column (one warp's chain; the
+       kernel's reciprocal square root of the pivot is 1 / sqrt here);
+    2. the rows below solved against the tile, the terms of each entry
+       taken in ascending column order;
+    3. the trailing lower triangle given the panel's rank-1 terms in
+       ascending order (the register tiles change which thread applies a
+       term, not the order in which an entry receives it)."""
+    x = a.to(torch.float32).clone()
+    n = x.shape[-1]
+    for c0 in range(0, n, PANEL):
+        c1 = min(c0 + PANEL, n)
+        rinv = []
+        for k in range(c0, c1):
+            inv = 1.0 / torch.sqrt(x[..., k:k + 1, k:k + 1])
+            rinv.append(inv)
+            x[..., k:c1, k:k + 1] *= inv
+            col = x[..., k + 1:c1, k:k + 1]
+            x[..., k + 1:c1, k + 1:c1] -= col * col.mT
+        if c1 == n:
+            break
+        for k in range(c0, c1):
+            x[..., c1:, k:k + 1] *= rinv[k - c0]
+            x[..., c1:, k + 1:c1] -= (x[..., c1:, k:k + 1]
+                                      * x[..., k + 1:c1, k:k + 1].mT)
+        for k in range(c0, c1):
+            col = x[..., c1:, k:k + 1]
+            x[..., c1:, c1:] -= col * col.mT
+    return torch.tril(x)
+
+
+def k2_blocked(u, b):
+    """K2's order (csrc/trsm.cu), left-looking by panels of 32: the panel's
+    columns of B less the solved columns' terms in ascending order (the
+    kernel's chunks of 32, one multiply-add a term), then the panel solved
+    against U's diagonal tile column by column with the reciprocal
+    diagonal.  Rows are independent, so the kernel's strips of 64 rows do
+    not enter."""
+    uf = u.to(torch.float32)
+    x = torch.zeros(b.shape, dtype=torch.float32)
+    nb = uf.shape[-1]
+    for c0 in range(0, nb, PANEL):
+        c1 = min(c0 + PANEL, nb)
+        acc = b[..., c0:c1].to(torch.float32).clone()
+        for j in range(c0):
+            acc -= x[..., j:j + 1] * uf[..., j:j + 1, c0:c1]
+        rinv = 1.0 / torch.diagonal(uf, dim1=-2, dim2=-1)[..., c0:c1]
+        for k in range(c1 - c0):
+            acc[..., k:k + 1] *= rinv[..., k:k + 1]
+            acc[..., k + 1:] -= (acc[..., k:k + 1]
+                                 * uf[..., c0 + k:c0 + k + 1, c0 + k + 1:c1])
+        x[..., c0:c1] = acc
+    return x
+
+
+def _oracle_cholesky(a):
+    return np.linalg.cholesky(np.asarray(a, np.float64))
+
+
+def _oracle_trsm(u, b):
+    u64, b64 = np.asarray(u, np.float64), np.asarray(b, np.float64)
+    return np.linalg.solve(u64.T, b64.T).T
+
+
+class TestBlockedOrders:
+    @pytest.mark.parametrize("nb", [64, 200, 256])
+    def test_k3_order_matches_pallas_and_oracle(self, nb):
+        rng = np.random.default_rng(nb + 11)
+        a = _spd(rng, nb)
+        ja, ta = _both(a)
+        got = k3_blocked(ta).numpy()
+        assert _rel(got, cholesky_block_pallas(ja, interpret=True)) < 1e-5
+        assert _rel(got, _oracle_cholesky(np.asarray(ja))) < 1e-5
+
+    @pytest.mark.parametrize("parts", ["emulated", "plain"])
+    def test_k3_composition_above_one_cta(self, parts):
+        # nb > ONE_CTA_MAX: K3 on 256-wide diagonal blocks, K2 on the
+        # panels, K1 for the trailing updates (the reference's interpret
+        # mode is too slow at this size, so the oracle alone)
+        rng = np.random.default_rng(13)
+        nb = 512
+        ja, ta = _both(_spd(rng, nb))
+        factor, solve = ((k3_blocked, k2_blocked) if parts == "emulated"
+                         else (tk.cholesky_block_ref, tk.trsm_diag_ref))
+        got = blocked_factor(ta, SUB_BLOCK,
+                             lambda x, o: o.copy_(factor(x)),
+                             lambda u, b, o: o.copy_(solve(u, b)),
+                             tk.matmul_ref).numpy()
+        assert _rel(got, _oracle_cholesky(np.asarray(ja))) < 1e-5
+        assert np.array_equal(np.triu(got, 1), np.zeros_like(got))
+
+    def test_k3_composition_ragged_last_block(self):
+        rng = np.random.default_rng(14)
+        ja, ta = _both(_spd(rng, 400))
+        got = blocked_factor(ta, SUB_BLOCK,
+                             lambda x, o: o.copy_(k3_blocked(x)),
+                             lambda u, b, o: o.copy_(k2_blocked(u, b)),
+                             tk.matmul_ref).numpy()
+        assert _rel(got, _oracle_cholesky(np.asarray(ja))) < 1e-5
+
+    @pytest.mark.parametrize("nb,m", [(256, 256), (128, 384), (200, 130)])
+    def test_k2_order_matches_pallas_and_oracle(self, nb, m):
+        rng = np.random.default_rng(nb * 3 + m)
+        ju, tu = _both(_upper(rng, nb))
+        jb, tb = _both(rng.standard_normal((m, nb)))
+        got = k2_blocked(tu, tb).numpy()
+        assert _rel(got, trsm_diag_pallas(ju, jb, interpret=True)) < 1e-5
+        assert _rel(got, _oracle_trsm(np.asarray(ju), np.asarray(jb))) < 1e-5
+
+    def test_k2_strided_b(self):
+        # the trsm wrapper hands K2 a column slice of its working copy of B
+        rng = np.random.default_rng(15)
+        ju, tu = _both(_upper(rng, 128))
+        full = torch.tensor(rng.standard_normal((256, 512)),
+                            dtype=torch.float32)
+        b = full[:, 128:256]
+        assert b.stride(0) == 512
+        got = k2_blocked(tu, b).numpy()
+        assert _rel(got, _oracle_trsm(np.asarray(ju), b.numpy())) < 1e-5
+        assert torch.equal(tk.trsm_diag_cuda(tu, b), tk.trsm_diag_ref(tu, b))
+
+    def test_one_cta_limit_matches_the_kernel(self):
+        import re
+        from repro_torch.kernels import _build
+        src = open(f"{_build.CSRC}/cholesky.cu").read()
+        limit = int(re.search(r"constexpr int ONE_CTA_MAX = (\d+);",
+                              src).group(1))
+        assert limit == ONE_CTA_MAX
+        assert SUB_BLOCK <= ONE_CTA_MAX
+
+    def test_cpu_wide_block_takes_the_plain_version_uncounted(self):
+        rng = np.random.default_rng(16)
+        ta = torch.tensor(_spd(rng, 400), dtype=torch.float32)
+        before = (tk.cholesky_block_cuda.launches, tk.trsm_diag_cuda.launches,
+                  tk.matmul_cuda.launches)
+        got = tk.cholesky_block_cuda(ta)
+        assert torch.equal(got, tk.cholesky_block_ref(ta))
+        assert before == (tk.cholesky_block_cuda.launches,
+                          tk.trsm_diag_cuda.launches, tk.matmul_cuda.launches)
 
 
 class TestCommon:
