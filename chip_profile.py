@@ -13,12 +13,17 @@ kernels by device time; for a prefill also the device time of K4 or K5
 against cuBLAS's bf16 and fp32 products against the rest.  Builds the
 CUDA kernels first, as chip_smoke.py does, and prints what ptxas reports
 for each kernel function of the sources (registers, spills, static shared
-memory; nvcc -Xptxas -v with the build's flags).  Last, the device time
-of one call of K2 and K3 at the shapes chip_smoke.py checks, and of the
-library call beside each (the profiler's device events only: at small
-shapes the CUDA-event times of chip_smoke.py are the wrappers' host
-time).  Exits non-zero without a CUDA device or when a profile holds no
-device time.
+memory; nvcc -Xptxas -v with the build's flags), and what the loaded
+K1 fp32 body reports (registers, spill bytes, static and dynamic shared
+memory, resident CTAs an SM).  In each linalg call it splits K1's device
+time by the product classes the path launches: (a) n x n x n, (b) the
+trsm's rank-256 trailing updates (m = n, k = 256), (c) the Cholesky's
+syrk (m = n' < n, k = 256).  Last, the device time of one call of K2, K3
+and K1 at the shapes chip_smoke.py checks (K1 also against K at the
+trailing-update width), and of the library call beside each (the
+profiler's device events only: at small shapes the CUDA-event times of
+chip_smoke.py are the wrappers' host time).  Exits non-zero without a
+CUDA device or when a profile holds no device time.
 
 Usage, from the root of a checkout on a machine with a CUDA GPU:
 
@@ -48,6 +53,8 @@ PROMPT_LEN = 4096
 # with f32f32 in the name take fp32 operands: on the prefill path the plain
 # chunked attention (hymba's window) and the fp32 decay gate wdt
 PRODUCT = re.compile(r"gemm|xmma|cutlass|cublas|nvjet", re.IGNORECASE)
+# the kernel of torch.cuda._sleep
+SPIN = "spin_kernel"
 
 
 def main() -> int:
@@ -60,8 +67,14 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.tuner import PlanCache, Tuner
     torch.backends.cuda.matmul.allow_tf32 = False
-    _build.extension()
+    ext = _build.extension()
     ptxas_report(_build)
+    if hasattr(ext, "matmul_info"):   # absent from builds of older sources
+        regs, spill, static, dynamic, ctas = ext.matmul_info()
+        print(json.dumps({"k1_fp32_body": {
+            "registers": regs, "spill_bytes": spill, "static_smem": static,
+            "dynamic_smem": dynamic, "ctas_per_sm": ctas}}), flush=True)
+    k1_shapes = record_k1_shapes(ext)
     plan_dir = os.path.join(HERE, "build", "profile_plans")
     shutil.rmtree(plan_dir, ignore_errors=True)
     tuner = Tuner(cache=PlanCache(plan_dir))
@@ -69,10 +82,13 @@ def main() -> int:
     for op in ("matmul", "trsm", "cholesky"):
         args = operands(torch, op, N, gen)
         getattr(linalg, op)(*args, tuner=tuner)          # warm-up
+        k1_shapes.clear()
         record = profiled(torch, lambda: getattr(linalg, op)(*args,
                                                             tuner=tuner))
         del record["all"]
-        print(json.dumps({"op": op, "n": N, **record}), flush=True)
+        k1 = k1_by_class(record.pop("events"), k1_shapes, N)
+        print(json.dumps({"op": op, "n": N, **record, "k1_by_class": k1}),
+              flush=True)
         if record["device_ms"] <= 0:
             print("chip_profile: the profile holds no device time",
                   file=sys.stderr)
@@ -103,7 +119,7 @@ def main() -> int:
                     row["ms"]
             else:
                 groups["rest"] += row["ms"]
-        del record["all"]
+        del record["all"], record["events"]
         print(json.dumps({"prefill": arch, "batch": BATCH,
                           "prompt_len": PROMPT_LEN, "groups_ms": groups,
                           **record}), flush=True)
@@ -114,7 +130,42 @@ def main() -> int:
         del net
         torch.cuda.empty_cache()
     kernel_device_times(torch, gen)
+    k1_device_times(torch, gen)
     return 0
+
+
+def k1_device_times(torch, gen) -> None:
+    """Device time per call of K1 and of ``torch.matmul`` at the shapes
+    chip_smoke.py checks, and at the trailing-update width for K = 256 to
+    2048 (the time against K: its slope is the cost of the k-steps, its
+    intercept what a tile costs besides); one JSON line each."""
+    from repro_torch.kernels import matmul_cuda
+    dev = torch.device("cuda")
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    u = rnd(N, N)
+    panel = rnd(N - 256, 256)
+    cases = [("class (a)", rnd(N, N), rnd(N, N), 2),
+             ("class (b), B row stride 16384", rnd(N, 256), u[0:256, 256:],
+              10),
+             ("class (c), B = panel.mT", panel, panel.mT, 10),
+             ("", rnd(4096, 4096), rnd(4096, 4096), 10),
+             ("", rnd(300, 700), rnd(700, 260), 10),
+             ("4-byte path", rnd(130, 130), rnd(130, 130), 10)]
+    cases += [("K sweep at the trailing-update width", rnd(N, k),
+               rnd(k, N - 256), 10) for k in (256, 512, 1024, 2048)]
+    for layout, a, b, reps in cases:
+        (m, k), n = a.shape, b.shape[-1]
+        print(json.dumps({
+            "kernel": "K1 matmul", "layout": layout or "contiguous",
+            "m": m, "k": k, "n": n,
+            **device_times(torch, lambda: matmul_cuda(a, b),
+                           lambda: torch.matmul(a, b), reps)}), flush=True)
+        del a, b
+    del u, panel
+    torch.cuda.empty_cache()
 
 
 def kernel_device_times(torch, gen) -> None:
@@ -134,27 +185,75 @@ def kernel_device_times(torch, gen) -> None:
             b = torch.randn(m, nb, device=dev, generator=gen)
         print(json.dumps({
             "kernel": "K2 trsm_diag", "nb": nb, "m": m, "ldb": b.stride(0),
-            "device_ms": device_ms(torch, lambda: trsm_diag_cuda(u, b)),
-            "library_device_ms": device_ms(
-                torch, lambda: torch.linalg.solve_triangular(
-                    u, b, upper=True, left=False))}), flush=True)
+            **device_times(torch, lambda: trsm_diag_cuda(u, b),
+                           lambda: torch.linalg.solve_triangular(
+                               u, b, upper=True, left=False))}), flush=True)
         del u, b
     for nb in (256, 200, 130, 512, 1024):
         g = torch.randn(nb, nb, device=dev, generator=gen)
         a = g @ g.mT + nb * torch.eye(nb, device=dev)
         print(json.dumps({
             "kernel": "K3 cholesky_block", "nb": nb,
-            "device_ms": device_ms(torch, lambda: cholesky_block_cuda(a)),
-            "library_device_ms": device_ms(
-                torch, lambda: torch.linalg.cholesky(a))}), flush=True)
+            **device_times(torch, lambda: cholesky_block_cuda(a),
+                           lambda: torch.linalg.cholesky(a))}), flush=True)
 
 
-def device_ms(torch, fn, reps: int = 10) -> float:
-    """Device time of one call of ``fn``: the device-side events of
-    ``reps`` calls under the profiler, summed, over ``reps``."""
-    fn()
-    return profiled(torch, lambda: [fn() for _ in range(reps)])[
-        "device_ms"] / reps
+# K1's CUDA functions (the fp32 and bf16 bodies, in any version of
+# csrc/matmul.cu)
+K1_KERNEL = re.compile(r"matmul\w*_kernel<")
+
+
+def record_k1_shapes(ext):
+    """Wraps the extension's K1 launcher so that each launch appends its
+    (m, n, k) to the returned list, in launch order."""
+    shapes = []
+    launch = ext.matmul
+
+    def recording(*args):
+        shapes.append(tuple(args[6:9]))
+        return launch(*args)
+
+    ext.matmul = recording
+    return shapes
+
+
+def k1_class(m, n, k, size):
+    if m == n == k == size:
+        return "a"
+    if k == 256 and m == size:
+        return "b"
+    if k == 256 and m == n:
+        return "c"
+    return "other"
+
+
+def k1_by_class(events, shapes, size):
+    """K1's device time and launches by product class: the i-th K1 kernel
+    on the device (one stream, so in launch order) is the i-th launch."""
+    k1 = sorted((start, ms) for name, start, ms in events
+                if K1_KERNEL.search(name))
+    if len(k1) != len(shapes):
+        return {"error": f"{len(k1)} K1 kernels for {len(shapes)} launches"}
+    out = {}
+    for (_, ms), (m, n, k) in zip(k1, shapes):
+        c = out.setdefault(k1_class(m, n, k, size),
+                           {"launches": 0, "device_ms": 0.0})
+        c["launches"] += 1
+        c["device_ms"] += ms
+    return out
+
+
+def device_times(torch, fn, library, reps: int = 10) -> dict:
+    """Device time of one call of ``fn`` and of ``library``: the
+    device-side events of ``reps`` calls under the profiler, summed, over
+    ``reps``; with the events a call, so that a lost event shows."""
+    out = {}
+    for key, f in (("", fn), ("library_", library)):
+        f()
+        record = profiled(torch, lambda f=f: [f() for _ in range(reps)])
+        out[key + "device_ms"] = record["device_ms"] / reps
+        out[key + "device_events"] = len(record["events"]) / reps
+    return out
 
 
 def ptxas_report(build) -> None:
@@ -197,6 +296,10 @@ def profiled(torch, fn):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # a profile can lose its first device event: let that be a spin
+        # kernel, left out below
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -205,12 +308,15 @@ def profiled(torch, fn):
              "count": e.count}
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0 and SPIN not in e.key]
     rows.sort(key=lambda r: -r["ms"])
     device_ms = sum(r["ms"] for r in rows)
+    events = [(e.name, e.time_range.start, e.time_range.elapsed_us() / 1e3)
+              for e in prof.events()
+              if e.device_type == DeviceType.CUDA and SPIN not in e.name]
     return {"wall_ms": wall * 1e3, "device_ms": device_ms,
             "device_busy_share": device_ms / (wall * 1e3),
-            "top": rows[:TOP], "all": rows}
+            "top": rows[:TOP], "all": rows, "events": events}
 
 
 def operands(torch, op, n, gen):

@@ -5,12 +5,14 @@
    CUDA kernels from this checkout's sources (``build/torch_ext/``).
 2. Holds each kernel (K1 matmul, K2 diagonal-block trsm, K3 block Cholesky,
    K4 flash attention, K5 the SSD scan) to its plain PyTorch version on the
-   card at its path's shapes (K2 also on a strided B and at the Cholesky's
-   last panel, K3 also at a ragged width; K4 and K5 in the path's layouts,
-   with the error taken per output row), and times kernel, plain version
-   and the nearest single PyTorch call with CUDA events; K3's launcher must
-   refuse a block wider than one CTA holds, K4's a head dim it has no body
-   for, and K5 a state that does not fit a block.
+   card at its path's shapes (K1 at the main path's three product classes,
+   on its 4-byte copy path and on a stacked batch; K2 also on a strided B
+   and at the Cholesky's last panel, K3 also at a ragged width; K4 and K5
+   in the path's layouts, with the error taken per output row), and times
+   kernel, plain version and the nearest single PyTorch call with CUDA
+   events; K1's launcher must refuse arguments it does not take, K3's a
+   block wider than one CTA holds, K4's a head dim it has no body for, and
+   K5 a state that does not fit a block.
 3. Drives the linalg path: ``repro_torch.linalg.matmul / trsm / cholesky``
    at n = 16384, fp32, on the default devices (one card, p = 1), with the
    kernels' launch counts set to 0 before each call and read after it, and
@@ -189,14 +191,44 @@ def kernel_checks(torch):
     def entry(*args, **kw):
         out.append(kernel_entry(torch, *args, **kw))
 
-    # K1 at the yardstick shapes and at the main path's product
-    for m, k, n, dt, odt, reps in (
-            (4096, 4096, 4096, torch.float32, torch.float32, 10),
-            (4096, 4096, 4096, torch.bfloat16, torch.float32, 10),
-            (300, 700, 260, torch.float32, torch.float32, 50),
-            (N_MAIN, N_MAIN, N_MAIN, torch.float32, torch.float32, 2)):
-        a = torch.randn(m, k, device=dev, generator=gen).to(dt)
-        b = torch.randn(k, n, device=dev, generator=gen).to(dt)
+    # K1 at the yardstick shapes, at the three product classes of the main
+    # path, on the 4-byte copy path and on a stacked batch.  The classes:
+    # (a) the n^3 product (the matmul, and the g = 1 trsm and Cholesky
+    # bodies); (b) the trsm's rank-256 trailing update at j = 1, B a
+    # strided view of U (row stride 16384) as kernels/trsm/ops.py hands it
+    # over; (c) the Cholesky's syrk at its widest, B the panel's transpose
+    # passed as .mT as blocked_factor passes it (the wrapper copies it).
+    # The 4-byte path: operands whose rows are not 16-byte aligned (130
+    # columns; a view at a column offset of 1).  The batch: the local
+    # blocks of the [cuda:0] * 8 plans at n = 4096.
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    def k1_cases():
+        yield "", (rnd(4096, 4096), rnd(4096, 4096)), f32, 10
+        yield "", (rnd(4096, 4096).to(bf16), rnd(4096, 4096).to(bf16)), \
+            f32, 10
+        yield "", (rnd(300, 700), rnd(700, 260)), f32, 50
+        yield "class (a)", (rnd(N_MAIN, N_MAIN), rnd(N_MAIN, N_MAIN)), f32, 2
+        u = rnd(N_MAIN, N_MAIN)
+        yield "class (b), B row stride 16384", (rnd(N_MAIN, 256),
+                                                u[0:256, 256:]), f32, 10
+        del u
+        panel = rnd(N_MAIN - 256, 256)
+        yield "class (c), B = panel.mT", (panel, panel.mT), f32, 10
+        yield "4-byte path", (rnd(130, 130), rnd(130, 130)), f32, 50
+        yield "4-byte path, A at column offset 1", (
+            rnd(2048, 2049)[:, 1:], rnd(2048, 2048)), f32, 10
+        yield "stacked batch of 8", (rnd(8, 2048, 2048),
+                                     rnd(8, 2048, 2048)), f32, 10
+
+    for layout, (a, b), odt, reps in k1_cases():
+        dt = a.dtype
+        *batch, m, k = a.shape
+        n = b.shape[-1]
+        nb = batch[0] if batch else 1
         got = matmul_cuda(a, b, out_dtype=odt)
         want = matmul_ref(a, b, out_dtype=odt)
         if dt == odt:
@@ -206,16 +238,20 @@ def kernel_checks(torch):
         else:
             lib = None
         isz = a.element_size()
-        entry(f"K1 matmul {m}x{k}x{n} {str(dt)[6:]}->{str(odt)[6:]}",
+        entry(f"K1 matmul {'%dx' % nb if batch else ''}{m}x{k}x{n} "
+              f"{str(dt)[6:]}->{str(odt)[6:]}"
+              + (f" ({layout})" if layout else ""),
               "matmul_cuda", "src/repro_torch/kernels/csrc/matmul.cu",
-              "src/repro/kernels/matmul/matmul.py:51", [m, k, n], got, want,
-              1e-5,
+              "src/repro/kernels/matmul/matmul.py:51",
+              [nb, m, k, n] if batch else [m, k, n], got, want, 1e-5,
               lambda a=a, b=b: matmul_cuda(a, b, out_dtype=odt),
               lambda a=a, b=b: matmul_ref(a, b, out_dtype=odt), lib, reps,
-              2.0 * m * k * n,
-              PEAK_BF16 if dt == torch.bfloat16 else PEAK_FP32,
-              (m * k + k * n) * isz + m * n * 4)
+              2.0 * nb * m * k * n, PEAK_BF16 if dt == bf16 else PEAK_FP32,
+              nb * ((m * k + k * n) * isz + m * n * 4),
+              layout=layout or "contiguous")
         del a, b, got, want
+        torch.cuda.empty_cache()
+    k1_refuses_type(torch, matmul_cuda)
 
     # K2 and K3 at the main path's block (256: the Cholesky panel's first
     # shape and the diagonal block) and at the wider blocks a profile with
@@ -422,6 +458,32 @@ def k4_refuses_head_dim(torch, wrapper):
               f"K4's launcher took d = 80 in {dt}")
         check(untouched and counted == 0,
               f"K4 ran or counted a d = 80 launch in {dt}")
+
+
+def k1_refuses_type(torch, wrapper):
+    """K1's launcher takes the type codes 0 (fp32) and 1 (bf16): given 2,
+    the binding raises and nothing runs.  The binding is called directly,
+    past the wrapper."""
+    from repro_torch.kernels import _build
+    a = torch.zeros(128, 128, device="cuda")
+    out = torch.full_like(a, float("nan"))
+    before = wrapper.launches
+    try:
+        _build.extension().matmul(
+            a.data_ptr(), a.data_ptr(), out.data_ptr(), 2, 0, 1, 128, 128,
+            128, 0, 128, 0, 128, 0, 128,
+            torch.cuda.current_stream().cuda_stream)
+        refused = ""
+    except RuntimeError as exc:
+        refused = str(exc).splitlines()[0]
+    torch.cuda.synchronize()
+    untouched = bool(torch.isnan(out).all())
+    counted = wrapper.launches - before
+    emit({"k1_refuses_type": 2, "message": refused,
+          "output_untouched": untouched, "launches_counted": counted})
+    check("refused the arguments" in refused,
+          "K1's launcher took type code 2")
+    check(untouched and counted == 0, "K1 ran or counted a refused launch")
 
 
 def k3_refuses_width(torch, wrapper):

@@ -25,13 +25,28 @@ cudaStream_t as_stream(i64 s) {
   return reinterpret_cast<cudaStream_t>(static_cast<intptr_t>(s));
 }
 
+// Raises, having launched nothing, for arguments the launcher refuses and
+// when the fp32 body's shared-memory limit cannot be raised.
 void matmul(i64 a, i64 b, i64 c, int in_type, int out_type, int batch, int m,
             int n, int k, i64 sa, i64 lda, i64 sb, i64 ldb, i64 sc, i64 ldc,
             i64 stream) {
-  repro_matmul(ptr<const void>(a), ptr<const void>(b), ptr<void>(c), in_type,
-               out_type, batch, m, n, k, sa, lda, sb, ldb, sc, ldc,
-               as_stream(stream));
+  const cudaError_t err = repro_matmul(
+      ptr<const void>(a), ptr<const void>(b), ptr<void>(c), in_type,
+      out_type, batch, m, n, k, sa, lda, sb, ldb, sc, ldc, as_stream(stream));
+  TORCH_CHECK(err != cudaErrorInvalidValue,
+              "matmul: the launcher refused the arguments (type codes, "
+              "m, n, batch >= 1, k >= 0, batch <= 65535)");
+  TORCH_CHECK(err == cudaSuccess, cudaGetErrorString(err));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// Registers, spill bytes, static and dynamic shared memory and resident
+// CTAs an SM of K1's fp32 body on the current device.
+std::vector<i64> matmul_info() {
+  long long out[5] = {0, 0, 0, 0, 0};
+  const cudaError_t err = repro_matmul_info(out);
+  TORCH_CHECK(err == cudaSuccess, cudaGetErrorString(err));
+  return std::vector<i64>(out, out + 5);
 }
 
 // Raises, having launched nothing, for an empty m or nb.
@@ -100,6 +115,8 @@ bool ssm_scan(i64 q, i64 k, i64 v, i64 log_a, i64 y, int dtype, int batch,
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("matmul", &matmul, "K1: batched C = A @ B (fp32 accumulation)");
+  m.def("matmul_info", &matmul_info,
+        "K1's fp32 body: registers, spills, shared memory, CTAs an SM");
   m.def("trsm_diag", &trsm_diag, "K2: batched X U = B, one diagonal block");
   m.def("cholesky_block", &cholesky_block,
         "K3: batched Cholesky factor of one SPD block");

@@ -3,8 +3,8 @@
 // Every launcher takes device pointers, element strides and the CUDA stream
 // the caller (PyTorch's current stream) wants the work on.  A launcher only
 // enqueues: it allocates nothing, does not synchronise and leaves the launch
-// status for the caller to check with cudaGetLastError() (K2-K5 also return
-// what they refused, or what failed, before launching).  Leading batch
+// status for the caller to check with cudaGetLastError() (each also returns
+// what it refused, or what failed, before launching).  Leading batch
 // dimensions (the stacked ranks of a process grid) run on blockIdx.z; a
 // batch stride of 0 shares one operand across the batch.
 #pragma once
@@ -19,11 +19,23 @@ extern "C" {
 enum { REPRO_F32 = 0, REPRO_BF16 = 1 };
 
 // K1: C[z] = A[z] @ B[z] with A (m, k), B (k, n), C (m, n), row-major with
-// row strides lda/ldb/ldc; fp32 accumulation, C written in out_type.
-void repro_matmul(const void* a, const void* b, void* c, int in_type,
-                  int out_type, int batch, int m, int n, int k,
-                  long long sa, long long lda, long long sb, long long ldb,
-                  long long sc, long long ldc, cudaStream_t stream);
+// row strides lda/ldb/ldc; fp32 accumulation, C written in out_type.  fp32
+// inputs run the FFMA body fed through a ring in shared memory (TMA boxes
+// when A's and B's rows are 16-byte aligned, 4-byte cp.async otherwise),
+// bf16 inputs the earlier body.  Returns cudaErrorInvalidValue, and
+// launches nothing, for an unknown type code, m, n or batch below 1, k below
+// 0, batch above 65535 or more than INT_MAX tiles of 128 x 128; and the
+// error of raising the fp32 body's shared-memory limit if that fails.
+cudaError_t repro_matmul(const void* a, const void* b, void* c, int in_type,
+                         int out_type, int batch, int m, int n, int k,
+                         long long sa, long long lda, long long sb,
+                         long long ldb, long long sc, long long ldc,
+                         cudaStream_t stream);
+
+// K1's fp32 body (TMA path, fp32 output) as loaded on the current
+// device: out[0..4] = registers a thread, local (spill) bytes a thread,
+// static and dynamic shared memory a CTA in bytes, and resident CTAs an SM.
+cudaError_t repro_matmul_info(long long* out);
 
 // K2: X[z] U[z] = B[z] for one upper-triangular diagonal block U (nb, nb);
 // B and X are (m, nb); fp32.  Returns cudaErrorInvalidValue, and launches

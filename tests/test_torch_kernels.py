@@ -20,7 +20,8 @@ from repro.kernels import trsm as ref_trsm
 from repro_torch import kernels as tk
 from repro_torch.kernels.cholesky.ops import (ONE_CTA_MAX, SUB_BLOCK,
                                               blocked_factor)
-from repro_torch.kernels.common import TilePlan, pad_axes, round_up, tile_block
+from repro_torch.kernels.common import (TilePlan, as_batched, pad_axes,
+                                        round_up, tile_block)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -100,6 +101,65 @@ class TestMatmul:
         got = tk.matmul_cuda(a, a.T)
         assert tk.matmul_cuda.launches == before
         assert torch.equal(got, tk.matmul_ref(a, a.T))
+
+    # The operand forms of the main path's products, each held to the
+    # reference's matmul_pallas (interpret mode) within 1e-5 (fp32).
+
+    def test_trailing_update_operand_form(self):
+        # kernels/trsm/ops.py: X_j (an A whose rows are longer than k) times
+        # the strided view U[j0:j1, j1:] (row stride > n); the view reaches
+        # the launcher as it is, not copied
+        rng = np.random.default_rng(17)
+        u = torch.tensor(rng.standard_normal((640, 640)), dtype=torch.float32)
+        x = torch.tensor(rng.standard_normal((384, 200)), dtype=torch.float32)
+        a, b = x[:, 8:136], u[128:256, 256:]
+        assert a.stride(0) == 200 and b.stride(0) == 640
+        b3 = as_batched(b, torch.Size([]))
+        assert b3.data_ptr() == b.data_ptr() and b3.stride(1) == 640
+        want = ref_matmul(jnp.asarray(a.numpy()), jnp.asarray(b.numpy()))
+        assert _rel(tk.matmul(a, b).numpy(), want) < 1e-5
+        assert _rel(tk.matmul_cuda(a, b).numpy(), want) < 1e-5
+
+    @pytest.mark.parametrize("offset", [0, 1])
+    def test_unaligned_width(self, offset):
+        # 130 columns: rows that are not 16-byte aligned (the 4-byte copy
+        # path), also as a view at a column offset of 1
+        rng = np.random.default_rng(18 + offset)
+        a = torch.tensor(rng.standard_normal((130, 130 + offset)),
+                         dtype=torch.float32)[:, offset:]
+        b = torch.tensor(rng.standard_normal((130, 130)), dtype=torch.float32)
+        want = ref_matmul(jnp.asarray(a.numpy()), jnp.asarray(b.numpy()))
+        assert _rel(tk.matmul(a, b).numpy(), want) < 1e-5
+        assert _rel(tk.matmul_cuda(a, b).numpy(), want) < 1e-5
+
+    def test_transposed_b(self):
+        # blocked_factor's syrk: L_panel times L_panel.mT, whose columns are
+        # strided; the launch takes a contiguous copy
+        rng = np.random.default_rng(20)
+        p = torch.tensor(rng.standard_normal((384, 256)), dtype=torch.float32)
+        assert as_batched(p.mT, torch.Size([])).stride() == (256 * 384, 384,
+                                                            1)
+        jp = jnp.asarray(p.numpy())
+        want = ref_matmul(jp, jp.T)
+        assert _rel(tk.matmul(p, p.mT).numpy(), want) < 1e-5
+        assert _rel(tk.matmul_cuda(p, p.mT).numpy(), want) < 1e-5
+
+    def test_two_ctas_fit_an_sm(self):
+        # the fp32 body's ring is sized for two resident CTAs an SM (227 KB
+        # a CTA at most, 228 KB an SM with 1 KB reserved for each CTA), and
+        # A's rows of BK floats fill one 128-byte swizzle span
+        import re
+        from repro_torch.kernels import _build
+        src = open(f"{_build.CSRC}/matmul.cu").read()
+        body = src[src.index("namespace f32 {"):]
+        c = {k: int(v) for k, v in
+             re.findall(r"constexpr int (\w+) = (\d+);", body)}
+        stage = c["BM"] * (c["BK"] + 4) * 4 + c["BK"] * c["BN"] * 4
+        smem = c["STAGES"] * stage + 8 * c["STAGES"] + 1024
+        assert smem <= 227 * 1024
+        assert 2 * (smem + 1024) <= 228 * 1024
+        assert c["BK"] * 4 == 128
+        assert "__launch_bounds__(THREADS, 2)" in body
 
 
 class TestTrsm:
