@@ -10,7 +10,8 @@ time of the profiled call, the device time summed over device-side events
 (kernels and copies; the host ops that launch them carry the same time
 again and are left out), the device-busy share of the wall time, and the
 kernels by device time; for a prefill also the device time of K4 or K5
-against cuBLAS's bf16 and fp32 products against the rest.  Builds the
+(K5's three launches summed) against cuBLAS's bf16 and fp32 products
+against the rest.  Builds the
 CUDA kernels first, as chip_smoke.py does, and prints what ptxas reports
 for each kernel function of the sources (registers, spills, static shared
 memory; nvcc -Xptxas -v with the build's flags), and what the loaded
@@ -22,8 +23,10 @@ syrk (m = n' < n, k = 256).  Last, the device time of one call of K2, K3
 and K1 at the shapes chip_smoke.py checks (K1 also against K at the
 trailing-update width), and of the library call beside each (the
 profiler's device events only: at small shapes the CUDA-event times of
-chip_smoke.py are the wrappers' host time).  Exits non-zero without a
-CUDA device or when a profile holds no device time.
+chip_smoke.py are the wrappers' host time), and of one K5 call at
+hymba-1.5b's and xlstm-350m's shapes, split over its three launches.
+Exits non-zero without a CUDA device or when a profile holds no device
+time.
 
 Usage, from the root of a checkout on a machine with a CUDA GPU:
 
@@ -43,10 +46,12 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 N = 16384
 TOP = 8
-# the prefill calls, each with its kernel's CUDA function name (K4's bf16
-# body: flash_tc_kernel)
-PREFILL = (("starcoder2-3b", "flash_tc_kernel"), ("hymba-1.5b",
-                                                   "ssm_scan_kernel"))
+# K5's CUDA functions: chunk states, the state pass, the outputs
+K5_KERNEL = re.compile(r"ssm_(chunk_state|state_pass|output)_kernel")
+# the prefill calls, each with its kernel and the kernel's CUDA functions
+# (K4's bf16 body: flash_tc_kernel)
+PREFILL = (("starcoder2-3b", "K4", re.compile("flash_tc_kernel")),
+           ("hymba-1.5b", "K5", K5_KERNEL))
 BATCH = 4
 PROMPT_LEN = 4096
 # cuBLAS's matrix product kernels (nvjet_* are its Hopper kernels); those
@@ -99,7 +104,7 @@ def main() -> int:
     from repro_torch.configs import get
     from repro_torch.launch.prefill import make_prefill_step
     from repro_torch.models import build_model
-    for arch, kernel in PREFILL:
+    for arch, kernel, functions in PREFILL:
         cfg = get(arch)
         model = build_model(cfg)
         net = model.init(0)
@@ -111,7 +116,7 @@ def main() -> int:
         groups = {kernel: 0.0, "bf16 products": 0.0, "fp32 products": 0.0,
                   "rest": 0.0}
         for row in record["all"]:
-            if kernel in row["name"]:
+            if functions.search(row["name"]):
                 groups[kernel] += row["ms"]
             elif PRODUCT.search(row["name"]):
                 fp32 = "f32f32" in row["name"]
@@ -131,7 +136,51 @@ def main() -> int:
         torch.cuda.empty_cache()
     kernel_device_times(torch, gen)
     k1_device_times(torch, gen)
+    k5_device_times(torch, gen)
     return 0
+
+
+def k5_device_times(torch, gen, reps: int = 10) -> None:
+    """Device time of one K5 call at hymba-1.5b's SSD shape and at
+    xlstm-350m's mLSTM shape (bf16, chip_smoke.py's layouts: heads as views
+    of the projections, xlstm's v with the ones column), split over its
+    three CUDA launches, with the device events and the counted launches a
+    call; one JSON line each."""
+    from repro_torch.kernels import ssm_scan_cuda
+    dev = torch.device("cuda")
+    for shape, b, h, s, dk, dv in (("hymba-1.5b SSD", 4, 25, 4096, 16, 64),
+                                   ("xlstm-350m mLSTM", 4, 4, 4096, 256,
+                                    257)):
+        def heads(d, scale=1.0):
+            return (torch.randn(b, s, h, d, device=dev, generator=gen)
+                    * scale).bfloat16().transpose(1, 2)
+        scale = 0.3 if dk <= 64 else dk ** -0.5
+        q, k = heads(dk, scale), heads(dk, scale)
+        if dv == 257:
+            v = heads(dv - 1)
+            v = torch.cat([v, torch.ones_like(v[..., :1])], -1)
+        else:
+            v = heads(dv)
+        la = (-torch.rand(b, s, h, device=dev, generator=gen)
+              * 0.1).transpose(1, 2)
+        ssm_scan_cuda(q, k, v, la)
+        before = ssm_scan_cuda.launches
+        record = profiled(torch, lambda: [ssm_scan_cuda(q, k, v, la)
+                                          for _ in range(reps)])
+        by_launch = {}
+        for row in record["all"]:
+            m = K5_KERNEL.search(row["name"])
+            if m:
+                by_launch[m.group(0)] = (by_launch.get(m.group(0), 0.0)
+                                         + row["ms"] / reps)
+        print(json.dumps({
+            "kernel": "K5 ssm_scan", "shape": shape, "bh": b * h, "s": s,
+            "dk": dk, "dv": dv, "device_ms": record["device_ms"] / reps,
+            "device_events": len(record["events"]) / reps,
+            "counted_launches": (ssm_scan_cuda.launches - before) / reps,
+            "by_launch_ms": by_launch}), flush=True)
+        del q, k, v, la
+        torch.cuda.empty_cache()
 
 
 def k1_device_times(torch, gen) -> None:

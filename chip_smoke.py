@@ -8,11 +8,12 @@
    card at its path's shapes (K1 at the main path's three product classes,
    on its 4-byte copy path and on a stacked batch; K2 also on a strided B
    and at the Cholesky's last panel, K3 also at a ragged width; K4 and K5
-   in the path's layouts, with the error taken per output row), and times
-   kernel, plain version and the nearest single PyTorch call with CUDA
-   events; K1's launcher must refuse arguments it does not take, K3's a
-   block wider than one CTA holds, K4's a head dim it has no body for, and
-   K5 a state that does not fit a block.
+   in the path's layouts, with the error taken per output row; K4 also at
+   head dims 16 and 80, which its wrapper pads; K5 also at xlstm's 256 x 257
+   state and at small ragged shapes), and times kernel, plain version and the nearest single PyTorch
+   call with CUDA events; K1's launcher must refuse arguments it does not
+   take, K3's a block wider than one CTA holds, K4's a head dim it has no
+   body for, and K5's a dk above the widest a tile holds.
 3. Drives the linalg path: ``repro_torch.linalg.matmul / trsm / cholesky``
    at n = 16384, fp32, on the default devices (one card, p = 1), with the
    kernels' launch counts set to 0 before each call and read after it, and
@@ -317,17 +318,19 @@ def heads_view(torch, b, h, s, d, gen, dt, scale=1.0):
 def lm_kernel_checks(torch):
     """K4 at starcoder2-3b's prefill shape and, in bf16 and fp32, at the
     reference's test shapes (the ragged edge, the non-causal branch, GQA,
-    each head dim), and its launcher's refusal of a head dim it has no
-    body for; K5 at hymba-1.5b's SSD shape and at the widest state the
-    reference tests, and its refusal of a state that does not fit.  The
-    path's shapes take the path's layouts: the heads as transposed views
-    of the projections.  The error is taken per output row, relative to
-    the row's largest value.  K4's bf16 body (tensor cores) is held to the
-    plain version run in fp32 on the widened inputs, with no rounding on
-    the plain side, within 8e-3: one bf16 rounding of the output is at
-    most 2^-8 (3.9e-3) and P's rounding to bf16 before P V adds about
-    1e-3.  K5's bf16 output is held to the plain version's bf16 output
-    within 8e-3, two roundings; fp32 within the summation order."""
+    each head dim) and at head dims 16 and 80 (zero-padded to 64 and 96 by
+    the wrapper), and its launcher's refusal of a head dim it has no body
+    for; K5 at hymba-1.5b's SSD shape, at xlstm-350m's 256 x 257 mLSTM
+    state (v with the normaliser's ones column), at the widest state the
+    reference tests and at small ragged shapes, and its launcher's refusal
+    of dk = 257.  The path's
+    shapes take the path's layouts: the heads as transposed views of the
+    projections.  The error is taken per output row, relative to the row's
+    largest value.  Both kernels' bf16 outputs are held to the plain
+    version run in fp32 on the widened inputs, with no rounding on the
+    plain side, within 8e-3: one bf16 rounding of the output is at most
+    2^-8 (3.9e-3); K4's rounding of P to bf16 before P V adds about 1e-3.
+    fp32 within the summation order."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention_cuda, ssm_scan_cuda
     from repro_torch.kernels.flash_attention.ops import _ref4 as flash_ref
@@ -346,9 +349,13 @@ def lm_kernel_checks(torch):
             (1, 8, 1, 384, 128, True, bf16, False, 20),
             (2, 4, 4, 300, 64, False, bf16, False, 20),
             (1, 6, 3, 256, 96, True, bf16, False, 20),
+            (1, 4, 2, 256, 16, True, bf16, False, 20),
+            (1, 4, 2, 256, 80, True, bf16, False, 20),
             (1, 8, 1, 384, 128, True, fp32, False, 20),
             (2, 4, 4, 300, 64, False, fp32, False, 20),
-            (1, 6, 3, 256, 96, True, fp32, False, 20)):
+            (1, 6, 3, 256, 96, True, fp32, False, 20),
+            (1, 4, 2, 256, 16, True, fp32, False, 20),
+            (1, 4, 2, 256, 80, True, fp32, False, 20)):
         if path:
             q = heads_view(torch, b, h, s, d, gen, dt)
             k = heads_view(torch, b, kv, s, d, gen, dt)
@@ -383,16 +390,34 @@ def lm_kernel_checks(torch):
 
     k4_refuses_head_dim(torch, flash_attention_cuda)
 
-    # K5: (B, H, S, DK, DV, dtype, path layout, reps); the bound counts the
+    # K5: (B, H, S, DK, DV, dtype, layout, reps); the bound counts the
     # recurrence's 4 DK DV operations a step, the least work of the
-    # function
-    for b, h, s, dk, dv, dt, path, reps in (
-            (4, 25, 4096, 16, 64, torch.bfloat16, True, 5),
-            (1, 1, 512, 128, 129, torch.float32, False, 5)):
-        if path:
-            q = heads_view(torch, b, h, s, dk, gen, dt, 0.3)
-            k = heads_view(torch, b, h, s, dk, gen, dt, 0.3)
-            v = heads_view(torch, b, h, s, dv, gen, dt)
+    # function.  xlstm's shape runs the 256 x 257 state through the
+    # wrapper: q and k heads of the projections scaled by DK^-1/2, v the
+    # heads with the ones column concatenated (rows of 514 bytes).  The
+    # small shapes reach the branches the path's shapes do not: the
+    # reference's test shapes (a zero-filled tail chunk, DK padded to 64; a
+    # single chunk at DK 32) and S 300, DK 20, DV 33 (DK padded to 32 in
+    # shared memory, element-wise loads of v and stores of y, and in bf16
+    # of q and k).
+    for b, h, s, dk, dv, dt, layout, reps in (
+            (4, 25, 4096, 16, 64, bf16, "heads of a projection", 10),
+            (4, 4, 4096, 256, 257, bf16,
+             "q, k heads of a projection; v with a ones column", 5),
+            (1, 1, 512, 128, 129, fp32, "contiguous", 10),
+            (1, 4, 300, 64, 128, bf16, "contiguous", 20),
+            (1, 2, 64, 32, 32, fp32, "contiguous", 20),
+            (1, 2, 300, 20, 33, fp32, "contiguous", 20),
+            (1, 2, 300, 20, 33, bf16, "contiguous", 20)):
+        if layout != "contiguous":
+            scale = 0.3 if dk <= 64 else dk ** -0.5
+            q = heads_view(torch, b, h, s, dk, gen, dt, scale)
+            k = heads_view(torch, b, h, s, dk, gen, dt, scale)
+            if dv == 257:
+                v = heads_view(torch, b, h, s, dv - 1, gen, dt)
+                v = torch.cat([v, torch.ones_like(v[..., :1])], -1)
+            else:
+                v = heads_view(torch, b, h, s, dv, gen, dt)
             la = (-torch.rand(b, s, h, device=dev, generator=gen)
                   * 0.1).transpose(1, 2)
         else:
@@ -403,31 +428,63 @@ def lm_kernel_checks(torch):
             v = torch.randn(b, h, s, dv, device=dev, generator=gen).to(dt)
             la = -torch.rand(b, h, s, device=dev, generator=gen) * 0.1
         isz = q.element_size()
-        entry(f"K5 ssm_scan BH{b * h} S{s} DK{dk} DV{dv} {str(dt)[6:]}",
-              "ssm_scan_cuda", "src/repro_torch/kernels/csrc/ssm_scan.cu",
-              "src/repro/kernels/ssm_scan/ssm_scan.py:81",
-              [b * h, s, dk, dv], ssm_scan_cuda(q, k, v, la),
-              scan_ref(q, k, v, la),
-              8e-3 if dt == torch.bfloat16 else 1e-4,
-              lambda q=q, k=k, v=v, la=la: ssm_scan_cuda(q, k, v, la),
-              lambda q=q, k=k, v=v, la=la: scan_ref(q, k, v, la),
-              None, reps, 4.0 * b * h * s * dk * dv,
-              PEAK_BF16 if dt == torch.bfloat16 else PEAK_FP32,
-              b * h * s * ((2 * dk + 2 * dv) * isz + 4), plain_reps=1,
-              library_note="no single PyTorch call computes it",
-              layout="heads of a projection" if path else "contiguous")
+        entry(
+            f"K5 ssm_scan BH{b * h} S{s} DK{dk} DV{dv} {str(dt)[6:]}",
+            "ssm_scan_cuda", "src/repro_torch/kernels/csrc/ssm_scan.cu",
+            "src/repro/kernels/ssm_scan/ssm_scan.py:81",
+            [b * h, s, dk, dv], ssm_scan_cuda(q, k, v, la),
+            scan_ref(q.float(), k.float(), v.float(), la),
+            8e-3 if dt == bf16 else 1e-4,
+            lambda q=q, k=k, v=v, la=la: ssm_scan_cuda(q, k, v, la),
+            lambda q=q, k=k, v=v, la=la: scan_ref(q, k, v, la),
+            None, reps, 4.0 * b * h * s * dk * dv,
+            PEAK_BF16 if dt == bf16 else PEAK_FP32,
+            b * h * s * ((2 * dk + 2 * dv) * isz + 4), plain_reps=1,
+            library_note="no single PyTorch call computes it", layout=layout)
+        del q, k, v, la
+        torch.cuda.empty_cache()
 
-    # xlstm's 256 x 257 state does not fit a block: refused, not run
-    q = torch.zeros(1, 1, 128, 256, device=dev)
-    v = torch.zeros(1, 1, 128, 257, device=dev)
-    try:
-        ssm_scan_cuda(q, q, v, torch.zeros(1, 1, 128, device=dev))
-        refused = ""
-    except ValueError as exc:
-        refused = str(exc)
-    emit({"k5_refuses_state": [256, 257], "message": refused})
-    check("do not fit" in refused, "K5 ran a 256x257 state")
+    k5_refuses_dk(torch, ssm_scan_cuda)
     return out
+
+
+def k5_refuses_dk(torch, wrapper):
+    """K5 holds a state of up to 256 rows (dk) in a tile: given 257, the
+    binding raises and nothing runs, through the wrapper or called
+    directly; nothing counts."""
+    from repro_torch.kernels import _build
+    ext = _build.extension()
+    q = torch.zeros(1, 1, 128, 257, device="cuda")
+    v = torch.zeros(1, 1, 128, 4, device="cuda")
+    la = torch.zeros(1, 1, 128, device="cuda")
+    y = torch.full_like(v, float("nan"))
+    work = torch.empty(ext.ssm_scan_workspace(1, 1, 128, 257, 4),
+                       device="cuda")
+    strides = ([st for t in (q, q, v) for st in t.stride()[:3]]
+               + list(la.stride()) + list(y.stride()[:3]))
+    before = wrapper.launches
+    try:
+        wrapper(q, q, v, la)
+        wrapper_refused = ""
+    except RuntimeError as exc:
+        wrapper_refused = str(exc).splitlines()[0]
+    try:
+        ext.ssm_scan(q.data_ptr(), q.data_ptr(), v.data_ptr(),
+                     la.data_ptr(), y.data_ptr(), work.data_ptr(),
+                     work.numel(), 0, 1, 1, 128, 257, 4, strides,
+                     torch.cuda.current_stream().cuda_stream)
+        refused = ""
+    except RuntimeError as exc:
+        refused = str(exc).splitlines()[0]
+    torch.cuda.synchronize()
+    untouched = bool(torch.isnan(y).all())
+    counted = wrapper.launches - before
+    emit({"k5_refuses_dk": 257, "wrapper_message": wrapper_refused,
+          "message": refused, "output_untouched": untouched,
+          "launches_counted": counted})
+    check("dk must be" in wrapper_refused, "K5's wrapper took dk = 257")
+    check("dk must be" in refused, "K5's launcher took dk = 257")
+    check(untouched and counted == 0, "K5 ran or counted a dk = 257 launch")
 
 
 def k4_refuses_head_dim(torch, wrapper):

@@ -95,20 +95,28 @@ void flash_attention(i64 q, i64 k, i64 v, i64 o, int dtype, int batch,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// Returns false, having launched nothing, when the dk x dv state and one
-// chunk do not fit a block's shared memory; the wrapper raises.
-bool ssm_scan(i64 q, i64 k, i64 v, i64 log_a, i64 y, int dtype, int batch,
-              int heads, int s, int dk, int dv, std::vector<i64> strides,
-              i64 stream) {
+i64 ssm_scan_workspace(int batch, int heads, int s, int dk, int dv) {
+  return repro_ssm_scan_workspace(batch, heads, s, dk, dv);
+}
+
+// Raises, having launched nothing, for a dk above 256 or a size below 1,
+// and for a workspace smaller than ssm_scan_workspace() asks.
+void ssm_scan(i64 q, i64 k, i64 v, i64 log_a, i64 y, i64 work,
+              i64 work_floats, int dtype, int batch, int heads, int s,
+              int dk, int dv, std::vector<i64> strides, i64 stream) {
   TORCH_CHECK(strides.size() == 15, "ssm_scan: 15 strides");
   const cudaError_t err = repro_ssm_scan(
       ptr<const void>(q), ptr<const void>(k), ptr<const void>(v),
-      ptr<const float>(log_a), ptr<void>(y), dtype, batch, heads, s, dk, dv,
+      ptr<const float>(log_a), ptr<void>(y), ptr<float>(work), work_floats,
+      dtype, batch, heads, s, dk, dv,
       reinterpret_cast<const long long*>(strides.data()), as_stream(stream));
-  if (err == cudaErrorInvalidValue) return false;
+  TORCH_CHECK(err != cudaErrorInvalidValue,
+              "ssm_scan: dk must be 1 to 256 and every size positive");
+  TORCH_CHECK(err != cudaErrorInvalidDevicePointer,
+              "ssm_scan: the workspace is smaller than ssm_scan_workspace "
+              "asks");
   TORCH_CHECK(err == cudaSuccess, cudaGetErrorString(err));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
-  return true;
 }
 
 }  // namespace
@@ -122,5 +130,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "K3: batched Cholesky factor of one SPD block");
   m.def("flash_attention", &flash_attention,
         "K4: GQA forward attention with an online softmax");
+  m.def("ssm_scan_workspace", &ssm_scan_workspace,
+        "K5: fp32 workspace floats a call needs");
   m.def("ssm_scan", &ssm_scan, "K5: chunked decayed linear attention");
 }

@@ -73,11 +73,17 @@ cudaError_t repro_flash_attention(const void* q, const void* k, const void* v,
 // K5: y[b, h] = the decayed linear attention of q, k (s, dk), v (s, dv) and
 // log_a (s,) <= 0 (fp32), addressed by element strides, 15 of them in the
 // order (batch, head, row) for q, k, v, log_a, y; unit stride along dk and
-// dv. q, k, v and y share the type (REPRO_F32 or REPRO_BF16). Returns
-// cudaErrorInvalidValue, and launches nothing, when the dk x dv state and
-// one chunk do not fit a block's shared memory on the current device.
+// dv. q, k, v and y share the type (REPRO_F32 or REPRO_BF16). Three
+// launches (chunk states, the state pass, the outputs) through `work`, an
+// fp32 workspace of repro_ssm_scan_workspace() floats that the caller
+// allocates on the device. Returns cudaErrorInvalidValue, and launches
+// nothing, unless every size is positive and dk <= 256 (the widest a tile
+// holds), and cudaErrorInvalidDevicePointer for a workspace of fewer floats.
+long long repro_ssm_scan_workspace(int batch, int heads, int s, int dk,
+                                   int dv);
 cudaError_t repro_ssm_scan(const void* q, const void* k, const void* v,
-                           const float* log_a, void* y, int dtype, int batch,
+                           const float* log_a, void* y, float* work,
+                           long long work_floats, int dtype, int batch,
                            int heads, int s, int dk, int dv,
                            const long long* strides, cudaStream_t stream);
 

@@ -28,9 +28,10 @@ def ssm_scan_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K5 (``csrc/ssm_scan.cu``), the counterpart of the reference's
     ``ssm_scan_pallas``: q, k (B, H, S, DK), v (B, H, S, DV), log_a
     (B, H, S) fp32 <= 0, any strides with unit stride along DK and DV.  CPU
-    tensors take the plain version; CUDA tensors launch the kernel or
-    raise, as the kernel does for a DK x DV state that does not fit a
-    block's shared memory (xlstm's 256 x 257)."""
+    tensors take the plain version; CUDA tensors launch the kernel (three
+    CUDA launches through an fp32 workspace allocated here, one count) or
+    raise, as the kernel does for a DK above 256, the widest state its
+    tiles hold."""
     b, h, s, dk = q.shape
     dv = v.shape[-1]
     if all(t.device.type == "cpu" for t in (q, k, v, log_a)):
@@ -51,13 +52,13 @@ def ssm_scan_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         strides = [x for t in (q, k, v) for x in t.stride()[:3]]
         strides += list(log_a.stride()) + list(y.stride()[:3])
         with torch.cuda.device(q.device):
-            fits = _build.extension().ssm_scan(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), log_a.data_ptr(),
-                y.data_ptr(), _CODES[q.dtype], b, h, s, dk, dv, strides,
-                stream_of(q))
-        if not fits:
-            raise ValueError(f"ssm_scan: a {dk}x{dv} state and one chunk do "
-                             "not fit a block's shared memory")
+            ext = _build.extension()
+            work = torch.empty(ext.ssm_scan_workspace(b, h, s, dk, dv),
+                               dtype=torch.float32, device=q.device)
+            ext.ssm_scan(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         log_a.data_ptr(), y.data_ptr(), work.data_ptr(),
+                         work.numel(), _CODES[q.dtype], b, h, s, dk, dv,
+                         strides, stream_of(q))
         ssm_scan_cuda.launches += 1
     return y
 

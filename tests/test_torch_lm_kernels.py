@@ -21,7 +21,8 @@ from repro.kernels.flash_attention import flash_attention_ref as ref_flash_ref
 from repro.kernels.ssm_scan import ssm_scan as ref_scan
 from repro_torch import kernels as tk
 from repro_torch.kernels.common import TilePlan
-from repro_torch.kernels.flash_attention.ops import _ref4, loadable
+from repro_torch.kernels.flash_attention.ops import (HEAD_DIMS, _ref4,
+                                                     loadable, pad_head_dim)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -103,6 +104,31 @@ class TestFlashAttention:
             tk.flash_attention(q, q, q, tiles=plan)
         ok = TilePlan.make("flash_attention", bq=128, bkv=128)
         assert tk.flash_attention(q, q, q, tiles=ok).shape == q.shape
+
+    @pytest.mark.parametrize("d", [16, 80])
+    def test_padded_head_dim_gives_the_unpadded_result(self, d):
+        """K4 takes D <= 128 by zero-padding D to a head dim it has a body
+        for and scaling by the true D: the plain attention over the padded
+        operands, with the scale d^-0.5 given explicitly (q times
+        (dp / d)^0.5 against the plain version's dp^-0.5), is the unpadded
+        result followed by zeros."""
+        rng = np.random.default_rng(d)
+        q, k, v = (torch.tensor(rng.standard_normal((3, 200, d)),
+                                dtype=torch.float32) for _ in range(3))
+        qp, kp, vp = pad_head_dim(q, k, v)
+        dp = qp.shape[-1]
+        assert dp == min(x for x in HEAD_DIMS if x >= d) and dp > d
+        got = tk.flash_attention_ref(qp * (dp / d) ** 0.5, kp, vp,
+                                     causal=True)
+        want = tk.flash_attention_ref(q, k, v, causal=True)
+        assert torch.allclose(got[..., :d], want, rtol=0, atol=1e-6)
+        assert torch.equal(got[..., d:], torch.zeros_like(got[..., d:]))
+
+    def test_padding_leaves_supported_dims_and_refuses_above_128(self):
+        q = torch.zeros(1, 128, 64)
+        assert pad_head_dim(q, q, q)[0] is q
+        with pytest.raises(ValueError, match="above 128"):
+            pad_head_dim(torch.zeros(1, 128, 129))
 
     def test_cpu_runs_the_plain_version_and_counts_no_launch(self):
         rng = np.random.default_rng(10)
@@ -202,7 +228,7 @@ class TestTensorCoreNumerics:
 class TestSSMScan:
     @pytest.mark.parametrize("b,h,s,dk,dv", [
         (2, 2, 256, 64, 64), (1, 4, 300, 64, 128), (1, 1, 512, 128, 129),
-        (1, 2, 64, 32, 32),
+        (1, 2, 64, 32, 32), (1, 2, 256, 256, 257), (1, 2, 300, 20, 33),
     ])
     def test_sweep(self, b, h, s, dk, dv):
         rng = np.random.default_rng(b * 100 + h * 10 + s + dk + dv)
