@@ -9,11 +9,12 @@
    on its 4-byte copy path and on a stacked batch; K2 also on a strided B
    and at the Cholesky's last panel, K3 also at a ragged width; K4 and K5
    in the path's layouts, with the error taken per output row; K4 also at
-   head dims 16 and 80, which its wrapper pads; K5 also at xlstm's 256 x 257
-   state and at small ragged shapes), and times kernel, plain version and the nearest single PyTorch
-   call with CUDA events; K1's launcher must refuse arguments it does not
-   take, K3's a block wider than one CTA holds, K4's a head dim it has no
-   body for, and K5's a dk above the widest a tile holds.
+   head dims 16, 80 and 160, which its wrapper pads, and 256; K5 also at
+   xlstm's 256 x 257 state and at small ragged shapes), and times kernel,
+   plain version and the nearest single PyTorch call with CUDA events; K1's
+   launcher must refuse arguments it does not take, K3's a block wider than
+   one CTA holds, K4's a head dim it has no body for, and K5's a dk above
+   the widest a tile holds.
 3. Drives the linalg path: ``repro_torch.linalg.matmul / trsm / cholesky``
    at n = 16384, fp32, on the default devices (one card, p = 1), with the
    kernels' launch counts set to 0 before each call and read after it, and
@@ -32,6 +33,15 @@
    state dict: last-position logits within 1e-3 relative, equal argmax;
    and starcoder2-3b in bf16 on the card (K4's tensor-core body) against
    the CPU's fp32 run of the same bf16-valued weights, within 2e-2.
+7. Runs the measuring half on ``cuda:0``: the routine-efficiency benchmark
+   (``core.calibration.time_routines``) through the kernels (K1-K3) and
+   through the library at sizes 256 to 16384, the fitted curves and the
+   measured ``h100-sxm`` profile registered in a private registry (a new
+   fingerprint); then the linalg calls at n = 16384 warm, unobserved and
+   with ``observe=True`` into a temporary run store (one record a call, its
+   phases within 10 % of the synchronized host wall time, residual < 1e-4),
+   the seed's and the measured profile's predictions beside them, and the
+   records joined against both profiles and refitted.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero, as do
@@ -45,6 +55,7 @@ Usage, from the root of a checkout on a machine with a CUDA GPU:
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -110,10 +121,12 @@ def main() -> int:
     forced_variants(torch)
     prefill_counts = prefill_path(torch)
     prefill_against_cpu(torch)
+    measuring_counts = measuring_half(torch)
 
     for entry in kernels:
         entry["launches"] = (main_counts[entry["wrapper"]]
-                             + prefill_counts[entry["wrapper"]])
+                             + prefill_counts[entry["wrapper"]]
+                             + measuring_counts[entry["wrapper"]])
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -318,9 +331,9 @@ def heads_view(torch, b, h, s, d, gen, dt, scale=1.0):
 def lm_kernel_checks(torch):
     """K4 at starcoder2-3b's prefill shape and, in bf16 and fp32, at the
     reference's test shapes (the ragged edge, the non-causal branch, GQA,
-    each head dim) and at head dims 16 and 80 (zero-padded to 64 and 96 by
-    the wrapper), and its launcher's refusal of a head dim it has no body
-    for; K5 at hymba-1.5b's SSD shape, at xlstm-350m's 256 x 257 mLSTM
+    each head dim), at head dims 16, 80 and 160 (zero-padded to 64, 96 and
+    256 by the wrapper) and at 256, and its launcher's refusal of a head
+    dim it has no body for; K5 at hymba-1.5b's SSD shape, at xlstm-350m's 256 x 257 mLSTM
     state (v with the normaliser's ones column), at the widest state the
     reference tests and at small ragged shapes, and its launcher's refusal
     of dk = 257.  The path's
@@ -351,11 +364,15 @@ def lm_kernel_checks(torch):
             (1, 6, 3, 256, 96, True, bf16, False, 20),
             (1, 4, 2, 256, 16, True, bf16, False, 20),
             (1, 4, 2, 256, 80, True, bf16, False, 20),
+            (1, 4, 2, 256, 160, True, bf16, False, 20),
+            (1, 4, 2, 256, 256, True, bf16, False, 20),
             (1, 8, 1, 384, 128, True, fp32, False, 20),
             (2, 4, 4, 300, 64, False, fp32, False, 20),
             (1, 6, 3, 256, 96, True, fp32, False, 20),
             (1, 4, 2, 256, 16, True, fp32, False, 20),
-            (1, 4, 2, 256, 80, True, fp32, False, 20)):
+            (1, 4, 2, 256, 80, True, fp32, False, 20),
+            (1, 4, 2, 256, 160, True, fp32, False, 20),
+            (1, 4, 2, 256, 256, True, fp32, False, 20)):
         if path:
             q = heads_view(torch, b, h, s, d, gen, dt)
             k = heads_view(torch, b, kv, s, d, gen, dt)
@@ -488,19 +505,20 @@ def k5_refuses_dk(torch, wrapper):
 
 
 def k4_refuses_head_dim(torch, wrapper):
-    """K4's C launcher has bodies for head dims 64, 96 and 128 only: given
-    80, the binding raises and nothing runs, in either type.  The binding
-    is called directly, past the wrapper's own check."""
+    """K4's C launcher has bodies for head dims 64, 96, 128 and 256 only:
+    given 320, the binding raises and nothing runs, in either type.  The
+    binding is called directly, past the wrapper's own check."""
     from repro_torch.kernels import _build
+    d = 320
     for dt, code in ((torch.bfloat16, 1), (torch.float32, 0)):
-        q = torch.zeros(1, 1, 128, 80, device="cuda", dtype=dt)
+        q = torch.zeros(1, 1, 128, d, device="cuda", dtype=dt)
         o = torch.full_like(q, float("nan"))
         strides = [st for t in (q, q, q, o) for st in t.stride()[:3]]
         before = wrapper.launches
         try:
             _build.extension().flash_attention(
                 q.data_ptr(), q.data_ptr(), q.data_ptr(), o.data_ptr(), code,
-                1, 1, 1, 128, 128, 80, strides, 80 ** -0.5, True,
+                1, 1, 1, 128, 128, d, strides, d ** -0.5, True,
                 torch.cuda.current_stream().cuda_stream)
             refused = ""
         except RuntimeError as exc:
@@ -508,13 +526,13 @@ def k4_refuses_head_dim(torch, wrapper):
         torch.cuda.synchronize()
         untouched = bool(torch.isnan(o).all())
         counted = wrapper.launches - before
-        emit({"k4_refuses_head_dim": 80, "dtype": str(dt)[6:],
+        emit({"k4_refuses_head_dim": d, "dtype": str(dt)[6:],
               "message": refused, "output_untouched": untouched,
               "launches_counted": counted})
         check("head dim must be" in refused,
-              f"K4's launcher took d = 80 in {dt}")
+              f"K4's launcher took d = {d} in {dt}")
         check(untouched and counted == 0,
-              f"K4 ran or counted a d = 80 launch in {dt}")
+              f"K4 ran or counted a d = {d} launch in {dt}")
 
 
 def k1_refuses_type(torch, wrapper):
@@ -850,6 +868,200 @@ def prefill_against_cpu(torch):
                   f"prefill vs cpu {arch}: argmax differs")
         del net, net_cpu
         torch.cuda.empty_cache()
+
+
+# -- 7. the measuring half: calibration, the measured profile, recording ------
+
+CAL_SIZES = (256, 512, 1024, 2048, 4096, 8192, 16384)
+# the kernel each routine launches on the kernels route at every size of
+# CAL_SIZES (all above the wrappers' thresholds; at 256 the solve and the
+# factor are one diagonal block, without a K1 update); dgetrf is the
+# library's on both routes
+CAL_KERNELS = {"dgemm": ("matmul_cuda",),
+               "dtrsm": ("trsm_diag_cuda",),
+               "dsyrk": ("matmul_cuda",),
+               "dpotrf": ("cholesky_block_cuda",)}
+# sizes at and above which the curves are fitted a second time, for
+# comparison: the local blocks of the p = 1 plans, past the sizes at which
+# a call is bound by its launches
+LARGE_SIZES = 2048
+
+
+def measuring_half(torch):
+    """Returns the kernel launch counts of the kernels route and of the
+    observed linalg calls, summed."""
+    import dataclasses
+    import tempfile
+    from repro_torch import kernels, linalg, telemetry
+    from repro_torch.core import calibration as cal
+    from repro_torch.core.machine import H100_SXM
+    from repro_torch.devices import device_kind_of
+    from repro_torch.tuner import PlanCache, Tuner, build_default_registry
+    t_start = time.perf_counter()
+    check(torch.cuda.device_count() > 0, "measuring half: no cuda:0")
+    dev = torch.device("cuda", 0)
+    totals = {name: 0 for name in kernels.launches()}
+
+    # 7.1 the routine benchmark on both routes
+    bench = {}
+    for route in cal.ROUTES:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        entries = cal.time_routines(CAL_SIZES, device=dev, route=route)
+        counts = kernels.launches()
+        emit({"calibration": route, "device": device_kind_of(dev),
+              "dtype": "float32", "seconds": time.perf_counter() - t0,
+              "gflops": {e["routine"] + f" {e['n']}": e["flops_per_s"] / 1e9
+                         for e in entries},
+              "launches": {e["routine"] + f" {e['n']}":
+                           {k: v for k, v in e["launches"].items() if v}
+                           for e in entries},
+              "launches_total": counts})
+        for e in entries:
+            rate = e["flops_per_s"]
+            check(math.isfinite(rate) and rate > 0,
+                  f"calibration {route} {e['routine']} {e['n']}: rate {rate}")
+        if route == "kernels":
+            for e in entries:
+                for name in CAL_KERNELS.get(e["routine"], ()):
+                    check(e["launches"][name] > 0,
+                          f"calibration {e['routine']} {e['n']}: {name} "
+                          "not launched")
+            for name in ("matmul_cuda", "trsm_diag_cuda",
+                         "cholesky_block_cuda"):
+                check(counts[name] > 0, f"calibration: {name} never "
+                      "launched")
+            for name, count in counts.items():
+                totals[name] += count
+        else:
+            check(not any(counts.values()),
+                  f"calibration library route launched {counts}")
+        bench[route] = cal.rates(entries)
+
+    # 7.2 the fits and the measured profile
+    def curves(rates, least=0):
+        peak = max(rates["dgemm"].values())
+        return {r: dataclasses.asdict(cal.fit_efficiency(
+            {n: v for n, v in vals.items() if n >= least}, peak))
+            for r, vals in rates.items()}
+    model = cal.measured_compute_model(bench=bench["kernels"])
+    registry = build_default_registry()
+    measured = cal.register_measured_profile(registry, model)
+    emit({"measured_profile": {
+        "name": measured.name, "revision": measured.revision,
+        "fingerprint": measured.fingerprint(),
+        "seed_fingerprint": H100_SXM.fingerprint(),
+        "peak_flops": measured.peak_flops_per_unit,
+        "seed_peak_flops": H100_SXM.peak_flops_per_unit,
+        "library_peak_flops": max(bench["library"]["dgemm"].values()),
+        "notes": measured.notes},
+        "curves": {route: curves(rates) for route, rates in bench.items()},
+        f"curves_n_ge_{LARGE_SIZES}": {
+            route: curves(rates, LARGE_SIZES)
+            for route, rates in bench.items()}})
+    check(measured.fingerprint() != H100_SXM.fingerprint(),
+          "the measured profile kept the seed's fingerprint")
+
+    # 7.3 the linalg calls at n = 16384: predictions, unobserved and
+    # observed warm calls
+    large = build_default_registry()
+    large_model = cal.measured_compute_model(
+        bench={r: {n: v for n, v in vals.items() if n >= LARGE_SIZES}
+               for r, vals in bench["kernels"].items()})
+    cal.register_measured_profile(large, large_model,
+                                  notes=f"measured, fitted at n >= "
+                                        f"{LARGE_SIZES}")
+    store = telemetry.RunStore(tempfile.mkdtemp(prefix="smoke_runs_"))
+    plan_dir = os.path.join(HERE, "build", "smoke_plans_measured")
+    shutil.rmtree(plan_dir, ignore_errors=True)
+    tuner = Tuner(registry=registry, cache=PlanCache(plan_dir), store=store)
+    seed_tuner = fresh_tuner()
+    large_tuner = Tuner(registry=large, cache=PlanCache(plan_dir + "_large"))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    devices = [dev]
+    n_records = 0
+    for op in ("matmul", "trsm", "cholesky"):
+        args = operands(torch, op, N_MAIN, gen)
+        predicted = {
+            name: t.plan(op, N_MAIN, devices=devices, dtype="float32")
+            .predicted["total"]
+            for name, t in (("seed", seed_tuner), ("measured", tuner),
+                            (f"measured_n_ge_{LARGE_SIZES}", large_tuner))}
+        getattr(linalg, op)(*args, devices=devices, tuner=tuner)   # warm-up
+        calls = []
+        for observe in (False, True, False, True):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            out = getattr(linalg, op)(*args, devices=devices, tuner=tuner,
+                                      observe=observe)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = kernels.launches()
+            records = [r for r in store.load() if r.kind == "dispatch"]
+            check(len(records) == n_records + observe,
+                  f"observed {op}: {len(records) - n_records} records for "
+                  f"one call (observe={observe})")
+            n_records = len(records)
+            res = residual(torch, op, args, out)
+            check(res < 1e-4, f"observed {op}: residual {res:.3e}")
+            call = {"observe": observe, "wall_s": wall, "residual": res}
+            if observe:
+                rec = records[-1]
+                total = sum(rec.phases.values())
+                call.update(phases=rec.phases, phases_sum_s=total,
+                            record={"op": rec.op, "variant": rec.variant,
+                                    "n": rec.n, "p": rec.p, "c": rec.c,
+                                    "machine": rec.machine,
+                                    "fingerprint": rec.fingerprint})
+                for phase in ("plan", "distribute", "execute"):
+                    check(rec.phases.get(phase, 0.0) > 0.0,
+                          f"observed {op}: phase {phase} missing or 0")
+                check(abs(total - wall) <= 0.1 * wall,
+                      f"observed {op}: phases {total:.4f} s against wall "
+                      f"{wall:.4f} s")
+            for name in PATH_KERNELS[op]:
+                check(counts[name] > 0, f"observed {op}: {name} never "
+                      "launched")
+            for name, count in counts.items():
+                totals[name] += count
+            calls.append(call)
+        emit({"measured_linalg": op, "n": N_MAIN, "dtype": "float32",
+              "p": 1, "predicted_total_s": predicted, "calls": calls})
+        del args, out
+        torch.cuda.empty_cache()
+
+    # 7.4 join the records against the seed and the measured profile; refit
+    records = store.load()
+    algos = sorted({r.op for r in records if r.kind == "dispatch"})
+    joined = {}
+    for name, reg in (("seed", build_default_registry()),
+                      ("measured", registry)):
+        rows = telemetry.join(records, reg)
+        joined[name] = rows
+        emit({"residuals": name, "rows": [
+            {"op": r.op, "variant": r.variant, "n": r.n, "p": r.p,
+             "phase": r.phase, "measured_s": r.measured,
+             "predicted_s": r.predicted, "ratio": r.ratio} for r in rows],
+            "report": telemetry.accuracy_report(rows)})
+        got = sorted({r.op for r in rows})
+        check(len(algos) == 3 and got == algos,
+              f"join against the {name} profile: rows for {got}, records "
+              f"of {algos}")
+    refit = telemetry.refit(joined["measured"], registry)
+    emit({"refit": {"machine": refit.machine.name,
+                    "revision": refit.machine.revision,
+                    "fingerprint": refit.fingerprint,
+                    "speed_scale": refit.speed_scale,
+                    "shape_scale": refit.shape_scale,
+                    "comm_scale": refit.comm_scale,
+                    "peak_flops": refit.machine.peak_flops_per_unit,
+                    "rows": [refit.n_comp_rows, refit.n_comm_rows]}})
+    check(refit.machine.revision == measured.revision + 1,
+          "refit did not bump the measured profile's revision")
+    emit({"measuring_half_s": time.perf_counter() - t_start})
+    return totals
 
 
 if __name__ == "__main__":

@@ -8,12 +8,16 @@ Layout:
   collectives.py  analytic collective models (paper §V, scalar closed forms)
   algorithms.py   scalar shims over the cost-IR algorithm models (§V);
                   the models themselves are authored in repro_torch.perf.models
+  calibration.py  portable benchmarks + fitting (paper §IV, Figs. 1-4):
+                  routine efficiency timed on the device (CUDA events),
+                  the measured profile, the paper fits
+  paper_data.py   the paper's published Tables II-V
   predictor.py    variant selection + prediction tables (paper §VI),
                   batched through the vectorized cost-IR evaluator
   fitting.py      least-squares helpers behind the efficiency curves
 
-The measuring half (calibration benchmarks) and the LM-step models are not
-ported yet.
+The ping and contention benchmarks wait for the multi-GPU backend, the
+LM-step models for the models slice of the port.
 
 The cost-IR itself (nodes, symbolic scenario parameters, the vectorized
 evaluator) lives in the sibling package ``repro_torch.perf``.

@@ -74,7 +74,8 @@ void cholesky_block(i64 a, i64 l, int batch, int nb, i64 sa, i64 lda, i64 sl,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// Raises, having launched nothing, for a head dim other than 64, 96 and 128
+// Raises, having launched nothing, for a head dim other than 64, 96, 128 and
+// 256
 // and for bf16 operands that the TMA loads cannot take.
 void flash_attention(i64 q, i64 k, i64 v, i64 o, int dtype, int batch,
                      int heads, int kv_heads, int sq, int skv, int d,
@@ -87,7 +88,7 @@ void flash_attention(i64 q, i64 k, i64 v, i64 o, int dtype, int batch,
       reinterpret_cast<const long long*>(strides.data()),
       static_cast<float>(scale), causal ? 1 : 0, as_stream(stream));
   TORCH_CHECK(err != cudaErrorInvalidValue,
-              "flash_attention: head dim must be 64, 96 or 128");
+              "flash_attention: head dim must be 64, 96, 128 or 256");
   TORCH_CHECK(err != cudaErrorMisalignedAddress,
               "flash_attention: bf16 q, k and v must be 16-byte aligned, "
               "with strides that are multiples of 8 elements");

@@ -31,7 +31,8 @@
 // probabilities go through shared memory (transposed) into the P.V product,
 // where a thread owns 4 rows x D/16 columns of the accumulator. The value
 // tile reuses the key tile's buffer, so a CTA needs 85 KB at D = 128 and two
-// CTAs fit an SM. Ragged edges are zero-filled on load and masked on store.
+// CTAs fit an SM (153 KB and one CTA at D = 256). Ragged edges are
+// zero-filled on load and masked on store.
 //
 // bf16 body (flash_tc_kernel): bf16 operands on the tensor cores with fp32
 // sums, the arithmetic the TPU's MXU gives the reference at its default
@@ -52,7 +53,10 @@
 // from shared memory as the MN-major B operand); O stays in fp32 registers
 // and is divided by l (0 -> 1) and rounded to bf16 only at the end. Head
 // dims of 96 are padded to 128 columns in shared memory by the TMA's zero
-// fill. The grid runs the longest causal rows of every head first.
+// fill. At D = 256 (taken simple, not tuned) the key and value tiles are 64
+// rows, the scores an m64n64k16 chain, and O += P V two m64n128k16 products
+// on the two halves of V's columns: the 64 x 256 fp32 accumulator is 128
+// registers a thread. The grid runs the longest causal rows of every head first.
 // Tried and not kept (PERF.md): an mma.sync body (slower), 64-row key
 // tiles, and overlapping one tile's softmax with the other products (within
 // a warpgroup, or ping-pong between the two), which gained too little to
@@ -84,14 +88,14 @@ constexpr size_t smem_bytes() {
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, D <= 128 ? 2 : 1)
     flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int H,
                  int group, int sq, int skv, long long qsb, long long qsh,
                  long long qss, long long ksb, long long ksh, long long kss,
                  long long vsb, long long vsh, long long vss, long long osb,
                  long long osh, long long oss, float scale, int causal) {
-  static_assert(D % 32 == 0 && D <= 128, "head dim");
+  static_assert(D % 32 == 0 && D <= 256, "head dim");
   constexpr int NC = D / 16;     // accumulator columns of a thread
   extern __shared__ __align__(16) float smem[];
   float* Qt = smem;              // [D][LDT]  q tile, transposed and scaled
@@ -260,7 +264,6 @@ cudaError_t launch_ffma(const float* q, const float* k, const float* v,
 namespace tc {
 
 constexpr int BQ = 128;                   // query rows: two warpgroups of 64
-constexpr int BKV = 128;                  // key / value rows of one step
 constexpr int STAGES = 2;                 // key / value tiles in flight
 constexpr int CONSUMERS = 256;            // the two warpgroups' threads
 constexpr int THREADS = CONSUMERS + 32;   // and one producer warp
@@ -270,10 +273,13 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 // Shared memory: the query tile, then STAGES key and STAGES value tiles,
 // each as DP / 64 panels of (rows x 128 bytes) in the TMA's 128-byte
-// swizzle (1024-byte aligned), then the mbarriers.
+// swizzle (1024-byte aligned), then the mbarriers. At D = 256 the key and
+// value tiles are 64 rows, so that the ring fits beside the 64 KB query
+// tile (193 KB in all).
 template <int D>
 struct Layout {
-  static constexpr int DP = D <= 64 ? 64 : 128;   // columns held
+  static constexpr int DP = D <= 64 ? 64 : D <= 128 ? 128 : 256;  // columns
+  static constexpr int BKV = DP <= 128 ? 128 : 64;   // key / value rows
   static constexpr int Q_BYTES = BQ * DP * 2;
   static constexpr int KV_BYTES = BKV * DP * 2;
   static constexpr int K_OFFSET = Q_BYTES;
@@ -413,6 +419,30 @@ __device__ __forceinline__ void wgmma_ss<128>(float* d, uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D(64 x 64) (+)= A(64 x 16) B(64 x 16)^T, both K-major in shared memory.
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // D(64 x 64) += A(64 x 16, registers) B(16 x 64), B MN-major in shared
 // memory.
 template <>
@@ -489,8 +519,12 @@ __global__ void __launch_bounds__(THREADS, 1)
                     float scale, int causal) {
   using L = Layout<D>;
   constexpr int DP = L::DP;
+  constexpr int BKV = L::BKV;
   constexpr int NS = BKV / 2;   // score registers of a thread
   constexpr int NO = DP / 2;    // output registers of a thread
+  // columns of one P V product: the 64 x 256 accumulator of D = 256 takes
+  // two m64n128 products, registers 0-63 and 64-127 of the m64n256 layout
+  constexpr int NW = DP <= 128 ? DP : 128;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t s_q = base;
@@ -644,9 +678,12 @@ __global__ void __launch_bounds__(THREADS, 1)
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < BKV / 16; ++kk)
-      wgmma_rs<DP>(acc, &pa[4 * kk],
-                   desc(s_v + off + kk * 16 * ROW_BYTES, BKV * ROW_BYTES,
-                        1024));
+#pragma unroll
+      for (int hh = 0; hh < DP / NW; ++hh)
+        wgmma_rs<NW>(acc + hh * (NW / 2), &pa[4 * kk],
+                     desc(s_v + off + hh * (NW / PANEL) * BKV * ROW_BYTES +
+                              kk * 16 * ROW_BYTES,
+                          BKV * ROW_BYTES, 1024));
     wg_commit();
     wg_wait();
     fence_regs<NO>(acc);
@@ -737,6 +774,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int batch, int heads, int kv_heads, int sq, int skv,
                    const long long* st, float scale, int causal,
                    cudaStream_t stream) {
+  constexpr int BKV = Layout<D>::BKV;
   CUtensorMap tq, tk, tv;
   if (!tensor_map(&tq, q, D, sq, heads, batch, st[2], st[1], st[0], BQ) ||
       !tensor_map(&tk, k, D, skv, kv_heads, batch, st[5], st[4], st[3],
@@ -768,8 +806,11 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
     case 96:
       return tc::launch<96>(q, k, v, o, batch, heads, kv_heads, sq, skv, st,
                             scale, causal, stream);
-    default:
+    case 128:
       return tc::launch<128>(q, k, v, o, batch, heads, kv_heads, sq, skv, st,
+                             scale, causal, stream);
+    default:
+      return tc::launch<256>(q, k, v, o, batch, heads, kv_heads, sq, skv, st,
                              scale, causal, stream);
   }
 }
@@ -789,8 +830,11 @@ cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o,
     case 96:
       return launch_ffma<96>(qf, kf, vf, of, batch, heads, kv_heads, sq, skv,
                              st, scale, causal, stream);
-    default:
+    case 128:
       return launch_ffma<128>(qf, kf, vf, of, batch, heads, kv_heads, sq,
+                              skv, st, scale, causal, stream);
+    default:
+      return launch_ffma<256>(qf, kf, vf, of, batch, heads, kv_heads, sq,
                               skv, st, scale, causal, stream);
   }
 }
@@ -801,7 +845,8 @@ extern "C" cudaError_t repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, int dtype,
     int batch, int heads, int kv_heads, int sq, int skv, int d,
     const long long* strides, float scale, int causal, cudaStream_t stream) {
-  if (d != 64 && d != 96 && d != 128) return cudaErrorInvalidValue;
+  if (d != 64 && d != 96 && d != 128 && d != 256)
+    return cudaErrorInvalidValue;
   if (dtype == REPRO_BF16)
     return launch_bf16(q, k, v, o, batch, heads, kv_heads, sq, skv, d,
                        strides, scale, causal, stream);

@@ -16,7 +16,7 @@ from .ref import flash_attention_ref
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the kernel is compiled for (csrc/flash_attention.cu)
-HEAD_DIMS = (64, 96, 128)
+HEAD_DIMS = (64, 96, 128, 256)
 
 
 def _ref4(q, k, v, causal):
@@ -61,7 +61,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True) -> torch.Tensor:
     """K4 (``csrc/flash_attention.cu``), the counterpart of the reference's
     ``flash_attention_pallas``: q (B, H, Sq, D), k and v (B, KV, Skv, D),
-    scaled by D^-0.5; D up to 128, zero-padded to the narrowest head dim
+    scaled by D^-0.5; D up to 256, zero-padded to the narrowest head dim
     the kernel has a body for (:func:`pad_head_dim`) and the output sliced
     back; operands the kernel cannot take as they lie (see :func:`loadable`)
     are copied first.  CPU tensors take the plain version; CUDA tensors

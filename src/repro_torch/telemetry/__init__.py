@@ -1,0 +1,55 @@
+"""repro_torch.telemetry — the measured-run feedback loop.
+
+Every layer below this one *predicts*: the cost IR estimates, the
+simulator replays, the tuner plans.  This package closes the paper's
+methodology loop by feeding what the hardware actually did back into
+those predictions:
+
+  record.py     PhaseTimer instrumentation (context manager + decorator)
+                wired into linalg dispatch;
+                recording is off unless REPRO_TELEMETRY=1 / enable()
+  store.py      append-only JSONL run store under artifacts/telemetry/,
+                keyed by machine fingerprint, schema-versioned, compactable
+  residuals.py  join measured runs against perf.evaluate per-phase
+                predictions -> ratio rows
+  refit.py      online recalibration: Nelder-Mead efficiency-curve fit +
+                ridge-scaled calibration tables, emitted as a new
+                Machine-profile *revision* (never mutated in place)
+  drift.py      rolling per-op relative error; crossing the threshold
+                bumps Machine.revision, changing the fingerprint and so
+                retiring every stale tuner plan-cache entry
+  report.py     the paper's accuracy tables (mean/max relative error per
+                algorithm) as a living report, JSON-saved for CI gates
+
+Closed loop: dispatch records -> residuals join -> refit shrinks the
+error -> drift detection retires the profile when reality moves again.
+
+Fault diagnosis (``diagnose.py``: link and rank localization through the
+per-rank simulator's fault model) and the simulator flavor of the join
+(``join(..., include_sim=True)``) come with the simulator slice of the
+port.
+"""
+
+from .store import RunRecord, RunStore, TELEMETRY_SCHEMA, telemetry_dir
+from .record import (PhaseTimer, default_store, disable, enable, enabled,
+                     kernel_timer, observe_plan, phase_scope, reset,
+                     timer_for_plan)
+from .residuals import (Residual, TOTAL_PHASES, join, mean_abs_log_ratio,
+                        split_comm_comp)
+from .refit import KernelRefitResult, RefitResult, refit, refit_kernels
+from .drift import (DEFAULT_THRESHOLD, DEFAULT_WINDOW, DriftLatch,
+                    DriftStatus, bump_revision, check,
+                    detect_and_invalidate, reset_latch)
+from .report import accuracy_report, format_report, save_report
+
+__all__ = [
+    "RunRecord", "RunStore", "TELEMETRY_SCHEMA", "telemetry_dir",
+    "PhaseTimer", "default_store", "disable", "enable", "enabled",
+    "kernel_timer", "observe_plan", "phase_scope", "reset", "timer_for_plan",
+    "Residual", "TOTAL_PHASES", "join", "mean_abs_log_ratio",
+    "split_comm_comp",
+    "KernelRefitResult", "RefitResult", "refit", "refit_kernels",
+    "DEFAULT_THRESHOLD", "DEFAULT_WINDOW", "DriftLatch", "DriftStatus",
+    "bump_revision", "check", "detect_and_invalidate", "reset_latch",
+    "accuracy_report", "format_report", "save_report",
+]

@@ -16,9 +16,9 @@ on this device pool?" by
 
 Devices are ``torch.device`` objects: the platform is the device type
 (``"cuda"`` / ``"cpu"``) and the device kind is the card's name.  The
-simulator-refined second stage (``refine="sim"``), the telemetry record
-(``observe=True``) and the LM-layer consultations belong to later slices
-of the port and raise ``NotImplementedError`` here.
+simulator-refined second stage (``refine="sim"``) and the LM-layer
+consultations belong to later slices of the port and raise
+``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -80,9 +80,11 @@ class Tuner:
 
     def __init__(self, registry: Optional[PerfModelRegistry] = None,
                  cache: Optional[PlanCache] = None,
-                 plan_dir: Optional[str] = None):
+                 plan_dir: Optional[str] = None,
+                 store=None):
         self.registry = registry or DEFAULT_REGISTRY
         self.cache = cache or PlanCache(plan_dir)
+        self.store = store      # telemetry RunStore for observe=True records
         self.stats = {"model_evals": 0, "cache_hits": 0}
         self._lock = threading.Lock()
 
@@ -107,16 +109,17 @@ class Tuner:
         alone to ask hypothetical questions ("what would 4096 Hopper
         processes run?") without touching device state.
 
-        ``refine="sim"`` and ``observe=True`` need the per-rank simulator
-        and the telemetry store, which later slices of the port bring;
-        until then they raise ``NotImplementedError``.
+        ``refine="sim"`` needs the per-rank simulator, which a later slice
+        of the port brings; until then it raises ``NotImplementedError``.
+
+        ``observe=True`` records the planning decision (chosen variant +
+        predicted timing) into the telemetry run store, so the measured
+        feedback loop can later compare what the model promised with what
+        dispatch delivered — it records regardless of the global
+        ``REPRO_TELEMETRY`` switch (an explicit per-call opt-in).
         """
         if refine not in (None, "sim"):
             raise ValueError(f"refine must be None or 'sim', got {refine!r}")
-        if observe:
-            raise NotImplementedError(
-                "observe=True records into the telemetry store, which the "
-                "telemetry slice of the port brings")
         if devices is not None:
             devices = list(devices)
             device_count = len(devices)
@@ -179,6 +182,8 @@ class Tuner:
                         import dataclasses
                         plan = dataclasses.replace(plan,
                                                    local_kernel=local_kernel)
+                    if observe:
+                        self._observe(plan)
                     return plan
 
         plan = self._build_plan(op, n, device_count, machine, dtype,
@@ -187,7 +192,15 @@ class Tuner:
             self.stats["model_evals"] += 1
         if use_cache:
             self.cache.put(key, plan.to_dict())
+        if observe:
+            self._observe(plan)
         return plan
+
+    def _observe(self, plan: ExecutionPlan) -> None:
+        from ..telemetry import observe_plan
+        observe_plan(plan, store=self.store)
+        with self._lock:
+            self.stats["observed"] = self.stats.get("observed", 0) + 1
 
     def _build_plan(self, op: str, n: int, device_count: int, machine: str,
                     dtype: str, local_kernel: str, fp: str) -> ExecutionPlan:

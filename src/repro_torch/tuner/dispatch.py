@@ -15,18 +15,27 @@ chosen variant with the planned local kernels:
   ``torch.linalg`` locals.
 
 The plan strings are the reference's, so its frozen plans load here.
-Executors are memoized per (grid, devices, variant, kernel, tiles).  The
-telemetry and observability hooks come with a later slice: ``observe=True``
-raises ``NotImplementedError``.
+Executors are memoized per (grid, devices, variant, kernel, tiles).
+
+Every entry point is instrumented as the reference's is: with
+``observe=True``, ``REPRO_TELEMETRY=1`` or ``REPRO_OBS=1`` a
+``telemetry.PhaseTimer`` records the ``plan``, ``distribute`` and
+``execute`` phases under ``obs`` spans and emits one run record.  CUDA
+launches return before the device is done, so while a timer is active each
+of ``distribute`` and ``execute`` ends in ``torch.cuda.synchronize``: a
+phase's host time then holds its device work.  Unobserved calls add no
+synchronize.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from .. import obs, telemetry
 from ..devices import canonical, default_devices
 from ..kernels.cholesky.ops import cholesky as _kchol
 from ..kernels.common import TilePlan
@@ -158,38 +167,75 @@ def _resolve(devices: Optional[Sequence], plan_p: int) -> Tuple:
     return tuple(canonical(d) for d in devices[:plan_p])
 
 
+def _settle(pt, device: torch.device) -> None:
+    """End a timed phase on the device's clock: with a timer active, wait
+    for the device so the phase's host time holds its device work."""
+    if pt is not None and device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def execute(plan: ExecutionPlan, *operands,
-            devices: Optional[Sequence] = None, observe: bool = False):
+            devices: Optional[Sequence] = None, observe: bool = False,
+            store=None, _plan_seconds: float = 0.0):
     """Run an already-resolved plan on its operands (benchmarks use this to
-    force specific — including deliberately bad — variants)."""
-    if observe:
-        raise NotImplementedError(
-            "observe=True records into the telemetry store, which the "
-            "telemetry slice of the port brings")
+    force specific — including deliberately bad — variants).
+
+    ``observe=True`` records this run's measured phases into the telemetry
+    store even when global recording is off; ``store`` routes the record
+    (default: the global default store).  ``_plan_seconds`` lets the
+    model-guided wrappers account the planning time they already spent."""
+    _phase = telemetry.phase_scope
     devs = _resolve(devices, plan.p)
     grid = make_grid_mesh(plan.g, plan.g, layers=plan.c, devices=devs)
     fn = _executor(plan, grid)
+    pt = None
+    if observe or telemetry.enabled() or obs.enabled():
+        pt = telemetry.timer_for_plan(plan, kind="dispatch")
+        if _plan_seconds > 0.0:
+            pt.add("plan", _plan_seconds)
     n = plan.n
     g, c = plan.g, plan.c
     ops = [torch.as_tensor(x, device=grid.device) for x in operands]
     m = _round_up(n, g)
-    if plan.algo in ("cannon", "summa"):
-        a, b = ops
-        ad = distribute(_pad_zero(a, m, m), grid, BLOCK)
-        bd = distribute(_pad_zero(b, m, m), grid, BLOCK)
-        return collect(fn(ad, bd), grid, BLOCK)[:n, :n]
-    if plan.algo == "trsm":
-        u, b = ops
-        mb = _round_up(n, c * g)
-        bx_spec = ROWS_OVER_LAYERS if c > 1 else BLOCK
-        ud = distribute(_pad_eye(u, m), grid, BLOCK)
-        bd = distribute(_pad_zero(b, mb, m), grid, bx_spec)
-        return collect(fn(ud, bd), grid, bx_spec)[:n, :n]
-    if plan.algo == "cholesky":
-        (a,) = ops
-        ad = distribute(_pad_eye(a, m), grid, BLOCK)
-        return collect(fn(ad), grid, BLOCK)[:n, :n]
-    raise ValueError(f"unknown algo {plan.algo!r}")
+    # root span for the whole dispatch; the phase() children underneath
+    # (distribute/execute) carry the predicted durations and pair up
+    with obs.maybe_span(f"dispatch:{plan.algo}", cat="dispatch_root",
+                        algo=plan.algo, variant=plan.variant, n=n,
+                        p=plan.p, c=c,
+                        predicted_total_s=plan.predicted.get("total")):
+        if plan.algo in ("cannon", "summa"):
+            a, b = ops
+            with _phase(pt, "distribute"):
+                ad = distribute(_pad_zero(a, m, m), grid, BLOCK)
+                bd = distribute(_pad_zero(b, m, m), grid, BLOCK)
+                _settle(pt, grid.device)
+            with _phase(pt, "execute"):
+                out = collect(fn(ad, bd), grid, BLOCK)[:n, :n]
+                _settle(pt, grid.device)
+        elif plan.algo == "trsm":
+            u, b = ops
+            mb = _round_up(n, c * g)
+            bx_spec = ROWS_OVER_LAYERS if c > 1 else BLOCK
+            with _phase(pt, "distribute"):
+                ud = distribute(_pad_eye(u, m), grid, BLOCK)
+                bd = distribute(_pad_zero(b, mb, m), grid, bx_spec)
+                _settle(pt, grid.device)
+            with _phase(pt, "execute"):
+                out = collect(fn(ud, bd), grid, bx_spec)[:n, :n]
+                _settle(pt, grid.device)
+        elif plan.algo == "cholesky":
+            (a,) = ops
+            with _phase(pt, "distribute"):
+                ad = distribute(_pad_eye(a, m), grid, BLOCK)
+                _settle(pt, grid.device)
+            with _phase(pt, "execute"):
+                out = collect(fn(ad), grid, BLOCK)[:n, :n]
+                _settle(pt, grid.device)
+        else:
+            raise ValueError(f"unknown algo {plan.algo!r}")
+    if pt is not None:
+        pt.emit(store=store, force=observe)
+    return out
 
 
 def matmul(A, B, *, devices: Optional[Sequence] = None,
@@ -204,9 +250,12 @@ def matmul(A, B, *, devices: Optional[Sequence] = None,
                          "match")
     t = tuner or default_tuner()
     devs = list(devices) if devices is not None else default_devices()
-    plan = t.plan("matmul", n, devices=devs, dtype=_dtype_key(A),
-                  local_kernel=local_kernel, observe=observe)
-    return execute(plan, A, B, devices=devs)
+    t0 = time.perf_counter()
+    with obs.maybe_span("plan", cat="dispatch", op="matmul", n=n):
+        plan = t.plan("matmul", n, devices=devs, dtype=_dtype_key(A),
+                      local_kernel=local_kernel, observe=observe)
+    return execute(plan, A, B, devices=devs, observe=observe, store=t.store,
+                   _plan_seconds=time.perf_counter() - t0)
 
 
 def trsm(U, B, *, devices: Optional[Sequence] = None,
@@ -220,9 +269,12 @@ def trsm(U, B, *, devices: Optional[Sequence] = None,
                          "match")
     t = tuner or default_tuner()
     devs = list(devices) if devices is not None else default_devices()
-    plan = t.plan("trsm", n, devices=devs, dtype=_dtype_key(U),
-                  local_kernel=local_kernel, observe=observe)
-    return execute(plan, U, B, devices=devs)
+    t0 = time.perf_counter()
+    with obs.maybe_span("plan", cat="dispatch", op="trsm", n=n):
+        plan = t.plan("trsm", n, devices=devs, dtype=_dtype_key(U),
+                      local_kernel=local_kernel, observe=observe)
+    return execute(plan, U, B, devices=devs, observe=observe, store=t.store,
+                   _plan_seconds=time.perf_counter() - t0)
 
 
 def cholesky(A, *, devices: Optional[Sequence] = None,
@@ -233,6 +285,9 @@ def cholesky(A, *, devices: Optional[Sequence] = None,
     n = _check_square("A", A)
     t = tuner or default_tuner()
     devs = list(devices) if devices is not None else default_devices()
-    plan = t.plan("cholesky", n, devices=devs, dtype=_dtype_key(A),
-                  local_kernel=local_kernel, observe=observe)
-    return execute(plan, A, devices=devs)
+    t0 = time.perf_counter()
+    with obs.maybe_span("plan", cat="dispatch", op="cholesky", n=n):
+        plan = t.plan("cholesky", n, devices=devs, dtype=_dtype_key(A),
+                      local_kernel=local_kernel, observe=observe)
+    return execute(plan, A, devices=devs, observe=observe, store=t.store,
+                   _plan_seconds=time.perf_counter() - t0)

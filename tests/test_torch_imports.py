@@ -59,6 +59,31 @@ def test_every_module_imports_without_jax_or_the_reference():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == ["jax"]
 
 
+# the measuring half: each package imports all of its modules
+MEASURING = ["repro_torch.core.calibration", "repro_torch.core.paper_data",
+             "repro_torch.obs", "repro_torch.telemetry",
+             "repro_torch.benchmarks.fig1_blas_efficiency"]
+
+
+@pytest.mark.parametrize("module", MEASURING)
+def test_measuring_modules_import_with_jax_and_the_reference_blocked(module):
+    """Each module of the measuring half imports on its own in a process
+    where importing JAX or the reference package fails."""
+    assert set(MEASURING) <= set(_port_modules())
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None        # any import of the reference fails
+        sys.path.insert(0, {SRC!r})
+        importlib.import_module({module!r})
+        print(sorted(m for m in sys.modules if m.startswith("repro_torch.")))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert module in out.stdout
+
+
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_source_names_neither_jax_nor_the_reference(path):

@@ -105,9 +105,9 @@ class TestFlashAttention:
         ok = TilePlan.make("flash_attention", bq=128, bkv=128)
         assert tk.flash_attention(q, q, q, tiles=ok).shape == q.shape
 
-    @pytest.mark.parametrize("d", [16, 80])
+    @pytest.mark.parametrize("d", [16, 80, 160])
     def test_padded_head_dim_gives_the_unpadded_result(self, d):
-        """K4 takes D <= 128 by zero-padding D to a head dim it has a body
+        """K4 takes D <= 256 by zero-padding D to a head dim it has a body
         for and scaling by the true D: the plain attention over the padded
         operands, with the scale d^-0.5 given explicitly (q times
         (dp / d)^0.5 against the plain version's dp^-0.5), is the unpadded
@@ -125,10 +125,14 @@ class TestFlashAttention:
         assert torch.equal(got[..., d:], torch.zeros_like(got[..., d:]))
 
     def test_padding_leaves_supported_dims_and_refuses_above_128(self):
-        q = torch.zeros(1, 128, 64)
-        assert pad_head_dim(q, q, q)[0] is q
-        with pytest.raises(ValueError, match="above 128"):
-            pad_head_dim(torch.zeros(1, 128, 129))
+        # the widest body is 256 since head dims 129-256 were added; the
+        # name is kept from when it was 128
+        for d in HEAD_DIMS:
+            q = torch.zeros(1, 128, d)
+            assert pad_head_dim(q, q, q)[0] is q
+        assert pad_head_dim(torch.zeros(1, 128, 129))[0].shape[-1] == 256
+        with pytest.raises(ValueError, match="above 256"):
+            pad_head_dim(torch.zeros(1, 128, 257))
 
     def test_cpu_runs_the_plain_version_and_counts_no_launch(self):
         rng = np.random.default_rng(10)
@@ -191,13 +195,16 @@ class TestTensorCoreNumerics:
     @pytest.mark.parametrize("b,h,kv,s,d,causal", [
         (1, 4, 1, 512, 128, True), (2, 4, 4, 300, 64, False),
         (1, 6, 3, 256, 96, True), (1, 8, 1, 384, 128, True),
+        (1, 4, 2, 256, 256, True),
     ])
     def test_within_budget(self, b, h, kv, s, d, causal):
         rng = np.random.default_rng(b * 1000 + h * 100 + s + d + 5)
         q, k, v = (torch.tensor(rng.standard_normal((b, n, s, d)),
                                 dtype=torch.float32).bfloat16()
                    for n in (h, kv, kv))
-        got = _tensor_core_numerics(q, k, v, causal)
+        # the D = 256 body walks the keys in tiles of 64
+        got = _tensor_core_numerics(q, k, v, causal, bkv=128 if d <= 128
+                                    else 64)
         want = _ref4(q.float(), k.float(), v.float(), causal)
         jq, jk, jv = (jnp.asarray(t.float().reshape(-1, s, d).numpy())
                       for t in (q, k, v))

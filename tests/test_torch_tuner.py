@@ -153,11 +153,26 @@ def test_torch_devices_key_like_the_reference(tmp_path):
     assert dispatch._dtype_key(torch.zeros(1)) == "float32"
 
 
-@pytest.mark.parametrize("kwargs", [{"refine": "sim"}, {"observe": True}])
+@pytest.mark.parametrize("kwargs", [{"refine": "sim"}])
 def test_later_slices_raise(kwargs, tmp_path):
     tuner = Tuner(cache=PlanCache(str(tmp_path)))
     with pytest.raises(NotImplementedError):
         tuner.plan("matmul", 96, device_count=4, platform="cpu", **kwargs)
+
+
+def test_plan_observe_records_the_plan(tmp_path):
+    """observe=True on Tuner.plan records the planning decision (a record
+    with no phases) into the tuner's store, as the reference does."""
+    from repro_torch.telemetry import RunStore
+    store = RunStore(str(tmp_path / "runs"))
+    tuner = Tuner(cache=PlanCache(str(tmp_path)), store=store)
+    plan = tuner.plan("matmul", 96, device_count=4, platform="cpu",
+                      observe=True)
+    [rec] = store.load()
+    assert (rec.kind, rec.op, rec.variant, rec.n, rec.p, rec.c) == (
+        "plan", plan.algo, plan.variant, 96, plan.p, plan.c)
+    assert rec.phases == {} and rec.predicted == plan.predicted
+    assert tuner.stats["observed"] == 1
 
 
 def test_lm_helpers_raise(tmp_path):
@@ -166,7 +181,18 @@ def test_lm_helpers_raise(tmp_path):
         tuner.recommend_fsdp(None, None, {"data": 4})
     with pytest.raises(NotImplementedError):
         tuner.serve_chunk(64, ctx0=0, cost=None, budget_s=1.0)
+
+
+def test_execute_observe_emits_a_record(tmp_path):
+    """dispatch.execute(..., observe=True) runs the plan and emits one
+    dispatch record with its distribute and execute phases."""
+    from repro_torch.telemetry import RunStore
+    store = RunStore(str(tmp_path / "runs"))
+    tuner = Tuner(cache=PlanCache(str(tmp_path)))
     plan = tuner.plan("matmul", 96, devices=[CPU])
-    with pytest.raises(NotImplementedError):
-        dispatch.execute(plan, torch.eye(96), torch.eye(96), devices=[CPU],
-                         observe=True)
+    out = dispatch.execute(plan, torch.eye(96), torch.eye(96), devices=[CPU],
+                           observe=True, store=store)
+    assert torch.equal(out, torch.eye(96))
+    [rec] = store.load()
+    assert rec.kind == "dispatch" and rec.fingerprint == plan.fingerprint
+    assert sorted(rec.phases) == ["distribute", "execute"]
