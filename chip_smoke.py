@@ -42,6 +42,16 @@
    phases within 10 % of the synchronized host wall time, residual < 1e-4),
    the seed's and the measured profile's predictions beside them, and the
    records joined against both profiles and refitted.
+8. Runs the per-rank network simulator through the normal entry points:
+   sim-refined plans (``Tuner.plan(refine="sim")``) for p = 4 and 8 at
+   n = 4096, executed stacked on ``cuda:0`` through K1-K3; the diagnosis
+   loop (a faulted ``sim.Network`` stands in for the measured channel,
+   ``probe_links`` names the degraded link, ``emit_degraded_profile``
+   registers the faulted ``h100-sxm`` revision and the linalg calls plan
+   sim-refined on it unasked); and the records of §7 and §8 joined with
+   ``include_sim=True``.  Stacked ranks share one card's memory, so for
+   p > 1 measured against simulated is a check of the plumbing, not a
+   measurement of NVLink.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero, as do
@@ -121,12 +131,15 @@ def main() -> int:
     forced_variants(torch)
     prefill_counts = prefill_path(torch)
     prefill_against_cpu(torch)
-    measuring_counts = measuring_half(torch)
+    measuring_counts, measured_records, measured_registry = \
+        measuring_half(torch)
+    simulator_counts = simulator(torch, measured_records, measured_registry)
 
     for entry in kernels:
         entry["launches"] = (main_counts[entry["wrapper"]]
                              + prefill_counts[entry["wrapper"]]
-                             + measuring_counts[entry["wrapper"]])
+                             + measuring_counts[entry["wrapper"]]
+                             + simulator_counts[entry["wrapper"]])
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -889,7 +902,8 @@ LARGE_SIZES = 2048
 
 def measuring_half(torch):
     """Returns the kernel launch counts of the kernels route and of the
-    observed linalg calls, summed."""
+    observed linalg calls, summed; the records of the observed calls; and
+    the registry of the measured profile they were planned on."""
     import dataclasses
     import tempfile
     from repro_torch import kernels, linalg, telemetry
@@ -1061,6 +1075,186 @@ def measuring_half(torch):
     check(refit.machine.revision == measured.revision + 1,
           "refit did not bump the measured profile's revision")
     emit({"measuring_half_s": time.perf_counter() - t_start})
+    return totals, records, registry
+
+
+# -- 8. the simulator: refined plans, fault diagnosis, the simulator join ----
+
+# the degraded channel's beta multiplier, and the probe's size: the H100's
+# NVLink latency (5 us) dwarfs a 4096-word transfer, so the probe sends
+# 2^24 words (64 MiB of fp32), which the bandwidth governs
+FAULT_SCALE = 8.0
+PROBE_WORDS = float(2 ** 24)
+STACKED_NOTE = ("ranks stacked on one card: measured/sim compares "
+                "on-device copies with a simulated NVLink fabric (a check "
+                "of the plumbing, not a measurement of NVLink)")
+
+
+def simulated_call(torch, op, plan, args, devices, store):
+    """One warm-up and one observed ``execute`` of ``plan``: the result,
+    the synchronized wall time and the observed call's launch counts."""
+    from repro_torch import kernels
+    from repro_torch.tuner.dispatch import execute
+    execute(plan, *args, devices=devices)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = execute(plan, *args, devices=devices, observe=True, store=store)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, kernels.launches()
+
+
+def simulator(torch, measured_records, measured_registry):
+    """Returns the kernel launch counts of §8's executed calls."""
+    import tempfile
+    from repro_torch import kernels, linalg, sim, telemetry
+    from repro_torch.tuner import PlanCache, Tuner, build_default_registry
+    t_start = time.perf_counter()
+    totals = {name: 0 for name in kernels.launches()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    store = telemetry.RunStore(tempfile.mkdtemp(prefix="smoke_sim_runs_"))
+    plan_root = os.path.join(HERE, "build", "smoke_plans_sim")
+    shutil.rmtree(plan_root, ignore_errors=True)
+
+    def count(counts, what, op):
+        for name in PATH_KERNELS[op]:
+            check(counts[name] > 0, f"{what} {op}: {name} never launched")
+        for name, n in counts.items():
+            totals[name] += n
+
+    # 8.1 sim-refined plans, executed
+    seed_registry = build_default_registry()
+    tuner = Tuner(registry=seed_registry,
+                  cache=PlanCache(os.path.join(plan_root, "refined")))
+    for p in (4, 8):
+        devices = [torch.device("cuda", 0)] * p
+        for op in ("matmul", "trsm", "cholesky"):
+            args = operands(torch, op, N_MULTI, gen)
+            closed = tuner.plan(op, N_MULTI, devices=devices,
+                                dtype="float32")
+            evals = tuner.stats.get("sim_evals", 0)
+            refined = tuner.plan(op, N_MULTI, devices=devices,
+                                 dtype="float32", refine="sim")
+            check("sim_total" in refined.predicted,
+                  f"refined {op} p={p}: no sim_total in the plan")
+            check(tuner.stats.get("sim_evals", 0) > evals,
+                  f"refined {op} p={p}: no candidate simulated")
+            topo = sim.topology_for(
+                seed_registry.machine(refined.machine).machine, p)
+            check(isinstance(topo, sim.Crossbar),
+                  f"refined {op} p={p}: simulated on {topo!r}")
+            out, wall, counts = simulated_call(torch, op, refined, args,
+                                               devices, store)
+            want = library_result(torch, op, args)
+            err = float((out - want).abs().max() / want.abs().max())
+            emit({"sim_refined": op, "devices": f"cuda:0 x {p}",
+                  "n": N_MULTI, "topology": repr(topo),
+                  "closed_form_plan": plan_summary(closed),
+                  "refined_plan": plan_summary(refined),
+                  "same_plan": (closed.algo, closed.variant, closed.c,
+                                closed.g) == (refined.algo, refined.variant,
+                                              refined.c, refined.g),
+                  "closed_form_total_s": closed.predicted["total"],
+                  "sim_total_s": refined.predicted["sim_total"],
+                  "simulated": {k: v for k, v in refined.predicted.items()
+                                if k.startswith("sim/")},
+                  "wall_s": wall, "rel_err": err, "launches": counts,
+                  "note": STACKED_NOTE})
+            check(err < 1e-4, f"refined {op} p={p}: rel err {err:.3e}")
+            count(counts, f"refined p={p}", op)
+            del args, out, want
+    emit({"sim_refined_stats": dict(tuner.stats)})
+
+    # 8.2 the diagnosis loop: a faulted network stands in for the channel
+    registry = build_default_registry()
+    profile = registry.machine("h100-sxm").machine
+    topo = sim.topology_for(profile, 8)
+    check(isinstance(topo, sim.Crossbar), f"h100-sxm at p=8: {topo!r}")
+    link = topo.route(0, 1)[0]
+    channel = sim.Network(topo, profile.latency, profile.inv_bandwidth,
+                          faults=sim.FaultSpec(degraded_links=(
+                              sim.DegradedLink(link, FAULT_SCALE),)))
+    healthy_net = sim.Network(topo, profile.latency, profile.inv_bandwidth)
+    distances = telemetry.default_probe_distances(topo, 8)
+    located = telemetry.localize_link(
+        topo, 8, distances=distances,
+        measure=lambda d: telemetry.probe_shift_durations(
+            channel, 8, d, words=PROBE_WORDS),
+        baseline=lambda d: telemetry.probe_shift_durations(
+            healthy_net, 8, d, words=PROBE_WORDS))
+    diag = telemetry.probe_links(channel, words=PROBE_WORDS)
+    emit({"diagnosis": diag.to_dict(), "localize_link": located.to_dict(),
+          "injected": {"link": link, "name": topo.link_name(link),
+                       "scale": FAULT_SCALE},
+          "probe_distances": list(distances), "probe_words": PROBE_WORDS})
+    for verdict in (diag, located):
+        check(verdict.kind == "degraded_link" and verdict.component == link,
+              f"diagnosis named {verdict.to_dict()}, not link {link}")
+    devices = [torch.device("cuda", 0)] * 8
+    tuner = Tuner(registry=registry,
+                  cache=PlanCache(os.path.join(plan_root, "diagnosed")))
+    healthy = {op: tuner.plan(op, N_MULTI, devices=devices, dtype="float32")
+               for op in ("matmul", "trsm", "cholesky")}
+    machine = telemetry.emit_degraded_profile(
+        registry, "h100-sxm", diag.to_fault_spec(), diagnosis=diag)
+    check(machine.revision == profile.revision + 1,
+          f"degraded profile at revision {machine.revision}")
+    for op in ("matmul", "trsm", "cholesky"):
+        args = operands(torch, op, N_MULTI, gen)
+        evals = tuner.stats.get("sim_evals", 0)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = getattr(linalg, op)(*args, devices=devices, tuner=tuner)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launches()
+        check(tuner.stats.get("sim_evals", 0) > evals,
+              f"degraded {op}: the faulted surface planned without the "
+              "simulator")
+        degraded = tuner.plan(op, N_MULTI, devices=devices, dtype="float32")
+        check("sim_total" in degraded.predicted
+              and degraded.fingerprint != healthy[op].fingerprint,
+              f"degraded {op}: plan not sim-refined on the new revision")
+        res = residual(torch, op, args, out)
+        emit({"diagnosed": op, "devices": "cuda:0 x 8", "n": N_MULTI,
+              "healthy_plan": plan_summary(healthy[op]),
+              "degraded_plan": plan_summary(degraded),
+              "degraded_sim_total_s": degraded.predicted["sim_total"],
+              "same_plan": (healthy[op].algo, healthy[op].variant,
+                            healthy[op].c) == (degraded.algo,
+                                               degraded.variant, degraded.c),
+              "wall_s": wall, "residual": res, "launches": counts})
+        check(res < 1e-4, f"degraded {op}: residual {res:.3e}")
+        count(counts, "degraded", op)
+        del args, out
+    torch.cuda.empty_cache()
+
+    # 8.3 the simulator join: §7's records against the profile that planned
+    # them, §8.1's against the seed
+    for name, records, reg in (
+            ("measuring_half_p1", measured_records, measured_registry),
+            ("sim_refined", store.load(), seed_registry)):
+        rows = telemetry.join(records, reg, include_sim=True)
+        ops = sorted({r.op for r in records if r.kind == "dispatch"})
+        sim_ops = sorted({r.op for r in rows if r.source == "sim"})
+        out = []
+        for r in rows:
+            if r.source != "sim":
+                continue
+            model = [m for m in rows if m.source == "model"
+                     and m.timestamp == r.timestamp and m.phase == "execute"]
+            out.append({"op": r.op, "variant": r.variant, "n": r.n,
+                        "p": r.p, "c": r.c, "measured_s": r.measured,
+                        "sim_s": r.predicted,
+                        "measured_over_sim": r.ratio,
+                        "measured_over_model":
+                            model[0].ratio if model else None})
+        emit({"sim_join": name, "rows": out,
+              **({"note": STACKED_NOTE} if name == "sim_refined" else {})})
+        check(len(ops) == 3 and sim_ops == ops,
+              f"sim join {name}: sim rows for {sim_ops}, records of {ops}")
+    emit({"simulator_s": time.perf_counter() - t_start})
     return totals
 
 

@@ -1,5 +1,6 @@
 """repro_torch.core — the paper's contribution: contention-calibrated
-performance models for distributed dense linear algebra.
+performance models for distributed dense linear algebra (and, beyond the
+paper, for LM train steps on TPU-like meshes).
 
 Layout:
   machine.py      machine constants (Hopper Cray XE6, TPU v5e, CPU host,
@@ -15,9 +16,10 @@ Layout:
   predictor.py    variant selection + prediction tables (paper §VI),
                   batched through the vectorized cost-IR evaluator
   fitting.py      least-squares helpers behind the efficiency curves
+  lm_model.py     the methodology applied to LM train steps (beyond-paper;
+                  its C surfaces come from ``repro_torch.sim``)
 
-The ping and contention benchmarks wait for the multi-GPU backend, the
-LM-step models for the models slice of the port.
+The ping and contention benchmarks wait for the multi-GPU backend.
 
 The cost-IR itself (nodes, symbolic scenario parameters, the vectorized
 evaluator) lives in the sibling package ``repro_torch.perf``.

@@ -58,7 +58,8 @@ class Machine:
     latency: float                  # L  [s]
     inv_bandwidth: float            # beta  [s/word], contention-free
     link_bandwidth: float           # per-direction per-link  [B/s]
-    torus_dims: int                 # 3 for Gemini 3D torus, 2 for v5e ICI
+    torus_dims: int                 # 3 for Gemini 3D torus, 2 for v5e ICI,
+                                    # 0 for an all-to-all fabric (crossbar)
     # -- memory system (None when not modeled, e.g. the paper's Hopper) -----
     hbm_bandwidth: Optional[float] = None   # [B/s] per unit
     # -- cross-pod (multi-pod meshes only) -----------------------------------
@@ -209,7 +210,7 @@ H100_SXM = Machine(
     latency=5.0e-6,
     inv_bandwidth=4.0 / 450e9,       # s/word over one NVLink direction
     link_bandwidth=450e9,
-    torus_dims=1,
+    torus_dims=0,                    # NVSwitch: the simulator's Crossbar
     hbm_bandwidth=3.35e12,
     notes="NVIDIA H100 SXM 80GB; spec-sheet seeds (data sheet peaks), "
           "not measured.",

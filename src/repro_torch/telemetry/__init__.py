@@ -11,23 +11,22 @@ those predictions:
   store.py      append-only JSONL run store under artifacts/telemetry/,
                 keyed by machine fingerprint, schema-versioned, compactable
   residuals.py  join measured runs against perf.evaluate per-phase
-                predictions -> ratio rows
+                predictions (and optionally repro_torch.sim) -> ratio rows
   refit.py      online recalibration: Nelder-Mead efficiency-curve fit +
                 ridge-scaled calibration tables, emitted as a new
                 Machine-profile *revision* (never mutated in place)
   drift.py      rolling per-op relative error; crossing the threshold
                 bumps Machine.revision, changing the fingerprint and so
                 retiring every stale tuner plan-cache entry
+  diagnose.py   fault localization: shift-pattern probes score links by
+                the lateness of ranks routed over them; the winning
+                hypothesis is emitted as a *degraded* machine revision
+                whose surface carries an injectable FaultSpec
   report.py     the paper's accuracy tables (mean/max relative error per
                 algorithm) as a living report, JSON-saved for CI gates
 
 Closed loop: dispatch records -> residuals join -> refit shrinks the
 error -> drift detection retires the profile when reality moves again.
-
-Fault diagnosis (``diagnose.py``: link and rank localization through the
-per-rank simulator's fault model) and the simulator flavor of the join
-(``join(..., include_sim=True)``) come with the simulator slice of the
-port.
 """
 
 from .store import RunRecord, RunStore, TELEMETRY_SCHEMA, telemetry_dir
@@ -40,6 +39,10 @@ from .refit import KernelRefitResult, RefitResult, refit, refit_kernels
 from .drift import (DEFAULT_THRESHOLD, DEFAULT_WINDOW, DriftLatch,
                     DriftStatus, bump_revision, check,
                     detect_and_invalidate, reset_latch)
+from .diagnose import (Diagnosis, DiagnosisResponder,
+                       default_probe_distances, emit_degraded_profile,
+                       localize_link, localize_rank, probe_links,
+                       probe_shift_durations)
 from .report import accuracy_report, format_report, save_report
 
 __all__ = [
@@ -51,5 +54,9 @@ __all__ = [
     "KernelRefitResult", "RefitResult", "refit", "refit_kernels",
     "DEFAULT_THRESHOLD", "DEFAULT_WINDOW", "DriftLatch", "DriftStatus",
     "bump_revision", "check", "detect_and_invalidate", "reset_latch",
+    "Diagnosis", "DiagnosisResponder", "default_probe_distances",
+    "emit_degraded_profile",
+    "localize_link", "localize_rank", "probe_links",
+    "probe_shift_durations",
     "accuracy_report", "format_report", "save_report",
 ]

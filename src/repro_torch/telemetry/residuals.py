@@ -6,9 +6,9 @@ the :class:`~repro_torch.tuner.registry.PerfModelRegistry` and evaluated through
 ``perf.evaluate`` for the same (n, p, c) scenario; matching phase names
 join measured seconds to the prediction's per-phase ``EvalResult.phases``
 (the whole-run ``execute`` / ``total`` phases join against the predicted
-total).  ``include_sim=True``, which additionally replays each scenario
-through the per-rank discrete-event simulator, comes with the simulator
-slice of the port and raises until then.
+total).  ``include_sim=True`` additionally replays each scenario through
+the per-rank discrete-event simulator (``repro_torch.sim``) so the
+residuals carry both estimator flavors.
 
 The output rows — measured/predicted ratio per phase — feed ``refit``
 (online recalibration) and ``drift`` (invalidation), and summarize into
@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -83,16 +83,15 @@ def join(runs: Sequence[RunRecord], registry=None, *,
     ``cost.refit_serving`` consumes them, and ``accuracy_report`` (which
     aggregates only ``source="model"`` rows) stays unaffected.
 
-    ``include_sim=True`` needs the per-rank simulator, which the
-    simulator slice of the port brings: it raises ``NotImplementedError``.
+    ``include_sim=True`` replays every distinct joinable scenario through
+    the per-rank simulator in one ``simulate_programs`` batch per machine
+    (shared route/fold caches), before the row assembly below.
     """
-    if include_sim:
-        raise NotImplementedError(
-            "include_sim=True replays runs in the per-rank simulator, which "
-            "the simulator slice of the port brings")
     registry = registry or _default_registry()
     rows: List[Residual] = []
     eval_cache: Dict[tuple, object] = {}
+    if include_sim:
+        _batch_sim_totals(runs, registry, eval_cache)
     for run in runs:
         if not run.phases:
             continue
@@ -130,6 +129,13 @@ def join(runs: Sequence[RunRecord], registry=None, *,
                                  source="model", machine=run.machine,
                                  pred_comm=pcm, pred_comp=pcp,
                                  timestamp=run.timestamp))
+        if include_sim:
+            sim_t = _sim_total(registry, surface, run, eval_cache)
+            if sim_t is not None and run.total > 0.0 and sim_t > 0.0:
+                rows.append(Residual(run.op, run.variant, run.n, run.p,
+                                     run.c, "total", run.total, sim_t,
+                                     source="sim", machine=run.machine,
+                                     timestamp=run.timestamp))
     rows.sort(key=lambda r: r.timestamp)
     return rows
 
@@ -148,6 +154,55 @@ def _self_join(run: RunRecord) -> List[Residual]:
                              source="serve", machine=run.machine,
                              timestamp=run.timestamp))
     return rows
+
+
+def _sim_key(run: RunRecord) -> tuple:
+    return ("sim", run.machine, run.op, run.variant, run.n, run.p, run.c)
+
+
+def _batch_sim_totals(runs: Sequence[RunRecord], registry,
+                      cache: Dict[tuple, object]) -> None:
+    """Pre-fill ``cache`` with simulated totals for every distinct
+    joinable (machine, op, variant, n, p, c) among ``runs`` — one
+    ``simulate_programs`` call per machine, failures cached as None."""
+    from ..sim import simulate_programs
+    by_machine: Dict[str, List[tuple]] = {}
+    for run in runs:
+        key = _sim_key(run)
+        if key in cache or not run.phases:
+            continue
+        if not registry.has_program(run.op, run.variant):
+            continue
+        try:
+            registry.machine(run.machine)
+        except KeyError:
+            continue
+        cache[key] = None  # dedup marker; overwritten on success
+        by_machine.setdefault(run.machine, []).append(key)
+    for machine, keys in by_machine.items():
+        surface = registry.machine(machine)
+        programs = [registry.program(k[2], k[3]) for k in keys]
+        scens = [{"n": float(k[4]), "p": int(k[5]), "c": int(k[6]), "r": 1}
+                 for k in keys]
+        sims = simulate_programs(programs, surface.context(), scens,
+                                 machine=surface.machine, strict=False)
+        for key, sim in zip(keys, sims):
+            cache[key] = float(sim.total) if sim is not None else None
+
+
+def _sim_total(registry, surface, run: RunRecord,
+               cache: Dict[tuple, object]) -> Optional[float]:
+    key = _sim_key(run)
+    if key in cache:
+        return cache[key]
+    from ..sim import simulate_programs
+    sims = simulate_programs(
+        [registry.program(run.op, run.variant)], surface.context(),
+        [{"n": float(run.n), "p": int(run.p), "c": int(run.c), "r": 1}],
+        machine=surface.machine, strict=False)
+    total = float(sims[0].total) if sims[0] is not None else None
+    cache[key] = total
+    return total
 
 
 def mean_abs_log_ratio(rows: Sequence[Residual]) -> float:

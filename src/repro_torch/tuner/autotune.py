@@ -14,10 +14,17 @@ on this device pool?" by
    the plan cache, so the next call with the same (machine fingerprint,
    op, n, p, dtype) never touches the models again.
 
-Devices are ``torch.device`` objects: the platform is the device type
-(``"cuda"`` / ``"cpu"``) and the device kind is the card's name.  The
-simulator-refined second stage (``refine="sim"``) and the LM-layer
-consultations belong to later slices of the port and raise
+``plan(..., refine="sim")`` inserts an opt-in second stage between 2 and
+3: the closed-form evaluator shortlists the top-k grids, then the
+per-rank discrete-event simulator (``repro_torch.sim``) replays each
+candidate on the machine's topology and the argmin is taken over
+*simulated* makespans (DESIGN.md §4.4).
+
+The same Tuner also serves the LM layers: ``recommend_fsdp`` consults the
+LM-step model for the parameter-sharding layout choice.  Devices are
+``torch.device`` objects: the platform is the device type (``"cuda"`` /
+``"cpu"``) and the device kind is the card's name.  ``serve_chunk``
+belongs to the serving slice of the port and raises
 ``NotImplementedError`` here.
 """
 
@@ -87,6 +94,7 @@ class Tuner:
         self.store = store      # telemetry RunStore for observe=True records
         self.stats = {"model_evals": 0, "cache_hits": 0}
         self._lock = threading.Lock()
+        self._lm_cal = None
 
     # -- linalg planning -----------------------------------------------------
     def plan(self, op: str, n: int, *,
@@ -109,8 +117,14 @@ class Tuner:
         alone to ask hypothetical questions ("what would 4096 Hopper
         processes run?") without touching device state.
 
-        ``refine="sim"`` needs the per-rank simulator, which a later slice
-        of the port brings; until then it raises ``NotImplementedError``.
+        ``refine="sim"`` adds the opt-in second planning stage: the
+        vectorized closed-form evaluator shortlists the ``shortlist`` best
+        grids, then the per-rank discrete-event simulator
+        (``repro_torch.sim``) replays each on the machine's topology and
+        the plan is re-ranked by *simulated* time
+        (``predicted["sim_total"]``).  Refined plans cache under their own
+        key, so closed-form plans are never shadowed.  A surface that
+        carries a diagnosed fault always plans this way.
 
         ``observe=True`` records the planning decision (chosen variant +
         predicted timing) into the telemetry run store, so the measured
@@ -143,10 +157,6 @@ class Tuner:
         if refine is None and _surface is not None \
                 and getattr(_surface, "faults", None) is not None:
             refine = "sim"
-        if refine == "sim":
-            raise NotImplementedError(
-                "refine='sim' replays candidates in the per-rank simulator, "
-                "which the simulator slice of the port brings")
         if local_kernel not in (None, "pallas", "jnp"):
             raise ValueError(f"local_kernel must be 'pallas' or 'jnp', "
                              f"got {local_kernel!r}")
@@ -164,8 +174,11 @@ class Tuner:
         except KeyError:
             profile = machine
         fp = machine_fingerprint(profile, platform, device_kind, device_count)
-        # closed-form plans only, so the key equals the reference's
-        key = plan_key(fp, op, n, device_count, dtype)
+        # refine and shortlist both shape the refined decision, so they are
+        # part of the cache identity (closed-form plans keep their old keys)
+        key = plan_key(fp, op if refine is None
+                       else f"{op}@{refine}{int(shortlist)}",
+                       n, device_count, dtype)
         if use_cache:
             hit = self.cache.get(key)
             if hit is not None:
@@ -187,7 +200,8 @@ class Tuner:
                     return plan
 
         plan = self._build_plan(op, n, device_count, machine, dtype,
-                                local_kernel, fp)
+                                local_kernel, fp, refine=refine,
+                                shortlist=shortlist)
         with self._lock:
             self.stats["model_evals"] += 1
         if use_cache:
@@ -203,7 +217,9 @@ class Tuner:
             self.stats["observed"] = self.stats.get("observed", 0) + 1
 
     def _build_plan(self, op: str, n: int, device_count: int, machine: str,
-                    dtype: str, local_kernel: str, fp: str) -> ExecutionPlan:
+                    dtype: str, local_kernel: str, fp: str,
+                    refine: Optional[str] = None,
+                    shortlist: int = 4) -> ExecutionPlan:
         try:
             algos = OP_ALGOS[op]
         except KeyError:
@@ -245,7 +261,12 @@ class Tuner:
                 for j in idx:
                     totals[j] = self.registry.evaluate(
                         ctx, algo, variant, n, cands[j][2], c=cands[j][3]).total
-        j = int(np.argmin(totals))
+        sim_extra: Optional[Dict[str, float]] = None
+        if refine == "sim":
+            j, sim_extra = self._sim_rerank(cands, totals, machine, n,
+                                            shortlist, device_count)
+        else:
+            j = int(np.argmin(totals))
         algo, variant, p, c, g = cands[j]
         ev = evals.get((algo, variant))
         if ev is not None:
@@ -255,6 +276,8 @@ class Tuner:
             res = self.registry.evaluate(ctx, algo, variant, n, p, c=c)
         predicted = {"total": res.total, "comm": res.comm, "comp": res.comp,
                      "pct_peak": predictor.pct_of_peak(ctx, res)}
+        if sim_extra is not None:
+            predicted.update(sim_extra)
         # the intra-kernel tier: per-family tile plans for the local
         # kernels this algo will run — model-chosen when the machine profile
         # has kernel constants, today's heuristic blocks otherwise
@@ -268,14 +291,115 @@ class Tuner:
             local_kernel=local_kernel, dtype=dtype, machine=machine,
             fingerprint=fp, predicted=predicted, tiles=tiles)
 
+    def _sim_rerank(self, cands, totals, machine: str, n: int,
+                    shortlist: int, device_count: Optional[int] = None
+                    ) -> Tuple[int, Dict[str, float]]:
+        """The opt-in second planning stage: replay the closed-form top-k
+        candidates through the per-rank discrete-event simulator on the
+        machine's topology and pick the one with the smallest *simulated*
+        makespan.  The whole shortlist goes through one
+        ``simulate_programs`` batch so candidates at the same ``p`` share
+        route/fold caches.  Returns (winning candidate index,
+        predicted-dict extras).
+
+        When the surface carries a diagnosed :class:`FaultSpec`, every
+        candidate simulates on ONE topology — the full device pool's —
+        so the fault's physical link ids mean the same thing for every
+        grid (candidates use different ``p``), the fault is injected into
+        each run, and a candidate rendered unreachable by dead links is
+        skipped rather than sinking the batch."""
+        from ..sim import simulate_programs, topology_for
+        surface = self.registry.machine(machine)
+        ctx = surface.context()
+        faults = getattr(surface, "faults", None)
+        topo = None
+        if faults is not None and device_count is not None:
+            topo = topology_for(surface.machine, device_count)
+        order = np.argsort(totals)[:max(1, int(shortlist))]
+        picked = [int(j) for j in order
+                  if self.registry.has_program(*cands[int(j)][:2])]
+        # legacy scalar models cannot be simulated; they drop out here
+        programs = [self.registry.program(*cands[j][:2]) for j in picked]
+        scens = [{"n": float(n), "p": cands[j][2], "c": cands[j][3], "r": 1}
+                 for j in picked]
+        sims = simulate_programs(programs, ctx, scens,
+                                 machine=surface.machine, topology=topo,
+                                 faults=faults, strict=(faults is None))
+        with self._lock:
+            self.stats["sim_evals"] = self.stats.get("sim_evals", 0) \
+                + len(sims)
+        best_j, best_t = int(order[0]), float("inf")
+        extras: Dict[str, float] = {}
+        for j, sim in zip(picked, sims):
+            if sim is None:
+                continue  # e.g. unreachable under dead links
+            algo, variant, p, c, _g = cands[j]
+            extras[f"sim/{algo}/{variant}@p{p}c{c}"] = float(sim.total)
+            if sim.total < best_t:
+                best_j, best_t = j, float(sim.total)
+        if not np.isfinite(best_t):
+            # no quiet fallback to the closed-form argmin: a refined plan
+            # always carries a simulated total
+            raise RuntimeError(
+                f"refine='sim': none of the {len(order)} shortlisted "
+                f"candidates could be simulated on {machine!r}")
+        extras["sim_total"] = best_t
+        return best_j, extras
+
     # -- LM-layer consultation ----------------------------------------------
+    def _lm_calibration_table(self):
+        with self._lock:
+            cal = self._lm_cal
+        if cal is None:
+            # build outside the lock: the simulator run is slow and the lock
+            # also serializes every plan() stats update
+            from ..sim import derive_calibration, v5e_pod_topology
+            cal = derive_calibration(v5e_pod_topology(),
+                                     ps=[16, 64, 256], distances=[1, 2, 4, 8])
+            with self._lock:
+                if self._lm_cal is None:
+                    self._lm_cal = cal
+                cal = self._lm_cal
+        return cal
+
     def recommend_fsdp(self, cfg, shape, mesh_shape: Dict[str, int], *,
                        required: bool = False) -> bool:
-        """Parameter-sharding layout choice for a train step (LM-step
-        model): the LM slice of the port brings it."""
-        raise NotImplementedError(
-            "recommend_fsdp consults the LM-step model, which the models "
-            "slice of the port brings")
+        """Parameter-sharding layout choice for a train step: FSDP when the
+        memory constraint requires it, else when the LM-step model predicts
+        the per-layer all-gathers pay for themselves.  Cached per
+        (model, shape, mesh) like any other plan."""
+        if required:
+            return True
+        chips = 1
+        for v in mesh_shape.values():
+            chips *= int(v)
+        name = getattr(cfg, "name", type(cfg).__name__)
+        # the parameter count disambiguates same-named configs (reduced()
+        # smoke-test shrinks keep the production name)
+        params = int(getattr(cfg, "param_count", lambda: 0)())
+        fp = machine_fingerprint("tpu-v5e", "plan", "lm", chips)
+        mesh_tag = "x".join(f"{k}{v}" for k, v in sorted(mesh_shape.items()))
+        key = plan_key(
+            fp, f"fsdp-{name}-np{params}-b{shape.global_batch}-{mesh_tag}",
+            shape.seq_len, chips, "bf16")
+        hit = self.cache.get(key)
+        if hit is not None and "fsdp" in hit:
+            with self._lock:
+                self.stats["cache_hits"] += 1
+            return bool(hit["fsdp"])
+        from ..core.lm_model import predict_train_step
+        cal = self._lm_calibration_table()
+        plain = predict_train_step(cfg, shape, mesh_shape, calibration=cal,
+                                   fsdp=False)
+        fsdp = predict_train_step(cfg, shape, mesh_shape, calibration=cal,
+                                  fsdp=True)
+        with self._lock:
+            self.stats["model_evals"] += 1
+        wants = fsdp.total_overlapped < plain.total_overlapped
+        self.cache.put(key, {"fsdp": bool(wants),
+                             "predicted_plain_s": plain.total_overlapped,
+                             "predicted_fsdp_s": fsdp.total_overlapped})
+        return wants
 
     def prefill_chunk(self, seq_len: int, *, max_chunk: int = 128) -> int:
         """Chunk size for the serving engine's prefill: the largest power of

@@ -63,13 +63,17 @@ def test_every_module_imports_without_jax_or_the_reference():
 MEASURING = ["repro_torch.core.calibration", "repro_torch.core.paper_data",
              "repro_torch.obs", "repro_torch.telemetry",
              "repro_torch.benchmarks.fig1_blas_efficiency"]
+# the simulator and what it unblocks
+SIMULATOR = ["repro_torch.sim", "repro_torch.telemetry.diagnose",
+             "repro_torch.core.lm_model"]
 
 
-@pytest.mark.parametrize("module", MEASURING)
+@pytest.mark.parametrize("module", MEASURING + SIMULATOR)
 def test_measuring_modules_import_with_jax_and_the_reference_blocked(module):
-    """Each module of the measuring half imports on its own in a process
-    where importing JAX or the reference package fails."""
-    assert set(MEASURING) <= set(_port_modules())
+    """Each module of the measuring half and of the simulator imports on
+    its own in a process where importing JAX or the reference package
+    fails."""
+    assert set(MEASURING + SIMULATOR) <= set(_port_modules())
     code = textwrap.dedent(f"""
         import importlib, sys
         sys.modules["jax"] = None

@@ -152,10 +152,24 @@ def test_join_matches_the_reference(seed):
         ref_tel.mean_abs_log_ratio(want), rel=1e-9)
 
 
-def test_join_include_sim_waits_for_the_simulator():
-    with pytest.raises(NotImplementedError, match="simulator"):
-        tel.join([tel.RunRecord(**f) for f in _record_fields(0, 2)],
-                 build_default_registry(), include_sim=True)
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_join_include_sim_matches_the_reference(seed):
+    """The simulator flavor of the join: one source="sim" total row per
+    joinable record beside the model rows, equal to the reference's."""
+    fields = _record_fields(seed)
+    got = tel.join([tel.RunRecord(**f) for f in fields],
+                   build_default_registry(), include_sim=True)
+    want = ref_tel.join([ref_tel.RunRecord(**f) for f in fields],
+                        ref_registry(), include_sim=True)
+    assert [_row_tuple(g) for g in got] == [_row_tuple(w) for w in want]
+    for g, w in zip(got, want):
+        assert g.predicted == pytest.approx(w.predicted, rel=1e-12, abs=0)
+    sim_rows = [r for r in got if r.source == "sim"]
+    assert len(sim_rows) == len(fields)
+    assert {r.phase for r in sim_rows} == {"total"}
+    # the model rows are those of the plain join
+    assert [_row_tuple(r) for r in got if r.source == "model"] == \
+        [_row_tuple(r) for r in _rows(tel, fields)]
 
 
 @pytest.mark.parametrize("seed", [0, 3])

@@ -153,11 +153,42 @@ def test_torch_devices_key_like_the_reference(tmp_path):
     assert dispatch._dtype_key(torch.zeros(1)) == "float32"
 
 
-@pytest.mark.parametrize("kwargs", [{"refine": "sim"}])
-def test_later_slices_raise(kwargs, tmp_path):
-    tuner = Tuner(cache=PlanCache(str(tmp_path)))
-    with pytest.raises(NotImplementedError):
-        tuner.plan("matmul", 96, device_count=4, platform="cpu", **kwargs)
+@pytest.mark.parametrize("p", [4, 8, 9])
+@pytest.mark.parametrize("op", ["matmul", "trsm", "cholesky"])
+def test_refine_sim_plans_like_the_reference(op, p, tmp_path):
+    """The sim-refined stage: the same re-ranked plan, simulated totals
+    and cache key as the reference's."""
+    ref, port = _tuners(tmp_path)
+    want = ref.plan(op, 4096, device_count=p, platform="cpu", refine="sim")
+    got = port.plan(op, 4096, device_count=p, platform="cpu", refine="sim")
+    assert got.to_dict() == want.to_dict()
+    assert "sim_total" in got.predicted
+    assert port.stats == ref.stats
+    assert port.stats["sim_evals"] > 0
+
+
+@pytest.mark.parametrize("p", [1, 4, 8])
+@pytest.mark.parametrize("op", ["matmul", "trsm", "cholesky"])
+def test_h100_crossbar_keeps_the_closed_form_plans(op, p, tmp_path):
+    """H100_SXM's torus_dims is 0 (NVSwitch: a crossbar to the simulator).
+    Closed-form planning never reads the field, so plans keep the
+    algo/variant/grid they had with torus_dims = 1; only the fingerprint
+    moves."""
+    ring = dataclasses.replace(H100_SXM, torus_dims=1)
+    reg = build_default_registry()
+    surface = reg.machine(H100_SXM.name)
+    reg.register_machine(ring, surface.efficiency, overwrite=True)
+    kw = dict(device_count=p, platform="cuda",
+              device_kind="NVIDIA H100 80GB HBM3")
+    for n in (4096, 16384):
+        got = Tuner(cache=PlanCache(str(tmp_path / "crossbar"))).plan(
+            op, n, **kw)
+        was = Tuner(registry=reg, cache=PlanCache(str(tmp_path / "ring"))
+                    ).plan(op, n, **kw)
+        assert (got.algo, got.variant, got.p, got.c, got.g, got.tiles) == (
+            was.algo, was.variant, was.p, was.c, was.g, was.tiles)
+        assert got.predicted == was.predicted
+        assert got.fingerprint != was.fingerprint
 
 
 def test_plan_observe_records_the_plan(tmp_path):
@@ -177,10 +208,22 @@ def test_plan_observe_records_the_plan(tmp_path):
 
 def test_lm_helpers_raise(tmp_path):
     tuner = Tuner(cache=PlanCache(str(tmp_path)))
-    with pytest.raises(NotImplementedError):
-        tuner.recommend_fsdp(None, None, {"data": 4})
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="serving slice"):
         tuner.serve_chunk(64, ctx0=0, cost=None, budget_s=1.0)
+
+
+@pytest.mark.parametrize("mesh", [{"data": 16, "model": 16}, {"data": 256}])
+def test_recommend_fsdp_like_the_reference(mesh, tmp_path):
+    from repro.configs import SHAPES as REF_SHAPES
+    from repro.configs.registry import get as ref_get
+    from repro_torch.configs import SHAPES
+    from repro_torch.configs.registry import get
+    ref, port = _tuners(tmp_path)
+    for arch in ("qwen1.5-110b", "granite-20b", "arctic-480b"):
+        want = ref.recommend_fsdp(ref_get(arch), REF_SHAPES["train_4k"], mesh)
+        got = port.recommend_fsdp(get(arch), SHAPES["train_4k"], mesh)
+        assert got is want
+    assert port.stats == ref.stats
 
 
 def test_execute_observe_emits_a_record(tmp_path):
