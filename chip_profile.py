@@ -3,15 +3,16 @@
 
 Runs ``repro_torch.linalg.matmul / trsm / cholesky`` at n = 16384, fp32,
 on the default device (p = 1), and the LM prefill
-(``repro_torch.launch.prefill``) of starcoder2-3b and hymba-1.5b at full
-width and depth, bf16, 4 prompts of 4096 tokens, each once to warm up and
-once under ``torch.profiler``.  It prints one JSON line per call: the wall
+(``repro_torch.launch.prefill``) of starcoder2-3b, hymba-1.5b, xlstm-350m,
+qwen2-moe-a2.7b, llama-3.2-vision-11b and whisper-tiny at full width and
+depth and of arctic-480b at depth 1, bf16, 4 prompts of 4096 tokens, each
+once to warm up and once under ``torch.profiler``.  It prints one JSON line per call: the wall
 time of the profiled call, the device time summed over device-side events
 (kernels and copies; the host ops that launch them carry the same time
 again and are left out), the device-busy share of the wall time, and the
-kernels by device time; for a prefill also the device time of K4 or K5
-(K5's three launches summed) against cuBLAS's bf16 and fp32 products
-against the rest.  Builds the
+kernels by device time; for a prefill also the device time of its
+kernels (K4, K5 with its three launches summed, K6) against cuBLAS's bf16
+and fp32 products against the rest.  Builds the
 CUDA kernels first, as chip_smoke.py does, and prints what ptxas reports
 for each kernel function of the sources (registers, spills, static shared
 memory; nvcc -Xptxas -v with the build's flags), and what the loaded
@@ -24,7 +25,8 @@ and K1 at the shapes chip_smoke.py checks (K1 also against K at the
 trailing-update width), and of the library call beside each (the
 profiler's device events only: at small shapes the CUDA-event times of
 chip_smoke.py are the wrappers' host time), and of one K5 call at
-hymba-1.5b's and xlstm-350m's shapes, split over its three launches.
+hymba-1.5b's and xlstm-350m's shapes, split over its three launches, and
+of one K6 call at xlstm-350m's sLSTM shape.
 Exits non-zero without a CUDA device or when a profile holds no device
 time.
 
@@ -48,16 +50,26 @@ N = 16384
 TOP = 8
 # K5's CUDA functions: chunk states, the state pass, the outputs
 K5_KERNEL = re.compile(r"ssm_(chunk_state|state_pass|output)_kernel")
-# the prefill calls, each with its kernel and the kernel's CUDA functions
-# (K4's bf16 body: flash_tc_kernel)
-PREFILL = (("starcoder2-3b", "K4", re.compile("flash_tc_kernel")),
-           ("hymba-1.5b", "K5", K5_KERNEL))
+# the prefill calls, each with its kernels and their CUDA functions (K4's
+# bf16 body: flash_tc_kernel), and the layer count where the full depth does
+# not fit one card (arctic-480b: 35 layers of 26.8 GB of experts each)
+K4_BF16 = re.compile("flash_tc_kernel")
+PREFILL = (("starcoder2-3b", {"K4": K4_BF16}, None),
+           ("hymba-1.5b", {"K5": K5_KERNEL}, None),
+           ("xlstm-350m", {"K5": K5_KERNEL,
+                           "K6": re.compile("slstm_scan_kernel")}, None),
+           ("qwen2-moe-a2.7b", {"K4": K4_BF16}, None),
+           ("llama-3.2-vision-11b", {"K4": K4_BF16}, None),
+           ("whisper-tiny", {"K4": K4_BF16}, None),
+           ("arctic-480b", {"K4": K4_BF16}, 1))
 BATCH = 4
 PROMPT_LEN = 4096
 # cuBLAS's matrix product kernels (nvjet_* are its Hopper kernels); those
-# with f32f32 in the name take fp32 operands: on the prefill path the plain
-# chunked attention (hymba's window) and the fp32 decay gate wdt
+# with f32f32 or simt_sgemm in the name take fp32 operands: on the prefill
+# path the plain chunked attention (hymba's window), cross-attention's
+# _sdpa, the fp32 gates (hymba's wdt, xlstm's gates) and the MoE routers
 PRODUCT = re.compile(r"gemm|xmma|cutlass|cublas|nvjet", re.IGNORECASE)
+FP32_PRODUCT = re.compile(r"f32f32|simt_sgemm")
 # the kernel of torch.cuda._sleep
 SPIN = "spin_kernel"
 
@@ -101,43 +113,72 @@ def main() -> int:
         del args
         torch.cuda.empty_cache()
 
+    import dataclasses
     from repro_torch.configs import get
-    from repro_torch.launch.prefill import make_prefill_step
+    from repro_torch.launch.prefill import make_prefill_step, stub_inputs
     from repro_torch.models import build_model
-    for arch, kernel, functions in PREFILL:
+    for arch, functions, layers in PREFILL:
         cfg = get(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
         model = build_model(cfg)
         net = model.init(0)
         tokens = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN),
                                device="cuda", generator=gen)
+        stubs = stub_inputs(cfg, BATCH, seed=0, device="cuda")
         step = make_prefill_step(model)
-        step(net, tokens)                                # warm-up
-        record = profiled(torch, lambda: step(net, tokens))
-        groups = {kernel: 0.0, "bf16 products": 0.0, "fp32 products": 0.0,
-                  "rest": 0.0}
+        step(net, tokens, **stubs)                       # warm-up
+        record = profiled(torch, lambda: step(net, tokens, **stubs))
+        groups = dict.fromkeys(functions, 0.0)
+        groups.update({"bf16 products": 0.0, "fp32 products": 0.0,
+                       "rest": 0.0})
         for row in record["all"]:
-            if functions.search(row["name"]):
+            kernel = next((k for k, f in functions.items()
+                           if f.search(row["name"])), None)
+            if kernel:
                 groups[kernel] += row["ms"]
             elif PRODUCT.search(row["name"]):
-                fp32 = "f32f32" in row["name"]
+                fp32 = FP32_PRODUCT.search(row["name"]) is not None
                 groups["fp32 products" if fp32 else "bf16 products"] += \
                     row["ms"]
             else:
                 groups["rest"] += row["ms"]
         del record["all"], record["events"]
-        print(json.dumps({"prefill": arch, "batch": BATCH,
-                          "prompt_len": PROMPT_LEN, "groups_ms": groups,
-                          **record}), flush=True)
-        if record["device_ms"] <= 0 or groups[kernel] <= 0:
-            print(f"chip_profile: no device time, or none in {kernel}",
-                  file=sys.stderr)
+        print(json.dumps({"prefill": arch, "layers": cfg.n_layers,
+                          "batch": BATCH, "prompt_len": PROMPT_LEN,
+                          "groups_ms": groups, **record}), flush=True)
+        if record["device_ms"] <= 0 or not all(groups[k] > 0
+                                               for k in functions):
+            print(f"chip_profile: no device time, or none in one of "
+                  f"{sorted(functions)}", file=sys.stderr)
             return 1
-        del net
+        del net, stubs
         torch.cuda.empty_cache()
     kernel_device_times(torch, gen)
     k1_device_times(torch, gen)
     k5_device_times(torch, gen)
+    k6_device_times(torch, gen)
     return 0
+
+
+def k6_device_times(torch, gen, reps: int = 10) -> None:
+    """Device time of one K6 call at xlstm-350m's sLSTM shape (B 4, S 4096,
+    W 1024, fp32, the inputs chip_smoke.py checks), with the device events
+    and the counted launches a call; one JSON line."""
+    from repro_torch.kernels import slstm_scan_cuda
+    z, i, f, o = (torch.randn(4, 4096, 1024, device="cuda", generator=gen)
+                  for _ in range(4))
+    i.mul_(5.0)
+    slstm_scan_cuda(z, i, f, o)
+    before = slstm_scan_cuda.launches
+    record = profiled(torch, lambda: [slstm_scan_cuda(z, i, f, o)
+                                      for _ in range(reps)])
+    print(json.dumps({
+        "kernel": "K6 slstm_scan", "shape": "xlstm-350m sLSTM", "b": 4,
+        "s": 4096, "w": 1024, "device_ms": record["device_ms"] / reps,
+        "device_events": len(record["events"]) / reps,
+        "counted_launches": (slstm_scan_cuda.launches - before) / reps}),
+        flush=True)
 
 
 def k5_device_times(torch, gen, reps: int = 10) -> None:

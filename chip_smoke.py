@@ -4,17 +4,19 @@
 1. Prints the card's name and power limit (``nvidia-smi``) and builds the
    CUDA kernels from this checkout's sources (``build/torch_ext/``).
 2. Holds each kernel (K1 matmul, K2 diagonal-block trsm, K3 block Cholesky,
-   K4 flash attention, K5 the SSD scan) to its plain PyTorch version on the
-   card at its path's shapes (K1 at the main path's three product classes,
-   on its 4-byte copy path and on a stacked batch; K2 also on a strided B
-   and at the Cholesky's last panel, K3 also at a ragged width; K4 and K5
-   in the path's layouts, with the error taken per output row; K4 also at
-   head dims 16, 80 and 160, which its wrapper pads, and 256; K5 also at
-   xlstm's 256 x 257 state and at small ragged shapes), and times kernel,
-   plain version and the nearest single PyTorch call with CUDA events; K1's
-   launcher must refuse arguments it does not take, K3's a block wider than
-   one CTA holds, K4's a head dim it has no body for, and K5's a dk above
-   the widest a tile holds.
+   K4 flash attention, K5 the SSD scan, K6 the sLSTM recurrence) to its
+   plain PyTorch version on the card at its path's shapes (K1 at the main
+   path's three product classes, on its 4-byte copy path and on a stacked
+   batch; K2 also on a strided B and at the Cholesky's last panel, K3 also
+   at a ragged width; K4, K5 and K6 in the path's layouts, with the error
+   taken per output row; K4 also at head dims 16, 80 and 160, which its
+   wrapper pads, and 256; K5 also at xlstm's 256 x 257 state and at small
+   ragged shapes; K6 at xlstm's sLSTM shape and a ragged one), and times
+   kernel, plain version and the nearest single PyTorch call with CUDA
+   events; K1's launcher must refuse arguments it does not take, K3's a
+   block wider than one CTA holds, K4's a head dim it has no body for, K5's
+   a dk above the widest a tile holds, and K6's binding inputs that are not
+   fp32 or not contiguous.
 3. Drives the linalg path: ``repro_torch.linalg.matmul / trsm / cholesky``
    at n = 16384, fp32, on the default devices (one card, p = 1), with the
    kernels' launch counts set to 0 before each call and read after it, and
@@ -23,16 +25,23 @@
    ``* 8`` at n = 4096) and all 16 variants forced through ``execute`` on
    2x2 and 2x2x2 grids at n = 2048.
 5. Drives the LM prefill path (``repro_torch.launch.prefill``) at full
-   width and depth for starcoder2-3b and hymba-1.5b, bf16, 4 prompts of
-   4096 tokens, weights drawn from seed 0 on the card: a cold and a warm
-   call each, the counts set to 0 before each and read after it, the peak
-   memory, finite logits, K4 (starcoder2) and K5 (hymba) launched.
-6. Holds that path to the plain versions: each model at full width and
-   depth 2, fp32, one prompt of 2304 tokens (above the 2048 at which
+   width and depth for starcoder2-3b, hymba-1.5b, xlstm-350m,
+   qwen2-moe-a2.7b, llama-3.2-vision-11b (1601 image tokens) and
+   whisper-tiny (1500 frames), and for arctic-480b at full width and depth
+   1 (35 layers do not fit one card), bf16, 4 prompts of 4096 tokens,
+   weights drawn from seed 0 on the card: a cold and a warm call each, the
+   counts set to 0 before each and read after it, the peak memory, finite
+   logits, K4 (the attention models), K5 (hymba, xlstm's mLSTM) and K6
+   (xlstm's sLSTM) launched.
+6. Holds that path to the plain versions: starcoder2-3b, hymba-1.5b,
+   xlstm-350m, qwen2-moe-a2.7b and llama-3.2-vision-11b (a cross layer
+   every 2 layers for this check) at full width and depth 2, whisper-tiny
+   at full depth, fp32, one prompt of 2304 tokens (above the 2048 at which
    attention leaves ``_sdpa``), on the card and on the CPU with the same
-   state dict: last-position logits within 1e-3 relative, equal argmax;
-   and starcoder2-3b in bf16 on the card (K4's tensor-core body) against
-   the CPU's fp32 run of the same bf16-valued weights, within 2e-2.
+   state dict: last-position logits within 1e-3 relative, equal argmax, and
+   for the MoE the routing of the card against the CPU's; and starcoder2-3b
+   in bf16 on the card (K4's tensor-core body) against the CPU's fp32 run
+   of the same bf16-valued weights, within 2e-2.
 7. Runs the measuring half on ``cuda:0``: the routine-efficiency benchmark
    (``core.calibration.time_routines``) through the kernels (K1-K3) and
    through the library at sizes 256 to 16384, the fitted curves and the
@@ -475,7 +484,57 @@ def lm_kernel_checks(torch):
         torch.cuda.empty_cache()
 
     k5_refuses_dk(torch, ssm_scan_cuda)
+
+    # K6 at xlstm-350m's sLSTM shape (B 4, S 4096, W 1024) and at a small
+    # ragged one (a tail of 4 steps behind the 8 a thread loads ahead, a
+    # warp of 20 features).  The gates' pre-activations are what the
+    # projections of a normed input give, with the input gate five times
+    # wider, so that the stabiliser m matters.  fp32 on both sides; the
+    # kernel's expf / tanhf and fused multiply-adds against PyTorch's own,
+    # over a contractive recurrence: 1e-4 of each output row's largest
+    # value.  The bound counts 27 operations a step (each exp, log1p and
+    # tanh as one); the bytes (4 inputs read once, y written once) bound it.
+    from repro_torch.kernels import slstm_scan_cuda, slstm_scan_ref
+    for b, s, w, reps in ((4, 4096, 1024, 10), (1, 300, 20, 20)):
+        z, i, f, o = (torch.randn(b, s, w, device=dev, generator=gen)
+                      for _ in range(4))
+        i.mul_(5.0)
+        entry(f"K6 slstm_scan B{b} S{s} W{w} f32", "slstm_scan_cuda",
+              "src/repro_torch/kernels/csrc/slstm.cu",
+              "none (port-side; the reference scans _slstm_step, "
+              "src/repro/models/ssm.py:222)", [b, s, w],
+              slstm_scan_cuda(z, i, f, o), slstm_scan_ref(z, i, f, o), 1e-4,
+              lambda z=z, i=i, f=f, o=o: slstm_scan_cuda(z, i, f, o),
+              lambda z=z, i=i, f=f, o=o: slstm_scan_ref(z, i, f, o),
+              None, reps, 27.0 * b * s * w, PEAK_FP32, 5 * b * s * w * 4,
+              plain_reps=1, library_note="no single PyTorch call computes "
+              "it", layout="contiguous")
+        del z, i, f, o
+        torch.cuda.empty_cache()
+    k6_refuses(torch, slstm_scan_cuda)
     return out
+
+
+def k6_refuses(torch, wrapper):
+    """K6 takes fp32, contiguous inputs only: given bf16 or a transposed
+    view, the binding raises with a plain message, nothing is converted or
+    copied and nothing counts."""
+    z = torch.zeros(1, 64, 32, device="cuda")
+    cases = {"fp32": (z.to(torch.bfloat16),) * 4,
+             "contiguous": (z.transpose(1, 2),) * 4}
+    for what, args in cases.items():
+        before = wrapper.launches
+        try:
+            wrapper(*args)
+            refused = ""
+        except RuntimeError as exc:
+            refused = str(exc).splitlines()[0]
+        counted = wrapper.launches - before
+        emit({"k6_refuses": what, "message": refused,
+              "launches_counted": counted})
+        check(f"must be {what}" in refused, f"K6 took inputs that are not "
+              f"{what}")
+        check(counted == 0, f"K6 counted a refused launch ({what})")
 
 
 def k5_refuses_dk(torch, wrapper):
@@ -758,8 +817,19 @@ def forced_variants(torch):
 
 # -- 5. the LM prefill path at full width and depth --------------------------
 
-PREFILL_ARCHS = {"starcoder2-3b": "flash_attention_cuda",
-                 "hymba-1.5b": "ssm_scan_cuda"}
+# arch -> (the kernels its prefill must launch, the layer count it runs at
+# when the full depth does not fit one card, and why)
+PREFILL_ARCHS = {
+    "starcoder2-3b": (("flash_attention_cuda",), None),
+    "hymba-1.5b": (("ssm_scan_cuda",), None),
+    "xlstm-350m": (("ssm_scan_cuda", "slstm_scan_cuda"), None),
+    "qwen2-moe-a2.7b": (("flash_attention_cuda",), None),
+    "llama-3.2-vision-11b": (("flash_attention_cuda",), None),
+    "whisper-tiny": (("flash_attention_cuda",), None),
+    "arctic-480b": (("flash_attention_cuda",), (
+        1, "n_layers 35 -> 1: one layer of 128 x 3 x 7168 x 4864 experts is "
+           "26.8 GB in bf16, and 35 layers do not fit one card")),
+}
 PREFILL_BATCH = 4
 PREFILL_LEN = 4096
 
@@ -767,54 +837,69 @@ PREFILL_LEN = 4096
 def prefill_path(torch):
     """A cold and a warm prefill call per model; returns the cold calls'
     launch counts, summed over the models."""
+    import dataclasses
     from repro_torch import kernels
     from repro_torch.configs import get
-    from repro_torch.launch.prefill import make_prefill_step
+    from repro_torch.launch.prefill import make_prefill_step, stub_inputs
     from repro_torch.models import build_model
     totals = {name: 0 for name in kernels.launches()}
-    for arch, wrapper in PREFILL_ARCHS.items():
+    for arch, (wrappers, cut) in PREFILL_ARCHS.items():
         cfg = get(arch)
+        if cut:
+            cfg = dataclasses.replace(cfg, n_layers=cut[0])
         model = build_model(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
         net = model.init(SEED)                    # the current GPU
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         tokens = torch.randint(0, cfg.vocab_size,
                                (PREFILL_BATCH, PREFILL_LEN), device="cuda",
                                generator=gen)
+        stubs = stub_inputs(cfg, PREFILL_BATCH, seed=SEED, device="cuda")
         step = make_prefill_step(model)
         torch.cuda.synchronize()
+        weights_peak = torch.cuda.max_memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         calls = []
         for _ in ("cold", "warm"):
             kernels.reset_launches()
             t0 = time.perf_counter()
-            logits = step(net, tokens)
+            logits = step(net, tokens, **stubs)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             calls.append((wall, kernels.launches(), logits))
         (cold, cold_counts, logits), (warm, warm_counts, warm_logits) = calls
         tokens_n = PREFILL_BATCH * PREFILL_LEN
         finite = bool(torch.isfinite(logits).all())
-        emit({"prefill": arch, "dtype": cfg.dtype, "batch": PREFILL_BATCH,
-              "prompt_len": PREFILL_LEN, "layers": cfg.n_layers,
-              "params": sum(p.numel() for p in net.parameters()),
-              "cold_s": cold, "warm_s": warm,
-              "cold_tokens_per_s": tokens_n / cold,
-              "warm_tokens_per_s": tokens_n / warm,
-              "max_memory_allocated": torch.cuda.max_memory_allocated(),
-              "launches_cold": cold_counts, "launches_warm": warm_counts,
-              "logits_shape": list(logits.shape), "logits_finite": finite,
-              "argmax": logits[:, -1].argmax(-1).tolist()})
+        line = {"prefill": arch, "dtype": cfg.dtype, "batch": PREFILL_BATCH,
+                "prompt_len": PREFILL_LEN, "layers": cfg.n_layers,
+                "params": sum(p.numel() for p in net.parameters()),
+                "stub_inputs": {k: list(v.shape) for k, v in stubs.items()},
+                "init_s": init_s, "cold_s": cold, "warm_s": warm,
+                "cold_tokens_per_s": tokens_n / cold,
+                "warm_tokens_per_s": tokens_n / warm,
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "max_memory_allocated_init": weights_peak,
+                "launches_cold": cold_counts, "launches_warm": warm_counts,
+                "logits_shape": list(logits.shape), "logits_finite": finite,
+                "argmax": logits[:, -1].argmax(-1).tolist()}
+        if cut:
+            line["reduced"] = cut[1]
+        emit(line)
         check(tuple(logits.shape) == (PREFILL_BATCH, 1, cfg.vocab_size),
               f"prefill {arch}: logits shape {tuple(logits.shape)}")
         check(finite, f"prefill {arch}: non-finite logits")
         check(torch.equal(logits, warm_logits),
               f"prefill {arch}: the warm call's logits differ")
         for counts in (cold_counts, warm_counts):
-            check(counts[wrapper] > 0, f"prefill {arch}: {wrapper} never "
-                  "launched")
+            for wrapper in wrappers:
+                check(counts[wrapper] > 0, f"prefill {arch}: {wrapper} "
+                      "never launched")
         for name, count in cold_counts.items():
             totals[name] += count
-        del net, logits, warm_logits, calls
+        del net, logits, warm_logits, calls, stubs, tokens
         torch.cuda.empty_cache()
     return totals
 
@@ -823,63 +908,138 @@ def prefill_path(torch):
 
 CHECK_LEN = 2304
 # (arch, dtype on the card, tolerance of the last position's logits relative
-# to their largest value).  fp32: only summation orders differ.  bf16 (K4's
+# to their largest value, config changes, the launches each kernel must make
+# in the card's call).  fp32: only summation orders differ.  bf16 (K4's
 # tensor-core body): the card rounds the activations to bf16 at every layer
 # boundary (2^-8 each) and P before P V, the CPU computes in fp32 with the
 # same bf16-valued weights; the CPU's own bf16 run of this path at depth 2
 # and reduced widths stays within 1e-2 of its fp32 run
 # (tests/test_torch_models.py::test_bf16_prefill_stays_near_fp32), so 2e-2
-# leaves room for the card's other summation orders.
-CPU_CHECKS = (("starcoder2-3b", "float32", 1e-3),
-              ("hymba-1.5b", "float32", 1e-3),
-              ("starcoder2-3b", "bfloat16", 2e-2))
+# leaves room for the card's other summation orders.  Depth 2 keeps the CPU
+# side short; whisper-tiny runs at full depth (4 + 4 layers).  The VLM's
+# pattern is changed for this check only: a cross layer every 2 layers (not
+# 5), so that its 2 layers are one self and one cross layer at full width.
+CPU_CHECKS = (
+    ("starcoder2-3b", "float32", 1e-3, {"n_layers": 2},
+     {"flash_attention_cuda": 2}),
+    ("hymba-1.5b", "float32", 1e-3, {"n_layers": 2}, {"ssm_scan_cuda": 2}),
+    ("starcoder2-3b", "bfloat16", 2e-2, {"n_layers": 2},
+     {"flash_attention_cuda": 2}),
+    ("xlstm-350m", "float32", 1e-3, {"n_layers": 2},
+     {"ssm_scan_cuda": 1, "slstm_scan_cuda": 1}),
+    ("qwen2-moe-a2.7b", "float32", 1e-3, {"n_layers": 2},
+     {"flash_attention_cuda": 2}),
+    ("whisper-tiny", "float32", 1e-3, {}, {"flash_attention_cuda": 4}),
+    ("llama-3.2-vision-11b", "float32", 1e-3,
+     {"n_layers": 2, "cross_attn_every": 2}, {"flash_attention_cuda": 1}),
+)
+
+
+def check_config(arch, dtype, changes):
+    """The config of a §6 check: ``arch`` in ``dtype`` with ``changes``."""
+    import dataclasses
+    from repro_torch.configs import get
+    cfg = get(arch)
+    changes = dict(changes, dtype=dtype)
+    every = changes.pop("cross_attn_every", None)
+    if every:
+        changes["vision"] = dataclasses.replace(cfg.vision,
+                                                cross_attn_every=every)
+    return dataclasses.replace(cfg, **changes)
+
+
+class RoutingLog:
+    """Records every MoE routing decision (``models.moe.route``) made
+    while it is installed."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._route = moe.route
+
+        def route(*args, **kw):
+            r = self._route(*args, **kw)
+            self.calls.append((r.gate_idx.cpu(), r.keep.cpu()))
+            return r
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route = self._route
+        return False
+
+
+def routing_differences(card, cpu):
+    """Per MoE layer: tokens whose top-k experts differ, tokens whose kept
+    mask differs, and tokens routed."""
+    out = []
+    for (idx_a, keep_a), (idx_b, keep_b) in zip(card, cpu):
+        out.append({"gate_idx_differs": int((idx_a != idx_b).any(-1).sum()),
+                    "keep_differs": int((keep_a != keep_b).any(-1).sum()),
+                    "tokens": int(idx_a.shape[0] * idx_a.shape[1])})
+    return out
 
 
 def prefill_against_cpu(torch):
     import dataclasses
     from repro_torch import kernels
-    from repro_torch.configs import get
-    from repro_torch.launch.prefill import make_prefill_step
+    from repro_torch.launch.prefill import make_prefill_step, stub_inputs
     from repro_torch.models import build_model
-    from repro_torch.models.transformer import Decoder
-    for arch, dtype, tol in CPU_CHECKS:
-        wrapper = PREFILL_ARCHS[arch]
-        cfg = dataclasses.replace(get(arch), n_layers=2, dtype=dtype)
+    for arch, dtype, tol, changes, want_counts in CPU_CHECKS:
+        cfg = check_config(arch, dtype, changes)
         model = build_model(cfg)
         net = model.init(SEED, device="cuda")
-        net_cpu = Decoder(dataclasses.replace(cfg, dtype="float32"),
-                          device="cpu")
+        net_cpu = type(net)(dataclasses.replace(cfg, dtype="float32"),
+                            device="cpu")
         net_cpu.load_state_dict({k: v.float().cpu()
                                  for k, v in net.state_dict().items()})
         gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
         tokens = torch.randint(0, cfg.vocab_size, (1, CHECK_LEN),
                                device="cuda", generator=gen)
+        stubs = stub_inputs(cfg, 1, seed=SEED + 1, device="cuda")
         step = make_prefill_step(model)
         kernels.reset_launches()
-        got = step(net, tokens)
-        torch.cuda.synchronize()
+        with RoutingLog() as card_routes:
+            got = step(net, tokens, **stubs)
+            torch.cuda.synchronize()
         counts = kernels.launches()
         t0 = time.perf_counter()
-        want = step(net_cpu, tokens.cpu())
+        with RoutingLog() as cpu_routes:
+            want = step(net_cpu, tokens.cpu(),
+                        **{k: v.float().cpu() for k, v in stubs.items()})
         cpu_s = time.perf_counter() - t0
         got = got.cpu().float()
         abs_err = float((got - want).abs().max())
         rel_err = abs_err / float(want.abs().max())
         argmax = [int(got.argmax(-1).flatten()[0]),
                   int(want.argmax(-1).flatten()[0])]
-        emit({"prefill_vs_cpu": arch, "layers": 2, "dtype": dtype,
-              "cpu_dtype": "float32", "prompt_len": CHECK_LEN,
-              "max_abs_err": abs_err, "max_rel_err": rel_err, "tol": tol,
-              "argmax_card_cpu": argmax, "launches": counts, "cpu_s": cpu_s})
-        check(counts[wrapper] == 2, f"prefill vs cpu {arch} {dtype}: "
-              f"{wrapper} launched {counts[wrapper]} times, not once a "
-              "layer")
+        line = {"prefill_vs_cpu": arch, "layers": cfg.n_layers,
+                "dtype": dtype, "cpu_dtype": "float32",
+                "prompt_len": CHECK_LEN, "config_changes": changes,
+                "max_abs_err": abs_err, "max_rel_err": rel_err, "tol": tol,
+                "argmax_card_cpu": argmax, "launches": counts,
+                "cpu_s": cpu_s}
+        if cfg.moe:
+            line["routing_card_vs_cpu"] = routing_differences(
+                card_routes.calls, cpu_routes.calls)
+            check(len(card_routes.calls) == len(cpu_routes.calls)
+                  == cfg.n_layers, f"prefill vs cpu {arch}: "
+                  f"{len(card_routes.calls)} / {len(cpu_routes.calls)} "
+                  "routing decisions recorded")
+        emit(line)
+        for name, n in want_counts.items():
+            check(counts[name] == n, f"prefill vs cpu {arch} {dtype}: "
+                  f"{name} launched {counts[name]} times, not {n}")
         check(rel_err < tol, f"prefill vs cpu {arch} {dtype}: rel err "
               f"{rel_err:.3e}")
         if dtype == "float32":
             check(argmax[0] == argmax[1],
                   f"prefill vs cpu {arch}: argmax differs")
-        del net, net_cpu
+        del net, net_cpu, stubs
         torch.cuda.empty_cache()
 
 

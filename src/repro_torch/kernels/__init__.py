@@ -1,5 +1,6 @@
-"""Hand-written CUDA kernels (sm_90a): the linalg hot spots (K1-K3) and the
-LM prefill's attention and scan (K4, K5).
+"""Hand-written CUDA kernels (sm_90a): the linalg hot spots (K1-K3), the
+LM prefill's attention and scan (K4, K5) and the sLSTM recurrence (K6, a
+port-side kernel with no Pallas counterpart).
 
 Each kernel family keeps the reference's layout: ``ops.py`` holds the
 launch wrapper (``*_cuda``, with its launch count on ``.launches``) and the
@@ -17,9 +18,10 @@ from .cholesky import (cholesky, cholesky_block_cuda, cholesky_block_ref,
 from .flash_attention import (flash_attention, flash_attention_cuda,
                               flash_attention_ref)
 from .ssm_scan import ssm_scan, ssm_scan_cuda, ssm_scan_ref
+from .slstm import slstm_scan, slstm_scan_cuda, slstm_scan_ref
 
 LAUNCH_COUNTED = (matmul_cuda, trsm_diag_cuda, cholesky_block_cuda,
-                  flash_attention_cuda, ssm_scan_cuda)
+                  flash_attention_cuda, ssm_scan_cuda, slstm_scan_cuda)
 
 
 def reset_launches() -> None:

@@ -1,6 +1,6 @@
 """Build the port's CUDA kernels at first use.
 
-All sources under ``kernels/csrc/`` (the five ``.cu`` kernel files with a
+All sources under ``kernels/csrc/`` (the six ``.cu`` kernel files with a
 plain C interface, and ``binding.cpp``, the one small file that includes
 PyTorch's headers) go through one ``torch.utils.cpp_extension.load`` call.
 It needs nvcc and ninja, compiles the sources in parallel for ``sm_90a``

@@ -120,6 +120,32 @@ void ssm_scan(i64 q, i64 k, i64 v, i64 log_a, i64 y, i64 work,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// Raises, having launched nothing, unless z, i, f, o and y are fp32,
+// contiguous, (batch, s, w) alike and on one CUDA device, every size
+// positive.
+void slstm_scan(torch::Tensor z, torch::Tensor i, torch::Tensor f,
+                torch::Tensor o, torch::Tensor y, i64 stream) {
+  for (const torch::Tensor* t : {&z, &i, &f, &o, &y}) {
+    TORCH_CHECK(t->scalar_type() == torch::kFloat32,
+                "slstm_scan: z, i, f, o and y must be fp32");
+    TORCH_CHECK(t->is_contiguous(),
+                "slstm_scan: z, i, f, o and y must be contiguous");
+    TORCH_CHECK(t->is_cuda() && t->device() == z.device(),
+                "slstm_scan: z, i, f, o and y must share one CUDA device");
+    TORCH_CHECK(t->dim() == 3 && t->sizes() == z.sizes(),
+                "slstm_scan: z, i, f, o and y must be (batch, s, w) alike");
+  }
+  const cudaError_t err = repro_slstm_scan(
+      z.data_ptr<float>(), i.data_ptr<float>(), f.data_ptr<float>(),
+      o.data_ptr<float>(), y.data_ptr<float>(),
+      static_cast<int>(z.size(0)), static_cast<int>(z.size(1)),
+      static_cast<int>(z.size(2)), as_stream(stream));
+  TORCH_CHECK(err != cudaErrorInvalidValue,
+              "slstm_scan: every size must be positive");
+  TORCH_CHECK(err == cudaSuccess, cudaGetErrorString(err));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -134,4 +160,5 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("ssm_scan_workspace", &ssm_scan_workspace,
         "K5: fp32 workspace floats a call needs");
   m.def("ssm_scan", &ssm_scan, "K5: chunked decayed linear attention");
+  m.def("slstm_scan", &slstm_scan, "K6: the sLSTM recurrence over time");
 }

@@ -1,4 +1,4 @@
-// Plain C interface of the port's CUDA kernels (K1-K5).
+// Plain C interface of the port's CUDA kernels (K1-K6).
 //
 // Every launcher takes device pointers, element strides and the CUDA stream
 // the caller (PyTorch's current stream) wants the work on.  A launcher only
@@ -86,6 +86,14 @@ cudaError_t repro_ssm_scan(const void* q, const void* k, const void* v,
                            long long work_floats, int dtype, int batch,
                            int heads, int s, int dk, int dv,
                            const long long* strides, cudaStream_t stream);
+
+// K6: the sLSTM recurrence, per feature of z, i, f, o (batch, s, w), fp32
+// and contiguous, into y of the same shape (a port-side kernel; the
+// reference runs it as a scan over time). Returns cudaErrorInvalidValue, and
+// launches nothing, unless every size is positive.
+cudaError_t repro_slstm_scan(const float* z, const float* i, const float* f,
+                             const float* o, float* y, int batch, int s,
+                             int w, cudaStream_t stream);
 
 #ifdef __cplusplus
 }

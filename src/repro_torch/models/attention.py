@@ -10,8 +10,9 @@ Three routes, chosen as the reference chooses them:
 * longer, with a window (hymba): ``_sdpa_chunked``, the plain online-softmax
   loop over KV chunks. K4 has no window, as the TPU kernel has none.
 
-Decode with a KV cache, the paged-pool bridge and cross-attention belong to
-the serving slice of the port.
+Cross-attention (the VLM's image layers, whisper's decoder) takes ``_sdpa``
+with no mask at every length, as in the reference.  Decode with a KV cache
+and the paged-pool bridge belong to the serving slice of the port.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ KV_CHUNK = 1024
 
 
 class Attention(nn.Module):
-    """The projections wq, wk, wv (optional bias) and wo."""
+    """The projections wq, wk, wv (optional bias) and wo, of a self- or a
+    cross-attention block alike."""
 
     def __init__(self, cfg, *, device=None, generator=None):
         super().__init__()
@@ -142,4 +144,15 @@ def attention_train(p: Attention, cfg, x, positions, *, causal: bool = True,
     else:
         mask = causal_mask(sq, sq, window, device=x.device) if causal else None
         o = _sdpa(q, k, v, mask, hd ** -0.5)
+    return p.wo(_merge_heads(o))
+
+
+def cross_attention(p: Attention, cfg, x, memory):
+    """x: (B, S, D) attends to memory (B, M, D) (encoder states or image
+    patch embeddings), with no positions on q or k and no mask."""
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = _split_heads(p.wq(x), h, hd)
+    k = _split_heads(p.wk(memory), kvh, hd)
+    v = _split_heads(p.wv(memory), kvh, hd)
+    o = _sdpa(q, k, v, None, hd ** -0.5)
     return p.wo(_merge_heads(o))

@@ -31,14 +31,16 @@ def _param(shape, dtype, device, generator: Optional[torch.Generator],
            std: float = 0.0, fill: Optional[float] = None) -> nn.Parameter:
     """A parameter drawn as normal(0, std) in fp32 then cast (the
     reference's order), or filled with ``fill``, or left empty when there
-    is no generator."""
+    is no generator.  The fp32 draw is scaled in place, so a bank of
+    experts holds one fp32 copy at a time on its way to the model's
+    type."""
     if fill is not None:
         t = torch.full(shape, fill, dtype=dtype, device=device)
     elif generator is None:
         t = torch.empty(shape, dtype=dtype, device=device)
     else:
-        t = (torch.randn(shape, generator=generator, device=device,
-                         dtype=torch.float32) * std).to(dtype)
+        t = torch.randn(shape, generator=generator, device=device,
+                        dtype=torch.float32).mul_(std).to(dtype)
     return nn.Parameter(t, requires_grad=False)
 
 

@@ -1,14 +1,20 @@
 """Decoder-only LM assembly for the full-sequence forward path.
 
-Block kinds ported so far:
-  dense  — GQA attention + (gated) MLP                 [starcoder2, granite,
-           qwen1.5-4b/110b]
-  hymba  — parallel attention + SSD heads (their mean), then MLP  [hymba]
+Block kinds (the reference's ``init_layer`` / ``apply_layer_train``):
+  dense     — GQA attention + (gated) MLP              [starcoder2, granite,
+              qwen1.5-4b/110b]
+  moe       — GQA attention + MoE FFN (+ shared / dense residual)
+              [arctic, qwen2-moe]
+  mlstm, slstm — the alternating xLSTM pair, no FFN    [xlstm]
+  hymba     — parallel attention + SSD heads (their mean), then MLP  [hymba]
+  vlm_self, cross — dense blocks, and every ``vision.cross_attn_every``-th
+              layer a cross-attention block over the image memory
+              [llama-vision]
 
+Whisper's encoder-decoder lives in ``encdec.py`` and reuses these blocks.
 The layers are one ``nn.ModuleList`` in order and run in a Python loop: no
 scan over stacked layers and no remat (the forward half keeps no
-activations).  The other kinds raise ``NotImplementedError`` naming the
-slice of the port that brings them.
+activations).
 """
 
 from __future__ import annotations
@@ -18,24 +24,12 @@ from typing import List
 import torch
 from torch import nn
 
-from .attention import Attention, attention_train
-from .layers import MLP, Embedding, Linear, RMSNorm, dtype_of
-from .ssm import SSD, ssd_train
+from .attention import Attention, attention_train, cross_attention
+from .layers import MLP, Embedding, Linear, RMSNorm, _param, dtype_of
+from .moe import MoE, moe_block
+from .ssm import MLSTM, SLSTM, SSD, mlstm_train, slstm_train, ssd_train
 
-#: the slice of the port that brings each kind not ported yet
-LATER = {
-    "moe": "the MoE slice (models/moe.py)",
-    "mlstm": "the xLSTM slice (mLSTM needs K5 at a 256x257 state)",
-    "slstm": "the xLSTM slice (sLSTM)",
-    "vlm_self": "the VLM cross-attention slice",
-    "cross": "the VLM cross-attention slice",
-    "encdec": "the encoder-decoder slice (models/encdec.py)",
-}
-
-
-def _not_ported(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"block kind {kind!r} is not ported yet; it comes with {LATER[kind]}")
+KINDS = ("dense", "vlm_self", "moe", "mlstm", "slstm", "hymba", "cross")
 
 
 # ---------------------------------------------------------------------------
@@ -44,32 +38,56 @@ def _not_ported(kind: str) -> NotImplementedError:
 
 
 class Layer(nn.Module):
-    """One block (the reference's ``init_layer``): norm1 and attn (+ ssd for
-    hymba), norm2 and mlp."""
+    """One block of ``kind`` (the reference's ``init_layer``): norm1 and
+    the mixer (attn, + ssd for hymba; mlstm; slstm; cross), then norm2 and
+    the FFN (mlp, or moe) where the kind has one."""
 
     def __init__(self, cfg, kind: str, *, device=None, generator=None):
         super().__init__()
-        if kind not in ("dense", "hymba"):
-            raise _not_ported(kind)
+        if kind not in KINDS:
+            raise ValueError(f"unknown block kind {kind!r}")
         dt = dtype_of(cfg.dtype)
         d = cfg.d_model
         kw = dict(device=device, generator=generator)
         self.norm1 = RMSNorm(d, dt, eps=cfg.norm_eps, device=device)
-        self.attn = Attention(cfg, **kw)
+        if kind == "mlstm":
+            self.mlstm = MLSTM(cfg, **kw)
+            return
+        if kind == "slstm":
+            self.slstm = SLSTM(cfg, **kw)
+            return
+        if kind == "cross":
+            self.cross = Attention(cfg, **kw)
+        else:
+            self.attn = Attention(cfg, **kw)
         if kind == "hymba":
             self.ssd = SSD(cfg, **kw)
         self.norm2 = RMSNorm(d, dt, eps=cfg.norm_eps, device=device)
-        self.mlp = MLP(d, cfg.d_ff, dt, cfg.gated_mlp, cfg.activation, **kw)
+        if kind == "moe":
+            self.moe = MoE(cfg, **kw)
+        else:
+            self.mlp = MLP(d, cfg.d_ff, dt, cfg.gated_mlp, cfg.activation,
+                           **kw)
 
 
-def apply_layer_train(p: Layer, cfg, kind: str, x, positions):
-    """Returns (x, aux_loss)."""
+def apply_layer_train(p: Layer, cfg, kind: str, x, positions, memory=None):
+    """Returns (x, aux_loss).  ``memory`` (B, M, D) is what a cross layer
+    attends to."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     window = cfg.sliding_window
-    if kind == "dense":
+    if kind in ("dense", "vlm_self", "moe"):
         x = x + attention_train(p.attn, cfg, p.norm1(x), positions,
                                 causal=True, window=window)
-        x = x + p.mlp(p.norm2(x))
+        h2 = p.norm2(x)
+        if kind == "moe":
+            y, aux = moe_block(p.moe, cfg, h2)
+        else:
+            y = p.mlp(h2)
+        x = x + y
+    elif kind == "mlstm":
+        x = x + mlstm_train(p.mlstm, cfg, p.norm1(x))
+    elif kind == "slstm":
+        x = x + slstm_train(p.slstm, cfg, p.norm1(x))
     elif kind == "hymba":
         h2 = p.norm1(x)
         attn_out = attention_train(p.attn, cfg, h2, positions, causal=True,
@@ -77,8 +95,13 @@ def apply_layer_train(p: Layer, cfg, kind: str, x, positions):
         ssd_out = ssd_train(p.ssd, cfg, h2)
         x = x + 0.5 * (attn_out + ssd_out)         # hymba head fusion (mean)
         x = x + p.mlp(p.norm2(x))
+    elif kind == "cross":
+        if memory is None:
+            raise ValueError("a cross layer needs the memory it attends to")
+        x = x + cross_attention(p.cross, cfg, p.norm1(x), memory)
+        x = x + p.mlp(p.norm2(x))
     else:
-        raise _not_ported(kind)
+        raise ValueError(f"unknown block kind {kind!r}")
     return x, aux
 
 
@@ -107,9 +130,8 @@ def stack_plan(cfg):
             raise ValueError("vlm needs n_layers % cross_attn_every == 0")
         return [("unit", cfg.n_layers // e,
                  tuple(["vlm_self"] * (e - 1) + ["cross"]))]
-    if cfg.block_pattern == "encdec":
-        raise _not_ported("encdec")
-    raise ValueError(cfg.block_pattern)
+    raise ValueError(f"no decoder stack plan for block pattern "
+                     f"{cfg.block_pattern!r} (encdec: models/encdec.py)")
 
 
 def layer_kinds(cfg) -> List[str]:
@@ -119,8 +141,8 @@ def layer_kinds(cfg) -> List[str]:
 
 
 class Decoder(nn.Module):
-    """Embeddings, the layers in order, the final norm and the LM head.
-    (Learned positions belong to the encoder-decoder, not ported yet.)"""
+    """Embeddings (+ a learned position table when ``cfg.positions`` is
+    "learned"), the layers in order, the final norm and the LM head."""
 
     def __init__(self, cfg, *, device=None, generator=None):
         super().__init__()
@@ -133,18 +155,26 @@ class Decoder(nn.Module):
                                   device=device)
         self.lm_head = (None if cfg.tie_embeddings else
                         Linear(cfg.d_model, cfg.vocab_size, dt, **kw))
+        self.pos_table = (_param((cfg.max_position, cfg.d_model), dt, device,
+                                 generator, 0.01)
+                          if cfg.positions == "learned" else None)
         self.layers = nn.ModuleList(Layer(cfg, kind, **kw)
                                     for kind in self.kinds)
 
 
-def decoder_forward_train(net: Decoder, cfg, tokens: torch.Tensor):
-    """tokens: (B, S) int.  Returns (hidden after the final norm, aux)."""
+def decoder_forward_train(net: Decoder, cfg, tokens: torch.Tensor, *,
+                          memory=None):
+    """tokens: (B, S) int; memory: (B, M, D), what the cross layers attend
+    to.  Returns (hidden after the final norm, aux), aux the MoE layers'
+    load-balance losses summed."""
     x = net.embed(tokens)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    if net.pos_table is not None:
+        x = x + net.pos_table[:s][None]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, layer in zip(net.kinds, net.layers):
-        x, a = apply_layer_train(layer, cfg, kind, x, positions)
+        x, a = apply_layer_train(layer, cfg, kind, x, positions, memory)
         aux = aux + a
     return net.final_norm(x), aux
 

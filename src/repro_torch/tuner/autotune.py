@@ -122,9 +122,11 @@ class Tuner:
         grids, then the per-rank discrete-event simulator
         (``repro_torch.sim``) replays each on the machine's topology and
         the plan is re-ranked by *simulated* time
-        (``predicted["sim_total"]``).  Refined plans cache under their own
-        key, so closed-form plans are never shadowed.  A surface that
-        carries a diagnosed fault always plans this way.
+        (``predicted["sim_total"]``).  When no shortlisted candidate can be
+        simulated (every one unreachable under dead links), the closed-form
+        argmin stands, without a ``sim_total``.  Refined plans cache under
+        their own key, so closed-form plans are never shadowed.  A surface
+        that carries a diagnosed fault always plans this way.
 
         ``observe=True`` records the planning decision (chosen variant +
         predicted timing) into the telemetry run store, so the measured
@@ -337,13 +339,10 @@ class Tuner:
             extras[f"sim/{algo}/{variant}@p{p}c{c}"] = float(sim.total)
             if sim.total < best_t:
                 best_j, best_t = j, float(sim.total)
-        if not np.isfinite(best_t):
-            # no quiet fallback to the closed-form argmin: a refined plan
-            # always carries a simulated total
-            raise RuntimeError(
-                f"refine='sim': none of the {len(order)} shortlisted "
-                f"candidates could be simulated on {machine!r}")
-        extras["sim_total"] = best_t
+        if np.isfinite(best_t):
+            extras["sim_total"] = best_t
+        # else no candidate could be simulated: the closed-form argmin
+        # stands, without a sim_total, as in the reference
         return best_j, extras
 
     # -- LM-layer consultation ----------------------------------------------

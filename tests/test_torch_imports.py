@@ -66,14 +66,18 @@ MEASURING = ["repro_torch.core.calibration", "repro_torch.core.paper_data",
 # the simulator and what it unblocks
 SIMULATOR = ["repro_torch.sim", "repro_torch.telemetry.diagnose",
              "repro_torch.core.lm_model"]
+# the rest of the models: MoE, the encoder-decoder, the xLSTM blocks and K6
+MODELS = ["repro_torch.models.moe", "repro_torch.models.encdec",
+          "repro_torch.models.ssm", "repro_torch.kernels.slstm",
+          "repro_torch.launch.prefill"]
 
 
-@pytest.mark.parametrize("module", MEASURING + SIMULATOR)
+@pytest.mark.parametrize("module", MEASURING + SIMULATOR + MODELS)
 def test_measuring_modules_import_with_jax_and_the_reference_blocked(module):
-    """Each module of the measuring half and of the simulator imports on
-    its own in a process where importing JAX or the reference package
-    fails."""
-    assert set(MEASURING + SIMULATOR) <= set(_port_modules())
+    """Each module of the measuring half, of the simulator and of the
+    models imports on its own in a process where importing JAX or the
+    reference package fails."""
+    assert set(MEASURING + SIMULATOR + MODELS) <= set(_port_modules())
     code = textwrap.dedent(f"""
         import importlib, sys
         sys.modules["jax"] = None

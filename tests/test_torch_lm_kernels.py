@@ -1,16 +1,19 @@
 """The port's attention and scan kernel wrappers (K4, K5) against the
-reference's, on the CPU.
+reference's, and the sLSTM recurrence (K6, a port-side kernel) against the
+reference's scan of its cell, on the CPU.
 
 The same numpy-seeded inputs go through the reference's Pallas wrappers
 (interpret mode, as tests/test_kernels.py runs them) and through the port's
 wrappers on CPU tensors, which run the kernels' plain PyTorch versions.
 Tolerances: K4 fp32 2e-5 absolute (the reference's own); K5 fp32 1e-4
 relative (the chunked scan against the step-by-step recurrence); bf16
-3e-2 relative.  K4's bf16 body is held on the card to 8e-3 of each output
+3e-2 relative; K6 fp32 1e-5 relative (the same steps in the same order,
+elementwise functions of two libraries).  K4's bf16 body is held on the card to 8e-3 of each output
 row's largest value; ``TestTensorCoreNumerics`` shows here that its
 arithmetic fits that budget.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +22,7 @@ import torch
 from repro.kernels.flash_attention import flash_attention as ref_flash
 from repro.kernels.flash_attention import flash_attention_ref as ref_flash_ref
 from repro.kernels.ssm_scan import ssm_scan as ref_scan
+from repro.models import ssm as ref_ssm
 from repro_torch import kernels as tk
 from repro_torch.kernels.common import TilePlan
 from repro_torch.kernels.flash_attention.ops import (HEAD_DIMS, _ref4,
@@ -291,3 +295,69 @@ def test_launch_counters_cover_k4_and_k5():
     counts = tk.launches()
     assert {"flash_attention_cuda", "ssm_scan_cuda"} <= set(counts)
     assert all(c == 0 for c in counts.values())
+
+
+def _ref_slstm(z, i, f, o):
+    """The reference's recurrence: ``_slstm_step`` scanned over time from
+    ``init_slstm_state``, on (B, S, W) operands."""
+    b, _, w = z.shape
+    st0 = ref_ssm.init_slstm_state(b, w)
+
+    def step(st, inp):
+        return ref_ssm._slstm_step(st, *inp)
+
+    xs = tuple(jnp.asarray(x.transpose(1, 0, 2)) for x in (z, i, f, o))
+    _, ys = jax.lax.scan(step, st0, xs)
+    return np.asarray(ys).transpose(1, 0, 2)
+
+
+class TestSLSTMScan:
+    @pytest.mark.parametrize("b,s,w,scale_i", [
+        (2, 64, 16, 1.0), (1, 300, 20, 1.0), (2, 128, 32, 30.0),
+        (1, 257, 8, 30.0)])
+    def test_plain_version_matches_the_reference_scan(self, b, s, w,
+                                                      scale_i):
+        """scale_i = 30 gives input gates of |i| near 30, where exp(i)
+        overflows unless the stabiliser m holds it: both must agree."""
+        rng = np.random.default_rng(b * 100 + s + w)
+        z, f, o = (rng.standard_normal((b, s, w)).astype(np.float32)
+                   for _ in range(3))
+        i = (rng.standard_normal((b, s, w)) * scale_i).astype(np.float32)
+        want = _ref_slstm(z, i, f, o)
+        got = tk.slstm_scan(*(torch.from_numpy(x) for x in (z, i, f, o)))
+        assert got.dtype == torch.float32 and got.shape == (b, s, w)
+        assert np.isfinite(_np(got)).all()
+        if scale_i > 1:
+            assert np.abs(i).max() > 25
+        assert _rel(_np(got), want) < 1e-5
+
+    def test_state_starts_at_zero_with_m_at_zero(self):
+        """At t = 0, m' = max(log_sigmoid(f), i): with i = -50 the first
+        step takes exp(-50 - m') of tanh(z) into c (m starts at 0, not at
+        -inf, so the gate does not open fully)."""
+        one = torch.ones(1, 1, 1)
+        y = tk.slstm_scan(one, -50.0 * one, 10.0 * one, 10.0 * one)
+        want = _ref_slstm(*(np.ones((1, 1, 1), np.float32) * v
+                            for v in (1.0, -50.0, 10.0, 10.0)))
+        assert _rel(_np(y), want) < 1e-6
+        assert abs(float(y)) < 1e-20
+
+    def test_cpu_runs_the_plain_version_and_counts_no_launch(self):
+        g = torch.Generator().manual_seed(0)
+        z, i, f, o = (torch.randn(2, 40, 8, generator=g) for _ in range(4))
+        before = tk.slstm_scan_cuda.launches
+        got = tk.slstm_scan_cuda(z, i, f, o)
+        assert tk.slstm_scan_cuda.launches == before
+        assert torch.equal(got, tk.slstm_scan_ref(z, i, f, o))
+
+    def test_mismatched_shapes_raise(self):
+        z = torch.zeros(1, 8, 4)
+        with pytest.raises(ValueError, match="alike"):
+            tk.slstm_scan(z, z, z, torch.zeros(1, 8, 5))
+        with pytest.raises(ValueError, match="alike"):
+            tk.slstm_scan(z[0], z[0], z[0], z[0])
+
+
+def test_launch_counters_cover_k6():
+    tk.reset_launches()
+    assert tk.launches()["slstm_scan_cuda"] == 0

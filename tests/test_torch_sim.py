@@ -339,22 +339,44 @@ def test_refined_plan_on_a_reference_cache(tmp_path):
     assert port.stats == {"model_evals": 0, "cache_hits": 1}
 
 
-def test_refine_without_a_simulable_candidate_raises(tmp_path):
-    """No quiet fallback: when every shortlisted candidate is unreachable
-    under the surface's dead links, the refined plan raises."""
-    from repro_torch.tuner import build_default_registry
-    reg = build_default_registry()
+def _all_links_dead(sim_mod, reg):
+    """``reg``'s MACHINE surface re-registered with every link of its
+    4-device topology dead, both ways: no candidate can be simulated."""
     surface = reg.machine(MACHINE)
-    topo = sim.topology_for(surface.machine, 4)
-    assert isinstance(topo, sim.Torus)
-    dead = sim.FaultSpec(dead_links=tuple(        # every link, both ways
-        sim.DeadLink(link) for link in range(topo.n_nodes * topo.ndim * 2)))
+    topo = sim_mod.topology_for(surface.machine, 4)
+    assert isinstance(topo, sim_mod.Torus)
+    dead = sim_mod.FaultSpec(dead_links=tuple(
+        sim_mod.DeadLink(link)
+        for link in range(topo.n_nodes * topo.ndim * 2)))
     reg.register_machine(surface.machine, surface.efficiency,
                          surface.calibration, overwrite=True, faults=dead)
-    tuner = Tuner(registry=reg, cache=PlanCache(str(tmp_path)))
-    with pytest.raises(RuntimeError, match="could be simulated"):
-        tuner.plan("matmul", 4096, device_count=4, platform="cpu",
-                   machine=MACHINE)
+    return reg
+
+
+@pytest.mark.parametrize("op", ["matmul", "trsm", "cholesky"])
+def test_refine_without_a_simulable_candidate_falls_back_as_the_reference(
+        op, tmp_path):
+    """When every shortlisted candidate is unreachable under the surface's
+    dead links, both packages keep the closed-form argmin, with no
+    sim_total, and count the same simulator evaluations."""
+    from repro.tuner import build_default_registry as ref_registry
+    from repro_torch.tuner import build_default_registry
+    ref = RefTuner(registry=_all_links_dead(ref_sim, ref_registry()),
+                   cache=RefPlanCache(str(tmp_path / "ref")))
+    port = Tuner(registry=_all_links_dead(sim, build_default_registry()),
+                 cache=PlanCache(str(tmp_path / "port")))
+    kw = dict(device_count=4, platform="cpu", machine=MACHINE)
+    want = ref.plan(op, 4096, **kw)
+    got = port.plan(op, 4096, **kw)
+    assert (got.algo, got.variant, got.g, got.c) == (
+        want.algo, want.variant, want.g, want.c)
+    if op == "matmul":
+        assert (got.algo, got.variant, got.g, got.c) == ("cannon", "2d_ovlp",
+                                                         2, 1)
+    assert "sim_total" not in got.predicted
+    assert "sim_total" not in want.predicted
+    assert port.stats["sim_evals"] == ref.stats["sim_evals"] > 0
+    _plan_dicts_match(got, want)
 
 
 # -- the LM-step model -----------------------------------------------------
