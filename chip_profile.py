@@ -154,11 +154,123 @@ def main() -> int:
             return 1
         del net, stubs
         torch.cuda.empty_cache()
+    if not decode_step_profile(torch, gen):
+        return 1
     kernel_device_times(torch, gen)
     k1_device_times(torch, gen)
     k5_device_times(torch, gen)
     k6_device_times(torch, gen)
     return 0
+
+
+# chip_smoke.py §9's served batch: starcoder2-3b at full width and depth,
+# bf16, six requests with prompts of these lengths, a KV ring of 4096
+SERVE_PROMPTS = (128, 512, 1000, 2000, 3000, 3900)
+SERVE_CACHE = 4096
+# the profiler ranges of one decode step: the stacking of the requests'
+# caches into the batch, the split back into per-request views, and each
+# attention's _sdpa over the whole ring buffer
+RANGES = ("cache_stack", "cache_rows", "sdpa_ring")
+
+
+def ranged(torch, label, fn):
+    """``fn`` run inside the profiler range ``label``."""
+    def wrapped(*args, **kw):
+        with torch.profiler.record_function(label):
+            return fn(*args, **kw)
+    return wrapped
+
+
+def range_kernels(events, label):
+    """(name, device ms) of every device kernel launched inside the
+    profiler ranges named ``label``, found through the ranges' CPU
+    children."""
+    from torch.autograd import DeviceType
+    out = []
+
+    def walk(e):
+        out.extend((k.name, k.duration / 1e3) for k in e.kernels)
+        for c in e.cpu_children:
+            walk(c)
+    for e in events:
+        if e.name == label and e.device_type == DeviceType.CPU:
+            walk(e)
+    return out
+
+
+def decode_step_profile(torch, gen) -> bool:
+    """One warm decode step of chip_smoke.py §9's served batch: the six
+    requests prefilled into their own caches (FIFO: one whole prompt a
+    step), then one batched decode step to warm up and one under the
+    profiler.  Prints the step's wall and device time, the device-busy
+    share, the device kernels launched, and the device time split into the
+    products (cuBLAS kernels outside _sdpa), _sdpa over the ring buffer
+    (its products included), the cache stack (torch.cat into the batch)
+    and the per-request views, and the rest.  False when the profile holds
+    no device time."""
+    from repro_torch import kernels
+    from repro_torch.configs import get
+    from repro_torch.core.machine import H100_SXM
+    from repro_torch.models import attention, build_model
+    from repro_torch.serving import (FIFOPolicy, ModelBackend, Request,
+                                     Scheduler, SchedulerConfig,
+                                     cost_model_for)
+    from repro_torch.serving import scheduler as sched_mod
+    cfg = get("starcoder2-3b")
+    model = build_model(cfg)
+    net = model.init(0)
+    sched = Scheduler(ModelBackend(model, net, max_cache_len=SERVE_CACHE),
+                      cost_model_for(cfg, H100_SXM),
+                      SchedulerConfig(max_cache_len=SERVE_CACHE,
+                                      max_batch=len(SERVE_PROMPTS)),
+                      policy=FIFOPolicy())
+    for i, n in enumerate(SERVE_PROMPTS):
+        sched.submit(Request(rid=f"r{i}", max_new_tokens=8,
+                             prompt=torch.randint(0, cfg.vocab_size, (1, n),
+                                                  device="cuda",
+                                                  generator=gen)))
+    while not all(rs.out for rs in sched.active.values()) or \
+            len(sched.active) < len(SERVE_PROMPTS):
+        sched.step()
+    sched.step()                                          # warm-up
+    patched = ((sched_mod, "stack_caches", "cache_stack"),
+               (sched_mod, "row_of", "cache_rows"),
+               (attention, "_sdpa", "sdpa_ring"))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
+    for mod, name, label in patched:
+        setattr(mod, name, ranged(torch, label, getattr(mod, name)))
+    kernels.reset_launches()
+    reports = []
+    try:
+        record = profiled(torch, lambda: reports.append(sched.step()),
+                          keep_profile=True, ranges=RANGES)
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    [rep] = reports
+    prof = record.pop("profile")
+    events = list(prof.events())
+    split = {label: sum(ms for _, ms in range_kernels(events, label))
+             for label in RANGES}
+    sdpa_products = sum(ms for name, ms in range_kernels(events, "sdpa_ring")
+                        if PRODUCT.search(name))
+    products = sum(r["ms"] for r in record["all"]
+                   if PRODUCT.search(r["name"]))
+    split["products outside _sdpa"] = products - sdpa_products
+    split["rest"] = record["device_ms"] - sum(split.values())
+    device_events = len(record.pop("events"))
+    del record["all"]
+    print(json.dumps({
+        "decode_step": "starcoder2-3b", "dtype": cfg.dtype,
+        "layers": cfg.n_layers, "decode_batch": rep.decode_batch,
+        "prefill_tokens": rep.prefill_tokens,
+        "context_lens": [rs.context_len for rs in sched.active.values()],
+        "max_cache_len": SERVE_CACHE, "device_events": device_events,
+        "counted_launches": kernels.launches(),
+        "split_ms": split, **record}), flush=True)
+    del sched, net
+    torch.cuda.empty_cache()
+    return record["device_ms"] > 0 and split["sdpa_ring"] > 0
 
 
 def k6_device_times(torch, gen, reps: int = 10) -> None:
@@ -378,9 +490,12 @@ def ptxas_report(build) -> None:
                 entry = None
 
 
-def profiled(torch, fn):
+def profiled(torch, fn, keep_profile=False, ranges=()):
     """Wall and device time of one call of ``fn`` under the profiler, and
-    the device-side events by time."""
+    the device-side events by time (and the profile itself when
+    ``keep_profile``).  The device-side marks of the profiler ranges named
+    in ``ranges`` are no device work: they are left out of the device time
+    and reported apart (their device spans, summed by name)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -394,19 +509,31 @@ def profiled(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = [{"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
-             "count": e.count}
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0 and SPIN not in e.key]
+    skip = set(ranges) | {SPIN}
+    rows, spans = [], dict.fromkeys(ranges, 0.0)
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        if e.key in spans:
+            spans[e.key] += e.self_device_time_total / 1e3
+        elif not any(k in e.key for k in skip):
+            rows.append({"name": e.key[:90],
+                         "ms": e.self_device_time_total / 1e3,
+                         "count": e.count})
     rows.sort(key=lambda r: -r["ms"])
     device_ms = sum(r["ms"] for r in rows)
     events = [(e.name, e.time_range.start, e.time_range.elapsed_us() / 1e3)
               for e in prof.events()
-              if e.device_type == DeviceType.CUDA and SPIN not in e.name]
-    return {"wall_ms": wall * 1e3, "device_ms": device_ms,
-            "device_busy_share": device_ms / (wall * 1e3),
-            "top": rows[:TOP], "all": rows, "events": events}
+              if e.device_type == DeviceType.CUDA
+              and not any(k in e.name for k in skip)]
+    out = {"wall_ms": wall * 1e3, "device_ms": device_ms,
+           "device_busy_share": device_ms / (wall * 1e3),
+           "top": rows[:TOP], "all": rows, "events": events}
+    if ranges:
+        out["range_spans_ms"] = spans
+    if keep_profile:
+        out["profile"] = prof
+    return out
 
 
 def operands(torch, op, n, gen):

@@ -10,11 +10,13 @@
    batch; K2 also on a strided B and at the Cholesky's last panel, K3 also
    at a ragged width; K4, K5 and K6 in the path's layouts, with the error
    taken per output row; K4 also at head dims 16, 80 and 160, which its
-   wrapper pads, and 256; K5 also at xlstm's 256 x 257 state and at small
+   wrapper pads, at 256, and at 320 (padded to 384) and 512 on its wide
+   body, also at a ragged S of 300, causal and not, with B 2; K5 also at xlstm's 256 x 257 state and at small
    ragged shapes; K6 at xlstm's sLSTM shape and a ragged one), and times
    kernel, plain version and the nearest single PyTorch call with CUDA
    events; K1's launcher must refuse arguments it does not take, K3's a
-   block wider than one CTA holds, K4's a head dim it has no body for, K5's
+   block wider than one CTA holds, K4's a head dim whose tiles do not fit a
+   block's shared memory (its wrapper stating the limit), K5's
    a dk above the widest a tile holds, and K6's binding inputs that are not
    fp32 or not contiguous.
 3. Drives the linalg path: ``repro_torch.linalg.matmul / trsm / cholesky``
@@ -62,6 +64,27 @@
    p > 1 measured against simulated is a check of the plumbing, not a
    measurement of NVLink.
 
+9. Serves on the card (``repro_torch.serving``): starcoder2-3b at full
+   width and depth, bf16, six requests (prompts of 128 to 3900 tokens, 32
+   new tokens each, a KV ring of 4096) submitted between scheduler steps
+   so that they join and leave a running batch, under the FIFO and the
+   model-guided policy (the cost model built for ``h100-sxm``), a cold and
+   a warm run each: TTFT and TPOT per request, decode tokens/s, steps,
+   wall time and peak memory; every request ends with 32 tokens, every KV
+   block returns to the pool, no operation runs on the CPU (the cold FIFO
+   run under a dispatch mode that counts them); each request's
+   tokens against its own single-request ``Engine.generate`` (reported,
+   with the single run's top-2 margin where they differ).  Then every
+   block kind's one-step decode at full width, fp32 (starcoder2-3b,
+   qwen2-moe-a2.7b, xlstm-350m, hymba-1.5b, llama-3.2-vision-11b at depth
+   2, whisper-tiny at full depth) against the CPU with one state dict,
+   over a 64-token prompt and 16 greedy tokens (< 1e-3 relative, equal
+   argmax at every step), the chunked decode against the per-token one,
+   hymba's KV ring across its 1024-token window against the card's
+   full-sequence forward; and three staggered fp32 requests (starcoder2-3b
+   at depth 2) through the scheduler's batch against each alone, token
+   for token.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero, as do
 a machine without a CUDA device and a directory without the checkout.
@@ -73,6 +96,7 @@ Usage, from the root of a checkout on a machine with a CUDA GPU:
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -143,12 +167,14 @@ def main() -> int:
     measuring_counts, measured_records, measured_registry = \
         measuring_half(torch)
     simulator_counts = simulator(torch, measured_records, measured_registry)
+    serving_counts = serving(torch)
 
     for entry in kernels:
         entry["launches"] = (main_counts[entry["wrapper"]]
                              + prefill_counts[entry["wrapper"]]
                              + measuring_counts[entry["wrapper"]]
-                             + simulator_counts[entry["wrapper"]])
+                             + simulator_counts[entry["wrapper"]]
+                             + serving_counts[entry["wrapper"]])
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -354,8 +380,11 @@ def lm_kernel_checks(torch):
     """K4 at starcoder2-3b's prefill shape and, in bf16 and fp32, at the
     reference's test shapes (the ragged edge, the non-causal branch, GQA,
     each head dim), at head dims 16, 80 and 160 (zero-padded to 64, 96 and
-    256 by the wrapper) and at 256, and its launcher's refusal of a head
-    dim it has no body for; K5 at hymba-1.5b's SSD shape, at xlstm-350m's 256 x 257 mLSTM
+    256 by the wrapper), at 256, at 320 (padded to 384) and 512 (the wide
+    body, whose fp32 sums of bf16 loads round once, at the output; also at
+    the ragged S 300, non-causal with B 2 and causal), and
+    its launcher's and wrapper's refusal of a head dim whose tiles do not
+    fit; K5 at hymba-1.5b's SSD shape, at xlstm-350m's 256 x 257 mLSTM
     state (v with the normaliser's ones column), at the widest state the
     reference tests and at small ragged shapes, and its launcher's refusal
     of dk = 257.  The path's
@@ -388,13 +417,23 @@ def lm_kernel_checks(torch):
             (1, 4, 2, 256, 80, True, bf16, False, 20),
             (1, 4, 2, 256, 160, True, bf16, False, 20),
             (1, 4, 2, 256, 256, True, bf16, False, 20),
+            (1, 4, 2, 256, 320, True, bf16, False, 10),
+            (2, 4, 2, 300, 320, False, bf16, False, 10),
+            (2, 4, 2, 300, 512, False, bf16, False, 10),
+            (1, 4, 2, 300, 320, True, bf16, False, 10),
+            (1, 4, 2, 256, 512, True, bf16, False, 10),
             (1, 8, 1, 384, 128, True, fp32, False, 20),
             (2, 4, 4, 300, 64, False, fp32, False, 20),
             (1, 6, 3, 256, 96, True, fp32, False, 20),
             (1, 4, 2, 256, 16, True, fp32, False, 20),
             (1, 4, 2, 256, 80, True, fp32, False, 20),
             (1, 4, 2, 256, 160, True, fp32, False, 20),
-            (1, 4, 2, 256, 256, True, fp32, False, 20)):
+            (1, 4, 2, 256, 256, True, fp32, False, 20),
+            (1, 4, 2, 256, 320, True, fp32, False, 10),
+            (2, 4, 2, 300, 320, False, fp32, False, 10),
+            (2, 4, 2, 300, 512, False, fp32, False, 10),
+            (1, 4, 2, 300, 320, True, fp32, False, 10),
+            (1, 4, 2, 256, 512, True, fp32, False, 10)):
         if path:
             q = heads_view(torch, b, h, s, d, gen, dt)
             k = heads_view(torch, b, kv, s, d, gen, dt)
@@ -577,11 +616,28 @@ def k5_refuses_dk(torch, wrapper):
 
 
 def k4_refuses_head_dim(torch, wrapper):
-    """K4's C launcher has bodies for head dims 64, 96, 128 and 256 only:
-    given 320, the binding raises and nothing runs, in either type.  The
-    binding is called directly, past the wrapper's own check."""
+    """Above 256, K4's wide body holds a 64-row fp32 accumulator of the
+    head dim in shared memory, so the launcher takes head dims up to the
+    widest that fits the device's opt-in shared memory of a block, and its
+    refusal states that limit: read from the wrapper's refusal of d = 1000
+    (padded to 1024), then, at the next multiple of 128 above the limit
+    (the wrapper pads to multiples of 128), the binding raises and nothing
+    runs, in either type, and the wrapper refuses with the same limit."""
+    import re
     from repro_torch.kernels import _build
-    d = 320
+    big = torch.zeros(1, 1, 128, 1000, device="cuda")
+    try:
+        wrapper(big, big, big)
+        first = ""
+    except RuntimeError as exc:
+        first = str(exc).splitlines()[0]
+    found = re.search(r"multiple of 64 up to (\d+),", first)
+    check(found is not None, f"K4's wrapper took d = 1000 or did not state "
+          f"its limit: {first!r}")
+    widest = int(found.group(1))
+    d = (widest // 128 + 1) * 128
+    emit({"k4_widest_head_dim": widest, "refused_head_dim": d})
+    check(widest >= 512, f"K4's widest head dim is {widest}, below 512")
     for dt, code in ((torch.bfloat16, 1), (torch.float32, 0)):
         q = torch.zeros(1, 1, 128, d, device="cuda", dtype=dt)
         o = torch.full_like(q, float("nan"))
@@ -595,14 +651,21 @@ def k4_refuses_head_dim(torch, wrapper):
             refused = ""
         except RuntimeError as exc:
             refused = str(exc).splitlines()[0]
+        try:
+            wrapper(q[..., :d - 60], q[..., :d - 60], q[..., :d - 60])
+            wrapper_refused = ""
+        except RuntimeError as exc:
+            wrapper_refused = str(exc).splitlines()[0]
         torch.cuda.synchronize()
         untouched = bool(torch.isnan(o).all())
         counted = wrapper.launches - before
         emit({"k4_refuses_head_dim": d, "dtype": str(dt)[6:],
-              "message": refused, "output_untouched": untouched,
-              "launches_counted": counted})
+              "message": refused, "wrapper_message": wrapper_refused,
+              "output_untouched": untouched, "launches_counted": counted})
         check("head dim must be" in refused,
               f"K4's launcher took d = {d} in {dt}")
+        check(f"up to {widest}," in wrapper_refused,
+              f"K4's wrapper took d = {d - 60} in {dt}")
         check(untouched and counted == 0,
               f"K4 ran or counted a d = {d} launch in {dt}")
 
@@ -936,7 +999,8 @@ CPU_CHECKS = (
 
 
 def check_config(arch, dtype, changes):
-    """The config of a §6 check: ``arch`` in ``dtype`` with ``changes``."""
+    """The config of a §6 or §9 check: ``arch`` in ``dtype`` with
+    ``changes``."""
     import dataclasses
     from repro_torch.configs import get
     cfg = get(arch)
@@ -945,6 +1009,10 @@ def check_config(arch, dtype, changes):
     if every:
         changes["vision"] = dataclasses.replace(cfg.vision,
                                                 cross_attn_every=every)
+    factor = changes.pop("capacity_factor", None)
+    if factor:
+        changes["moe"] = dataclasses.replace(cfg.moe,
+                                             capacity_factor=factor)
     return dataclasses.replace(cfg, **changes)
 
 
@@ -1416,6 +1484,438 @@ def simulator(torch, measured_records, measured_registry):
               f"sim join {name}: sim rows for {sim_ops}, records of {ops}")
     emit({"simulator_s": time.perf_counter() - t_start})
     return totals
+
+
+# -- 9. serving: the decode path, the scheduler and Engine.generate ----------
+
+SERVE_ARCH = "starcoder2-3b"
+SERVE_PROMPTS = (128, 512, 1000, 2000, 3000, 3900)
+SERVE_NEW = 32
+SERVE_CACHE = 4096
+# the block kinds' one-step decode at full width, fp32: (arch, config
+# changes); depth 2 keeps the CPU side short, whisper-tiny runs at full
+# depth and the VLM with a cross layer every 2 layers, as in §6.  A chunk
+# of chunked prefill is one MoE routing group, which drops tokens past an
+# expert's capacity where one token a step never does: the MoE runs at a
+# capacity factor of 16, at which 16 tokens (top-4 of 60 experts) fit every
+# expert, so that the chunked decode and the per-token one route alike
+# (the reference's own decode check raises the factor for the same reason)
+DECODE_CHECKS = (
+    ("starcoder2-3b", {"n_layers": 2}),
+    ("qwen2-moe-a2.7b", {"n_layers": 2, "capacity_factor": 16.0}),
+    ("xlstm-350m", {"n_layers": 2}),
+    ("hymba-1.5b", {"n_layers": 2}),
+    ("llama-3.2-vision-11b", {"n_layers": 2, "cross_attn_every": 2}),
+    ("whisper-tiny", {}),
+)
+DECODE_PROMPT = 64
+DECODE_NEW = 16
+DECODE_CHUNK = 16
+# hymba's window is 1024: its KV ring wraps after 1024 tokens
+WINDOW_PROMPT = 1000
+WINDOW_NEW = 48
+# batch against single: (prompt length, new tokens) of three requests
+STAGGERED = ((40, 12), (17, 8), (64, 10))
+
+
+def cpu_op_guard(torch):
+    """A dispatch mode that counts, by operator, every operation with a
+    tensor on the CPU among its inputs or outputs: none may run while the
+    served path runs on the card."""
+    import collections
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class CpuOps(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if any(isinstance(t, torch.Tensor) and t.device.type == "cpu"
+                   for t in tree_leaves((args, kwargs, out))):
+                self.ops[str(func)] += 1
+            return out
+
+    return CpuOps()
+
+
+class MarginLog:
+    """Records, while installed, the top-2 margin of the last position's
+    logits at every token ``ModelBackend`` samples (as tensors on the
+    card: read after the run)."""
+
+    def __enter__(self):
+        from repro_torch.serving.scheduler import ModelBackend
+        self.margins = []
+        self._sample = ModelBackend._sample
+        orig = self._sample
+
+        def sample(backend, rs, logits):
+            top = logits[:, -1].float().topk(2, dim=-1).values
+            self.margins.append(top[0, 0] - top[0, 1])
+            return orig(backend, rs, logits)
+
+        ModelBackend._sample = sample
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serving.scheduler import ModelBackend
+        ModelBackend._sample = self._sample
+        return False
+
+
+def first_difference(got, want, margins):
+    """The first position where two token lists differ, with the single
+    run's top-2 margin there; None where they agree."""
+    for j, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            return {"position": j, "scheduled": a, "single": b,
+                    "single_top2_margin": float(margins[j])}
+    return None
+
+
+def staggered_run(torch, scheduler_of, prompts, new_tokens):
+    """Submit one request between scheduler steps (two steps after the
+    first), then run to the end, as the reference's join/evict test does.
+    Returns (scheduler, step reports, wall seconds)."""
+    from repro_torch.serving import Request
+    sched = scheduler_of()
+    reports = []
+    t0 = time.perf_counter()
+    for i, (p, n) in enumerate(zip(prompts, new_tokens)):
+        sched.submit(Request(rid=f"r{i}", prompt=p, max_new_tokens=n))
+        for _ in range(2 if i == 0 else 1):
+            rep = sched.step()
+            if rep is not None:
+                reports.append(rep)
+    reports += sched.run()
+    torch.cuda.synchronize()
+    return sched, reports, time.perf_counter() - t0
+
+
+def serving(torch):
+    """§9; returns the launch counts of its runs, summed."""
+    from repro_torch import kernels
+    totals = {name: 0 for name in kernels.launches()}
+    t_start = time.perf_counter()
+    for part in (served_run, block_kinds_decode, batch_against_single):
+        t0 = time.perf_counter()
+        kernels.reset_launches()
+        part(torch)
+        counts = kernels.launches()
+        emit({"serving_part": part.__name__, "launches": counts,
+              "wall_s": time.perf_counter() - t0})
+        for name, n in counts.items():
+            totals[name] += n
+    emit({"serving_s": time.perf_counter() - t_start})
+    return totals
+
+
+def served_run(torch):
+    """starcoder2-3b at full width and depth, bf16, serves six staggered
+    requests, once under each policy (a cold and a warm run each), with
+    telemetry recording on, so that the backend synchronizes the card at
+    the end of each step's prefill and decode phases and the scheduler's
+    clock reads device time; the cold FIFO run goes under the CPU-op guard,
+    which fails the check if any operation touches a CPU tensor.  Each
+    request's tokens are then compared with its own single-request
+    ``Engine.generate``."""
+    from repro_torch import telemetry
+    from repro_torch.configs import get
+    from repro_torch.core.machine import H100_SXM
+    from repro_torch.models import build_model
+    from repro_torch.serving import (Engine, FIFOPolicy, ModelBackend,
+                                     ModelGuidedPolicy, Scheduler,
+                                     SchedulerConfig, ServeConfig,
+                                     cost_model_for)
+    from repro_torch.serving.scheduler import token_int
+    cfg = get(SERVE_ARCH)
+    model = build_model(cfg)
+    net = model.init(SEED)                        # the current GPU
+    check(all(p.device.type == "cuda" for p in net.parameters()),
+          "serving: a parameter is not on the card")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    prompts = [torch.randint(0, cfg.vocab_size, (1, n), device="cuda",
+                             generator=gen) for n in SERVE_PROMPTS]
+    new = [SERVE_NEW] * len(prompts)
+    cost = cost_model_for(cfg, H100_SXM)
+    store_dir = os.path.join(HERE, "build", "serve_runs")
+    shutil.rmtree(store_dir, ignore_errors=True)
+    store = telemetry.RunStore(store_dir)
+    telemetry.enable(store)
+    tokens = {}
+    try:
+        for policy in (FIFOPolicy(), ModelGuidedPolicy()):
+            for when in ("cold", "warm"):
+                torch.cuda.reset_peak_memory_stats()
+                # the cold FIFO run under the CPU-op guard: its times carry
+                # the guard's cost, a Python call for every operation
+                guard = (cpu_op_guard(torch)
+                         if (policy.name, when) == ("fifo", "cold") else None)
+                with guard or contextlib.nullcontext():
+                    sched, reports, wall = staggered_run(
+                        torch, lambda: Scheduler(
+                            ModelBackend(model, net,
+                                         max_cache_len=SERVE_CACHE),
+                            cost, SchedulerConfig(max_cache_len=SERVE_CACHE,
+                                                  max_batch=len(prompts)),
+                            policy=policy), prompts, new)
+                outs = {rid: rs.out for rid, rs in sched.finished.items()}
+                check(all(t.device.type == "cuda" for out in outs.values()
+                          for t in out), "serving: a token is not on the "
+                      "card")
+                tokens[policy.name, when] = {
+                    rid: [token_int(t) for t in out]
+                    for rid, out in sorted(outs.items())}
+                metrics = sorted(sched.request_metrics(),
+                                 key=lambda m: m["rid"])
+                decode_s = sum(r.measured_decode_s for r in reports)
+                decode_tokens = sum(r.decode_batch for r in reports)
+                line = {
+                    "serve": SERVE_ARCH, "policy": policy.name,
+                    "run": when, "dtype": cfg.dtype, "layers": cfg.n_layers,
+                    "prompt_lens": list(SERVE_PROMPTS),
+                    "new_tokens": SERVE_NEW, "max_cache_len": SERVE_CACHE,
+                    "wall_s": wall, "steps": len(reports),
+                    "max_decode_batch": max(r.decode_batch
+                                            for r in reports),
+                    "prefill_s": sum(r.measured_prefill_s for r in reports),
+                    "decode_s": decode_s, "decode_tokens": decode_tokens,
+                    "predicted_prefill_s": sum(r.predicted.prefill_s
+                                               for r in reports),
+                    "predicted_decode_s": sum(r.predicted.decode_s
+                                              for r in reports),
+                    "decode_tokens_per_s": decode_tokens / decode_s,
+                    "tokens_per_s": sum(len(o) for o in outs.values())
+                    / wall,
+                    "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                    "kv_blocks_free": sched.blocks.free_blocks,
+                    "kv_blocks": sched.cfg.num_blocks,
+                    "requests": [{k: m[k] for k in ("rid", "prompt_len",
+                                                    "n_out", "ttft_s",
+                                                    "tpot_s")}
+                                 for m in metrics]}
+                line["cpu_op_guard"] = guard is not None
+                if guard is not None:
+                    line["cpu_ops"] = dict(guard.ops)
+                emit(line)
+                check(guard is None or not guard.ops,
+                      f"serving {policy.name} {when}: operations ran on the "
+                      f"CPU: {line.get('cpu_ops')}")
+                check(all(len(o) == SERVE_NEW for o in outs.values())
+                      and len(outs) == len(prompts),
+                      f"serving {policy.name} {when}: a request did not end "
+                      f"with {SERVE_NEW} tokens")
+                check(sched.blocks.free_blocks == sched.cfg.num_blocks,
+                      f"serving {policy.name} {when}: KV blocks not "
+                      "returned to the pool")
+                check(line["max_decode_batch"] > 1,
+                      f"serving {policy.name} {when}: no batched decode")
+    finally:
+        telemetry.disable()
+    records = store.load()
+    emit({"serve_records": len(records),
+          "kinds": sorted({r.kind for r in records})})
+    check(any(r.kind == "serve_step" for r in records),
+          "serving: no serve_step record")
+
+    # each request alone, through Engine.generate (the shortest under the
+    # CPU-op guard), against the scheduled runs: reported, not gated
+    for i, p in enumerate(prompts):
+        eng = Engine(model, net, ServeConfig(max_new_tokens=SERVE_NEW,
+                                             max_cache_len=SERVE_CACHE))
+        guard = cpu_op_guard(torch) if i == 0 else None
+        with MarginLog() as log:
+            if guard is not None:
+                with guard:
+                    out = eng.generate(p)
+            else:
+                out = eng.generate(p)
+        single = out[0, p.shape[1]:].tolist()
+        line = {"serve_single": f"r{i}", "prompt_len": p.shape[1],
+                "tokens_equal": {}}
+        for (pol, when), toks in tokens.items():
+            got = toks[f"r{i}"]
+            line["tokens_equal"][f"{pol} {when}"] = got == single
+            diff = first_difference(got, single, log.margins)
+            if diff is not None:
+                line.setdefault("first_difference", {})[
+                    f"{pol} {when}"] = diff
+        if guard is not None:
+            line["cpu_ops"] = dict(guard.ops)
+        emit(line)
+        if guard is not None:
+            check(not guard.ops, f"serving: operations ran on the CPU: "
+                  f"{dict(guard.ops)}")
+    del net
+    torch.cuda.empty_cache()
+
+
+def decode_logits(torch, model, net, seq, memory, chunk=1, max_len=None):
+    """The decode path's logits (1, S, V) over ``seq`` (1, S), fed
+    ``chunk`` tokens a step from empty caches on ``seq``'s device."""
+    caches = model.init_cache(1, max_len or seq.shape[1], device=seq.device)
+    out = []
+    with torch.inference_mode():
+        for t in range(0, seq.shape[1], chunk):
+            lg, caches = model.decode_step(net, seq[:, t:t + chunk], caches,
+                                           memory)
+            out.append(lg)
+    return torch.cat(out, dim=1)
+
+
+def greedy_sequence(torch, model, net, prompt, memory, new, max_len):
+    """The prompt followed by ``new`` greedy tokens, decoded one token a
+    step on ``prompt``'s device, and the logits of every step fed."""
+    caches = model.init_cache(1, max_len, device=prompt.device)
+    seq, out = prompt, []
+    with torch.inference_mode():
+        for t in range(prompt.shape[1] + new):
+            lg, caches = model.decode_step(net, seq[:, t:t + 1], caches,
+                                           memory)
+            out.append(lg)
+            if t + 1 >= seq.shape[1] and t + 1 < prompt.shape[1] + new:
+                seq = torch.cat([seq, lg[:, -1:].argmax(-1)], dim=1)
+    return seq, torch.cat(out, dim=1)
+
+
+def block_kinds_decode(torch):
+    """Every block kind's one-step decode at full width, fp32, on the card
+    against the CPU with one state dict (per step: < 1e-3 of the step's
+    largest logit and the same argmax); the chunked decode against the
+    per-token one on the card; hymba's KV ring across its window against
+    the card's own full-sequence forward."""
+    import dataclasses
+    from repro_torch.launch.prefill import stub_inputs
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import (decoder_forward_train,
+                                                lm_logits)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    for arch, changes in DECODE_CHECKS:
+        cfg = check_config(arch, "float32", changes)
+        model = build_model(cfg)
+        net = model.init(SEED, device="cuda")
+        net_cpu = type(net)(cfg, device="cpu")
+        net_cpu.load_state_dict({k: v.cpu()
+                                 for k, v in net.state_dict().items()})
+        stubs = stub_inputs(cfg, 1, seed=SEED + 2, device="cuda")
+        with torch.inference_mode():
+            memory = model.encode_memory(net, stubs)
+            memory_cpu = model.encode_memory(
+                net_cpu, {k: v.cpu() for k, v in stubs.items()})
+        prompt = torch.randint(0, cfg.vocab_size, (1, DECODE_PROMPT),
+                               device="cuda", generator=gen)
+        n = DECODE_PROMPT + DECODE_NEW
+        t0 = time.perf_counter()
+        seq, card = greedy_sequence(torch, model, net, prompt, memory,
+                                    DECODE_NEW, n)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = decode_logits(torch, model, net_cpu, seq.cpu(), memory_cpu)
+        cpu_s = time.perf_counter() - t0
+        card = card.cpu()
+        step_err = ((card - cpu).abs().amax(-1)
+                    / cpu.abs().amax(-1)).flatten()
+        argmax_equal = bool((card.argmax(-1) == cpu.argmax(-1)).all())
+        line = {"decode_vs_cpu": arch, "layers": cfg.n_layers,
+                "dtype": "float32", "config_changes": changes,
+                "steps": seq.shape[1], "prompt_len": DECODE_PROMPT,
+                "new_tokens": DECODE_NEW,
+                "max_rel_err": float(step_err.max()), "tol": 1e-3,
+                "argmax_equal_every_step": argmax_equal,
+                "card_s": card_s, "cpu_s": cpu_s}
+        if model.supports_chunked_prefill:
+            chunked = decode_logits(torch, model, net, seq, memory,
+                                    chunk=DECODE_CHUNK).cpu()
+            line["chunked_vs_per_token_rel_err"] = float(
+                (chunked - card).abs().max() / card.abs().max())
+        emit(line)
+        check(line["max_rel_err"] < 1e-3, f"decode vs cpu {arch}: rel err "
+              f"{line['max_rel_err']:.3e}")
+        check(argmax_equal, f"decode vs cpu {arch}: argmax differs")
+        if model.supports_chunked_prefill:
+            check(line["chunked_vs_per_token_rel_err"] < 1e-3,
+                  f"decode {arch}: chunked against per-token rel err "
+                  f"{line['chunked_vs_per_token_rel_err']:.3e}")
+        del net, net_cpu, stubs, memory, memory_cpu, card, cpu
+        torch.cuda.empty_cache()
+
+    # hymba across its window: the ring of 1024 slots wraps at token 1024
+    cfg = check_config("hymba-1.5b", "float32", {"n_layers": 2})
+    model = build_model(cfg)
+    net = model.init(SEED, device="cuda")
+    n = WINDOW_PROMPT + WINDOW_NEW
+    prompt = torch.randint(0, cfg.vocab_size, (1, WINDOW_PROMPT),
+                           device="cuda", generator=gen)
+    seq, dec = greedy_sequence(torch, model, net, prompt, None, WINDOW_NEW,
+                               n)
+    with torch.inference_mode():
+        hidden, _ = decoder_forward_train(net, cfg, seq)
+        full = lm_logits(net, cfg, hidden)
+    ring = model.init_cache(1, n, device="cuda")[0]["kv"].k.shape[2]
+    err = float((dec - full).abs().max() / full.abs().max())
+    emit({"hymba_window": cfg.sliding_window, "ring_slots": ring,
+          "tokens": n, "max_rel_err": err, "tol": 1e-3})
+    check(ring == cfg.sliding_window < n, "hymba: the ring does not wrap")
+    check(err < 1e-3, f"hymba across its window: rel err {err:.3e}")
+    del net, dec, full
+    torch.cuda.empty_cache()
+
+
+def batch_against_single(torch):
+    """starcoder2-3b at depth 2 and full width, fp32: three staggered
+    requests through the scheduler's ``ModelBackend`` (under the CPU-op
+    guard) give exactly the tokens each gives alone through
+    ``Engine.generate``."""
+    from repro_torch.core.machine import H100_SXM
+    from repro_torch.models import build_model
+    from repro_torch.serving import (Engine, ModelBackend, ModelGuidedPolicy,
+                                     Scheduler, SchedulerConfig, ServeConfig,
+                                     cost_model_for)
+    from repro_torch.serving.scheduler import token_int
+    cfg = check_config("starcoder2-3b", "float32", {"n_layers": 2})
+    model = build_model(cfg)
+    net = model.init(SEED, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    prompts = [torch.randint(0, cfg.vocab_size, (1, s), device="cuda",
+                             generator=gen) for s, _ in STAGGERED]
+    new = [n for _, n in STAGGERED]
+    alone = []
+    for p, n in zip(prompts, new):
+        with MarginLog() as log:
+            out = Engine(model, net, ServeConfig(
+                max_new_tokens=n, max_cache_len=128)).generate(p)
+        alone.append((out[0, p.shape[1]:].tolist(), log.margins))
+    guard = cpu_op_guard(torch)
+    with guard:
+        sched, reports, wall = staggered_run(
+            torch, lambda: Scheduler(
+                ModelBackend(model, net, max_cache_len=128),
+                cost_model_for(cfg, H100_SXM),
+                SchedulerConfig(max_cache_len=128, max_batch=4),
+                policy=ModelGuidedPolicy(step_budget_s=0.05)), prompts, new)
+    line = {"batch_vs_single": "starcoder2-3b", "layers": cfg.n_layers,
+            "dtype": "float32", "requests": [list(r) for r in STAGGERED],
+            "steps": len(reports),
+            "max_decode_batch": max(r.decode_batch for r in reports),
+            "cpu_ops": dict(guard.ops), "equal": {}}
+    for i, (single, margins) in enumerate(alone):
+        got = [token_int(t) for t in sched.finished[f"r{i}"].out]
+        line["equal"][f"r{i}"] = got == single
+        diff = first_difference(got, single, margins)
+        if diff is not None:
+            line.setdefault("first_difference", {})[f"r{i}"] = diff
+    emit(line)
+    check(not guard.ops, f"batch vs single: operations ran on the CPU: "
+          f"{dict(guard.ops)}")
+    check(line["max_decode_batch"] > 1, "batch vs single: no batched decode")
+    check(all(line["equal"].values()), "batch vs single: a request's "
+          f"tokens differ from its own: {line.get('first_difference')}")
+    del net
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -8,6 +8,7 @@
 
 #include <c10/cuda/CUDAException.h>
 
+#include <cstdio>
 #include <vector>
 
 #include "kernels.h"
@@ -74,9 +75,10 @@ void cholesky_block(i64 a, i64 l, int batch, int nb, i64 sa, i64 lda, i64 sl,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// Raises, having launched nothing, for a head dim other than 64, 96, 128 and
-// 256
-// and for bf16 operands that the TMA loads cannot take.
+// Raises, having launched nothing, for a head dim other than 64, 96, 128,
+// 256 or a multiple of 64 up to the widest whose tiles fit the device's
+// shared memory of a block (the message states it), and for bf16 operands
+// that the TMA loads cannot take (head dims up to 256).
 void flash_attention(i64 q, i64 k, i64 v, i64 o, int dtype, int batch,
                      int heads, int kv_heads, int sq, int skv, int d,
                      std::vector<i64> strides, double scale, bool causal,
@@ -87,8 +89,18 @@ void flash_attention(i64 q, i64 k, i64 v, i64 o, int dtype, int batch,
       ptr<void>(o), dtype, batch, heads, kv_heads, sq, skv, d,
       reinterpret_cast<const long long*>(strides.data()),
       static_cast<float>(scale), causal ? 1 : 0, as_stream(stream));
-  TORCH_CHECK(err != cudaErrorInvalidValue,
-              "flash_attention: head dim must be 64, 96, 128 or 256");
+  if (err == cudaErrorInvalidValue) {
+    // formatted here and passed as one C string: TORCH_CHECK's own
+    // formatting of several arguments crashes in this extension
+    char msg[256];
+    std::snprintf(msg, sizeof msg,
+                  "flash_attention: head dim must be 64, 96, 128, 256 or a "
+                  "multiple of 64 up to %d, the widest whose tiles fit this "
+                  "device's shared memory of a block; got %d",
+                  repro_flash_attention_max_head_dim(), d);
+    const char* what = msg;
+    TORCH_CHECK(false, what);
+  }
   TORCH_CHECK(err != cudaErrorMisalignedAddress,
               "flash_attention: bf16 q, k and v must be 16-byte aligned, "
               "with strides that are multiples of 8 elements");

@@ -61,6 +61,17 @@
 // tiles, and overlapping one tile's softmax with the other products (within
 // a warpgroup, or ping-pong between the two), which gained too little to
 // pay for their code.
+//
+// wide body (flash_wide_kernel): head dims above 256, which the reference
+// takes by padding D to a multiple of 128 and no config uses; taken simple,
+// for either type. The fp32 body's tiles (64 query rows, 64 keys, a 4x4
+// block of scores a thread) with D a runtime loop over 64-column slices:
+// the scores sum over the slices of q and k loaded (widened to fp32, q
+// scaled) into shared memory one slice at a time, and the 64 x D fp32
+// accumulator lives in shared memory, each element owned by one thread,
+// rescaled and updated slice by slice as V's slices arrive. Shared memory
+// is 51 KB of tiles plus 256 bytes a column of D, so the device's opt-in
+// limit (227 KB on an H100) bounds D at 704; the launcher refuses wider.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -795,6 +806,239 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// wide body: head dims above 256 (the wrapper pads D to a multiple of 128),
+// in either type, D a runtime loop over 64-column slices
+
+namespace wide {
+
+constexpr int BQ = 64;          // query rows of a CTA
+constexpr int BKV = 64;         // key / value rows of one step
+constexpr int SLICE = 64;       // head-dim columns of one pass
+constexpr int THREADS = 256;    // 16 x 16: ty owns 4 rows, tx 4 columns
+constexpr int LDT = BQ + 4;     // row stride of the transposed tiles
+
+// Qt [SLICE][LDT] and the k slice (transposed) or v slice [SLICE][LDT],
+// Pt [BKV][LDT], then the accumulator O [BQ][d]
+size_t smem_bytes(int d) {
+  return sizeof(float) *
+         (3 * SLICE * LDT + static_cast<size_t>(BQ) * static_cast<size_t>(d));
+}
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ o, int H,
+                      int group, int sq, int skv, int d, long long qsb,
+                      long long qsh, long long qss, long long ksb,
+                      long long ksh, long long kss, long long vsb,
+                      long long vsh, long long vss, long long osb,
+                      long long osh, long long oss, float scale,
+                      int causal) {
+  extern __shared__ __align__(16) float smem[];
+  float* Qt = smem;              // [SLICE][LDT]  q slice, transposed, scaled
+  float* KV = Qt + SLICE * LDT;  // [SLICE][LDT] k slice transposed; v slice
+  float* Pt = KV + SLICE * LDT;  // [BKV][LDT] probabilities, transposed
+  float* O = Pt + BKV * LDT;     // [BQ][d] the fp32 accumulator
+
+  const int n_q = (sq + BQ - 1) / BQ;
+  const int q0 = (n_q - 1 - blockIdx.x) * BQ;   // longest causal rows first
+  const int b = blockIdx.y / H;
+  const int h = blockIdx.y % H;
+  const int hk = h / group;
+  q += b * qsb + h * qsh;
+  k += b * ksb + hk * ksh;
+  v += b * vsb + hk * vsh;
+  o += b * osb + h * osh;
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+
+  // a thread owns rows ty * 4 + i and, in every slice, columns tx * 4 + j
+  // of O: no other thread reads or writes them
+  for (int e = tid; e < BQ * d; e += THREADS) O[e] = 0.f;
+  float m[4];
+  float l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+  }
+
+  const int kv_end = causal ? min(skv, q0 + BQ) : skv;
+  const int n_kv = (kv_end + BKV - 1) / BKV;
+  for (int t = 0; t < n_kv; ++t) {
+    const int k0 = t * BKV;
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int c0 = 0; c0 < d; c0 += SLICE) {
+      __syncthreads();   // the last reads of Qt and KV are done
+      for (int e = tid; e < BQ * SLICE; e += THREADS) {
+        const int r = e / SLICE;
+        const int c = e % SLICE;
+        const int row = q0 + r;
+        const int col = k0 + r;
+        Qt[c * LDT + r] = row < sq ? widen(q[row * qss + c0 + c]) * scale
+                                   : 0.f;
+        KV[c * LDT + r] = col < skv ? widen(k[col * kss + c0 + c]) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int c = 0; c < SLICE; ++c) {
+        const float4 a =
+            *reinterpret_cast<const float4*>(&Qt[c * LDT + ty * 4]);
+        const float4 w =
+            *reinterpret_cast<const float4*>(&KV[c * LDT + tx * 4]);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+        const float wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], wv[j], s[i][j]);
+      }
+    }
+
+    // mask, then the online-softmax update, row by row
+    float alpha[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + ty * 4 + i;
+      float mt = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = k0 + tx * 4 + j;
+        const bool valid = col < skv && (!causal || row >= col);
+        s[i][j] = valid ? s[i][j] : NEG_INF;
+        mt = fmaxf(mt, s[i][j]);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
+      const float m_new = fmaxf(m[i], mt);
+      alpha[i] = expf(m[i] - m_new);
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = expf(s[i][j] - m_new);
+        ps += s[i][j];
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        ps += __shfl_xor_sync(0xffffffffu, ps, off);
+      l[i] = l[i] * alpha[i] + ps;
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<float4*>(&Pt[(tx * 4 + j) * LDT + ty * 4]) =
+          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+
+    // O = alpha O + P V, one slice of V's columns at a time
+    for (int c0 = 0; c0 < d; c0 += SLICE) {
+      __syncthreads();   // Pt is written; the last reads of KV are done
+      for (int e = tid; e < BKV * SLICE; e += THREADS) {
+        const int r = e / SLICE;
+        const int c = e % SLICE;
+        const int col = k0 + r;
+        KV[r * SLICE + c] = col < skv ? widen(v[col * vss + c0 + c]) : 0.f;
+      }
+      __syncthreads();
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 x = *reinterpret_cast<const float4*>(
+            &O[(ty * 4 + i) * d + c0 + tx * 4]);
+        acc[i][0] = x.x * alpha[i];
+        acc[i][1] = x.y * alpha[i];
+        acc[i][2] = x.z * alpha[i];
+        acc[i][3] = x.w * alpha[i];
+      }
+#pragma unroll 4
+      for (int jj = 0; jj < BKV; ++jj) {
+        const float4 p =
+            *reinterpret_cast<const float4*>(&Pt[jj * LDT + ty * 4]);
+        const float4 w =
+            *reinterpret_cast<const float4*>(&KV[jj * SLICE + tx * 4]);
+        const float pv[4] = {p.x, p.y, p.z, p.w};
+        const float wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            acc[i][j] = fmaf(pv[i], wv[j], acc[i][j]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        *reinterpret_cast<float4*>(&O[(ty * 4 + i) * d + c0 + tx * 4]) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    if (row >= sq) continue;
+    const float li = l[i] == 0.f ? 1.f : l[i];
+    for (int c0 = 0; c0 < d; c0 += SLICE)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = c0 + tx * 4 + j;
+        put(&o[row * oss + col], O[(ty * 4 + i) * d + col] / li);
+      }
+  }
+}
+
+// The widest d (a multiple of SLICE) whose tiles fit the device's opt-in
+// shared memory of a block; 0 if the device cannot be read.
+int max_head_dim() {
+  int dev = 0;
+  int optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 0;
+  const long long room =
+      static_cast<long long>(optin) - static_cast<long long>(smem_bytes(0));
+  return room <= 0 ? 0
+                   : static_cast<int>(room / (sizeof(float) * BQ) / SLICE *
+                                      SLICE);
+}
+
+template <typename T>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int batch, int heads, int kv_heads, int sq, int skv, int d,
+                   const long long* st, float scale, int causal,
+                   cudaStream_t stream) {
+  if (d % SLICE != 0 || d > max_head_dim()) return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(d);
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((sq + BQ - 1) / BQ, batch * heads);
+  flash_wide_kernel<T><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), heads, heads / kv_heads,
+      sq, skv, d, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+      st[8], st[9], st[10], st[11], scale, causal);
+  return cudaSuccess;
+}
+
+}  // namespace wide
+
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         int batch, int heads, int kv_heads, int sq, int skv,
                         int d, const long long* st, float scale, int causal,
@@ -841,10 +1085,22 @@ cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
+extern "C" int repro_flash_attention_max_head_dim() {
+  return wide::max_head_dim();
+}
+
 extern "C" cudaError_t repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, int dtype,
     int batch, int heads, int kv_heads, int sq, int skv, int d,
     const long long* strides, float scale, int causal, cudaStream_t stream) {
+  if (d > 256) {
+    if (dtype == REPRO_BF16)
+      return wide::launch<__nv_bfloat16>(q, k, v, o, batch, heads, kv_heads,
+                                         sq, skv, d, strides, scale, causal,
+                                         stream);
+    return wide::launch<float>(q, k, v, o, batch, heads, kv_heads, sq, skv,
+                               d, strides, scale, causal, stream);
+  }
   if (d != 64 && d != 96 && d != 128 && d != 256)
     return cudaErrorInvalidValue;
   if (dtype == REPRO_BF16)

@@ -59,16 +59,24 @@ cudaError_t repro_cholesky_block(const float* a, float* l, int batch,
 // KV)], causal or not, with q, o (batch, heads, sq, d) and k, v (batch,
 // kv_heads, skv, d) addressed by element strides, 12 of them in the order
 // (batch, head, row) for q, k, v, o; unit stride along d. The type
-// (REPRO_F32 or REPRO_BF16) is that of all four: fp32 runs on the CUDA
-// cores, bf16 on the tensor cores with TMA loads. Launches nothing and
-// returns cudaErrorInvalidValue unless d is 64, 96 or 128, and
-// cudaErrorMisalignedAddress for bf16 operands that TMA cannot load (q, k
-// and v 16-byte aligned, their strides multiples of 8 elements).
+// (REPRO_F32 or REPRO_BF16) is that of all four: up to d = 256 fp32 runs on
+// the CUDA cores, bf16 on the tensor cores with TMA loads; above 256 both
+// run the wide body (fp32 sums, d a loop over 64-column slices). Launches
+// nothing and returns cudaErrorInvalidValue unless d is 64, 96, 128, 256 or
+// a multiple of 64 up to repro_flash_attention_max_head_dim(), and
+// cudaErrorMisalignedAddress for bf16 operands of d <= 256 that TMA cannot
+// load (q, k and v 16-byte aligned, their strides multiples of 8 elements).
 cudaError_t repro_flash_attention(const void* q, const void* k, const void* v,
                                   void* o, int dtype, int batch, int heads,
                                   int kv_heads, int sq, int skv, int d,
                                   const long long* strides, float scale,
                                   int causal, cudaStream_t stream);
+
+// K4's widest head dim above 256: the largest multiple of 64 whose tiles
+// (the wide body's fp32 accumulator of 64 rows x d beside three 64 x 68
+// tiles) fit the current device's opt-in shared memory of a block; 0 when
+// the device cannot be read.
+int repro_flash_attention_max_head_dim(void);
 
 // K5: y[b, h] = the decayed linear attention of q, k (s, dk), v (s, dv) and
 // log_a (s,) <= 0 (fp32), addressed by element strides, 15 of them in the

@@ -1,7 +1,8 @@
 """Public wrapper for the flash attention kernel (K4): the (B, H, S, D) API
 with k, v of shape (B, KV, S, D), D zero-padded to a head dim the kernel
-has a body for, scale = D^-0.5 of the true head dim, the plain version for
-tiny or cross-length causal shapes, the tile plan's family checked."""
+has a body for (up to 256) or to a multiple of 128 (above, as the reference
+pads), scale = D^-0.5 of the true head dim, the plain version for tiny or
+cross-length causal shapes, the tile plan's family checked."""
 
 from __future__ import annotations
 
@@ -15,7 +16,8 @@ from ..common import TilePlan, check_cuda, stream_of, tile_block
 from .ref import flash_attention_ref
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims the kernel is compiled for (csrc/flash_attention.cu)
+#: head dims the kernel is compiled for (csrc/flash_attention.cu); above
+#: the widest, the wide body takes multiples of 128 up to the device's limit
 HEAD_DIMS = (64, 96, 128, 256)
 
 
@@ -28,17 +30,20 @@ def _ref4(q, k, v, causal):
         v.reshape(b * kv, skv, d), causal=causal).reshape(b, h, s, d)
 
 
+def padded_head_dim(d: int) -> int:
+    """The head dim K4 runs ``d`` at: the narrowest of ``HEAD_DIMS`` that
+    holds it, or above those the next multiple of 128."""
+    return next((x for x in HEAD_DIMS if x >= d), -(-d // 128) * 128)
+
+
 def pad_head_dim(*ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """The operands zero-padded along D to the narrowest of ``HEAD_DIMS``
-    that holds D (returned as they are when D is one of them).  Zero columns
-    leave q k^T unchanged and give zero output columns, so attention over
-    the padded operands, scaled by the true D^-0.5, is the unpadded result
-    followed by zeros.  Raises for D above the widest head dim."""
+    """The operands zero-padded along D to :func:`padded_head_dim`
+    (returned as they are when D is that already).  Zero columns leave
+    q k^T unchanged and give zero output columns, so attention over the
+    padded operands, scaled by the true D^-0.5, is the unpadded result
+    followed by zeros."""
     d = ts[0].shape[-1]
-    dp = next((x for x in HEAD_DIMS if x >= d), None)
-    if dp is None:
-        raise ValueError(f"flash_attention: head dim {d} is above "
-                         f"{HEAD_DIMS[-1]}, the widest the kernel takes")
+    dp = padded_head_dim(d)
     if dp == d:
         return ts
     return tuple(F.pad(t, (0, dp - d)) for t in ts)
@@ -61,12 +66,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True) -> torch.Tensor:
     """K4 (``csrc/flash_attention.cu``), the counterpart of the reference's
     ``flash_attention_pallas``: q (B, H, Sq, D), k and v (B, KV, Skv, D),
-    scaled by D^-0.5; D up to 256, zero-padded to the narrowest head dim
-    the kernel has a body for (:func:`pad_head_dim`) and the output sliced
-    back; operands the kernel cannot take as they lie (see :func:`loadable`)
-    are copied first.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel (fp32: the FFMA body; bf16: the tensor-core body) or
-    raise."""
+    scaled by D^-0.5; D zero-padded to :func:`padded_head_dim` and the
+    output sliced back; operands the kernel cannot take as they lie (see
+    :func:`loadable`) are copied first.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel (up to D = 256, fp32: the FFMA
+    body, bf16: the tensor-core body; above, the wide body in either type)
+    or raise, also (from the launcher, with the limit in the message) for a
+    padded D above the widest whose tiles fit the device's shared memory of
+    a block."""
     b, h, sq, d = q.shape
     _, kv, skv, _ = k.shape
     if all(t.device.type == "cpu" for t in (q, k, v)):

@@ -11,11 +11,20 @@ Three routes, chosen as the reference chooses them:
   loop over KV chunks. K4 has no window, as the TPU kernel has none.
 
 Cross-attention (the VLM's image layers, whisper's decoder) takes ``_sdpa``
-with no mask at every length, as in the reference.  Decode with a KV cache
-and the paged-pool bridge belong to the serving slice of the port.
+with no mask at every length, as in the reference.
+
+Decode (``attention_decode``) runs ``_sdpa`` over the whole KV ring buffer,
+as the reference's does: no kernel.  The reference keeps one cache a request
+and maps its step over the requests, each with a scalar length; here a cache
+carries a batch dim and one length a row, so every row has its own write
+index, mask and RoPE positions.  The paged-pool bridge
+(``paged_kv_pool`` / ``scatter_block_kv`` / ``gather_block_kv``) is the
+reference's.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Sequence
 
 import torch
 from torch import nn
@@ -156,3 +165,140 @@ def cross_attention(p: Attention, cfg, x, memory):
     v = _split_heads(p.wv(memory), kvh, hd)
     o = _sdpa(q, k, v, None, hd ** -0.5)
     return p.wo(_merge_heads(o))
+
+
+# ---------------------------------------------------------------------------
+# decode with a KV cache
+# ---------------------------------------------------------------------------
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor          # (B, KV, S_max, hd)
+    v: torch.Tensor
+    length: torch.Tensor     # (B,) int64: tokens already cached, per row
+
+
+def init_kv_cache(batch: int, kv_heads: int, max_len: int, hd: int, dtype,
+                  device=None) -> KVCache:
+    """An empty cache: zeroed k and v (two tensors: the decode writes them
+    in place) and a length of 0 for each of ``batch`` rows."""
+    shape = (batch, kv_heads, max_len, hd)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros((batch,), dtype=torch.long, device=device))
+
+
+def attention_decode(p: Attention, cfg, x, cache: KVCache):
+    """Decode step of ``s1 >= 1`` new tokens against a KV cache.
+
+    The cache is a ring buffer of capacity ``smax``: for full attention
+    smax >= the total length, so the write index ``length % smax`` equals
+    ``length``; for sliding-window attention smax == window, old entries
+    are overwritten, and the validity mask keeps exactly the last
+    ``window`` positions (RoPE is applied at write time with absolute
+    positions, so attention does not depend on the slots' order).
+
+    ``s1 > 1`` is the chunked-prefill path: the chunk is written
+    contiguously and masked causally within itself.  A chunk that would
+    run past the buffer's end is written at ``smax - s1`` instead, the
+    clamp the reference's ``dynamic_update_slice`` applies to its start;
+    the mask still takes the unclamped write index, as the reference's
+    does.  The serving backend keeps chunks from wrapping.
+
+    Each row has its own length, write index, mask and positions.  The new
+    keys and values are written into ``cache.k`` / ``cache.v`` in place (a
+    request owns its cache); the returned cache holds those tensors and the
+    lengths plus ``s1``.  x: (B, s1, D).  Returns (out, new_cache)."""
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    b, s1, _ = x.shape
+    dev = x.device
+    steps = torch.arange(s1, device=dev)
+    pos = cache.length[:, None] + steps                       # (B, s1)
+    q = _split_heads(p.wq(x), h, hd)
+    k_new = _split_heads(p.wk(x), kvh, hd)
+    v_new = _split_heads(p.wv(x), kvh, hd)
+    if cfg.positions == "rope":
+        q = apply_rope(q.transpose(1, 2), pos, cfg.rope_theta).transpose(1, 2)
+        k_new = apply_rope(k_new.transpose(1, 2), pos,
+                           cfg.rope_theta).transpose(1, 2)
+    smax = cache.k.shape[2]
+    write_idx = cache.length % smax                           # (B,)
+    start = torch.clamp(write_idx, max=max(smax - s1, 0))
+    rows = torch.arange(b, device=dev)[:, None]
+    slots = start[:, None] + steps                            # (B, s1)
+    # advanced indices around a slice: the indexed view is (B, s1, KV, hd)
+    cache.k[rows, :, slots] = k_new.transpose(1, 2).to(cache.k.dtype)
+    cache.v[rows, :, slots] = v_new.transpose(1, 2).to(cache.v.dtype)
+    cols = torch.arange(smax, device=dev)[None, None, :]      # (1, 1, smax)
+    # slots < length + s1 hold data; once wrapped, every slot is valid
+    valid = cols < torch.clamp(cache.length + s1, max=smax)[:, None, None]
+    # within the just-written chunk, query i must not see slots j > i
+    off = cols - write_idx[:, None, None]                     # (B, 1, smax)
+    future = (off > steps[None, :, None]) & (off < s1)
+    mask = valid & ~future                                    # (B, s1, smax)
+    o = _sdpa(q, cache.k, cache.v, mask, hd ** -0.5)
+    out = p.wo(_merge_heads(o))
+    return out, KVCache(cache.k, cache.v, cache.length + s1)
+
+
+# ---------------------------------------------------------------------------
+# paged KV pool bridge (serving)
+# ---------------------------------------------------------------------------
+# The serving scheduler accounts KV capacity in fixed-size blocks
+# (serving/kvblocks.py); physically the pool is one tensor of shape
+# (num_blocks, KV, block_size, hd) per k / v.  A paged attention kernel
+# would read the block table directly; until then these functions are the
+# bridge: scatter a request's contiguous ring cache into its table's
+# blocks, and gather a table back into the contiguous cache that
+# attention_decode takes.  The round trip is exact.
+
+
+def paged_kv_pool(num_blocks: int, block_size: int, kv_heads: int, hd: int,
+                  dtype=torch.float32, device=None):
+    """Zeroed physical pool: (pool_k, pool_v), each
+    (num_blocks, KV, block_size, hd)."""
+    shape = (num_blocks, kv_heads, block_size, hd)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+
+
+def scatter_block_kv(pool_k, pool_v, cache: KVCache,
+                     block_table: Sequence[int]):
+    """Write a single-request contiguous cache into its pool blocks.
+
+    cache.k / v: (1, KV, S, hd) with S <= len(block_table) * block_size
+    (a short cache is zero-padded into the last block).  Returns the
+    updated (pool_k, pool_v), new tensors: the pools given are not
+    written."""
+    table = torch.as_tensor(list(block_table), dtype=torch.long,
+                            device=pool_k.device)
+    nb, bs = table.shape[0], pool_k.shape[2]
+    kvh, s, hd = cache.k.shape[1], cache.k.shape[2], cache.k.shape[3]
+    if s > nb * bs:
+        raise ValueError(f"cache length {s} exceeds table capacity {nb * bs}")
+
+    def to_blocks(x):
+        x = torch.nn.functional.pad(x[0], (0, 0, 0, nb * bs - s))
+        return x.reshape(kvh, nb, bs, hd).transpose(0, 1)
+
+    out_k, out_v = pool_k.clone(), pool_v.clone()
+    out_k[table] = to_blocks(cache.k).to(pool_k.dtype)
+    out_v[table] = to_blocks(cache.v).to(pool_v.dtype)
+    return out_k, out_v
+
+
+def gather_block_kv(pool_k, pool_v, block_table: Sequence[int],
+                    length) -> KVCache:
+    """Assemble the contiguous (1, KV, nb * block_size, hd) cache a block
+    table denotes, with ``length`` as its one row's length."""
+    table = torch.as_tensor(list(block_table), dtype=torch.long,
+                            device=pool_k.device)
+    _, kvh, bs, hd = pool_k.shape
+    nt = table.shape[0]
+
+    def from_blocks(pool):
+        return pool[table].transpose(0, 1).reshape(kvh, nt * bs, hd)[None]
+
+    return KVCache(from_blocks(pool_k), from_blocks(pool_v),
+                   torch.as_tensor(length, dtype=torch.long,
+                                   device=pool_k.device).reshape(1))

@@ -4,8 +4,9 @@ The conv audio frontend is a stub, as in the reference: the model consumes
 precomputed frame embeddings (B, n_frames, D).  The encoder is a
 bidirectional dense transformer over the frames; the decoder a causal one
 with cross-attention to the encoder's states in every layer (whisper's
-layout), with learned positions on both sides.  The decode cache and the
-one-step decode belong to the serving slice of the port.
+layout), with learned positions on both sides.  The decode cache is one
+KV cache a decoder layer; the decode step reads each row's position from
+the caches' lengths.
 """
 
 from __future__ import annotations
@@ -13,9 +14,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .attention import Attention, attention_train, cross_attention
+from .attention import (Attention, attention_decode, attention_train,
+                        cross_attention, init_kv_cache)
 from .layers import MLP, Embedding, Linear, RMSNorm, _param, dtype_of
-from .transformer import Layer
+from .transformer import Layer, lm_logits, position_rows
 
 
 class DecoderLayer(nn.Module):
@@ -90,3 +92,27 @@ def encdec_forward_train(net: EncDec, cfg, frames: torch.Tensor,
         x = x + p.mlp(p.norm2(x))
     return (net.final_norm(x),
             torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def init_encdec_cache(cfg, batch: int, max_len: int, device=None):
+    """One ``{"kv": KVCache}`` a decoder layer."""
+    dt = dtype_of(cfg.dtype)
+    return [{"kv": init_kv_cache(batch, cfg.n_kv_heads, max_len, cfg.hd, dt,
+                                 device)} for _ in range(cfg.n_layers)]
+
+
+def encdec_decode_step(net: EncDec, cfg, tokens: torch.Tensor, caches,
+                       memory: torch.Tensor):
+    """tokens: (B, s1), one new token or a chunked-prefill chunk a row;
+    memory: the encoder's states (B, M, D).  Returns (logits, caches)."""
+    x = net.embed(tokens)
+    x = x + position_rows(net.pos_table, caches[-1]["kv"].length,
+                          tokens.shape[1])
+    new_caches = []
+    for p, c in zip(net.dec_layers, caches):
+        h, kv = attention_decode(p.attn, cfg, p.norm1(x), c["kv"])
+        x = x + h
+        x = x + cross_attention(p.cross, cfg, p.norm_x(x), memory)
+        x = x + p.mlp(p.norm2(x))
+        new_caches.append({"kv": kv})
+    return lm_logits(net, cfg, net.final_norm(x)), new_caches

@@ -9,10 +9,13 @@ reference's functions take their parameter tree.
                                                     memory=memory)
     hidden, aux = encdec.encdec_forward_train(net, cfg, frames, tokens)
 
-Without ``device=`` the module goes on the current GPU, and without a GPU
-``init`` raises: the caller names the CPU to run the plain versions.  The
-loss and the decode caches come with later slices: ``init_cache`` and
-``decode_step`` raise ``NotImplementedError`` naming them.
+    caches = build_model(cfg).init_cache(batch, max_len, device=...)
+    logits, caches = build_model(cfg).decode_step(net, tokens, caches,
+                                                  memory)
+
+Without ``device=`` the module and the caches go on the current GPU, and
+without a GPU ``init`` and ``init_cache`` raise: the caller names the CPU to
+run the plain versions.  The loss comes with the training slice.
 """
 
 from __future__ import annotations
@@ -26,9 +29,6 @@ from ..configs.base import ModelConfig
 from ..devices import canonical, default_devices
 from . import encdec as ed
 from . import transformer as tf
-
-_SERVING = ("is not ported yet; it comes with the serving slice of the "
-            "port (decode caches and one-step decode)")
 
 
 @dataclasses.dataclass
@@ -58,11 +58,37 @@ class Model:
             return batch["images"]
         return None
 
-    def init_cache(self, batch: int, max_len: int):
-        raise NotImplementedError(f"init_cache {_SERVING}")
+    def init_cache(self, batch: int, max_len: int, *, device=None):
+        """Empty decode caches for ``batch`` rows of up to ``max_len``
+        tokens (a list with one dict a layer), on ``device`` (default: the
+        current GPU)."""
+        device = (default_devices()[0] if device is None
+                  else canonical(device))
+        if self.cfg.block_pattern == "encdec":
+            return ed.init_encdec_cache(self.cfg, batch, max_len, device)
+        return tf.init_decode_cache(self.cfg, batch, max_len, device)
 
     def decode_step(self, net, tokens, caches, memory=None):
-        raise NotImplementedError(f"decode_step {_SERVING}")
+        """tokens (B, s1) -> (logits (B, s1, V), new caches).  The KV
+        caches are written in place."""
+        if self.cfg.block_pattern == "encdec":
+            return ed.encdec_decode_step(net, self.cfg, tokens, caches,
+                                         memory)
+        return tf.decoder_decode_step(net, self.cfg, tokens, caches,
+                                      memory=memory)
+
+    @property
+    def supports_chunked_prefill(self) -> bool:
+        """True when decode_step takes multi-token chunks: every layer is
+        attention-shaped (the recurrent SSM / LSTM decode paths take one
+        token) and the KV ring cannot wrap inside a chunk (no sliding
+        window)."""
+        if self.cfg.sliding_window:
+            return False
+        if self.cfg.block_pattern == "encdec":
+            return True
+        return set(tf.layer_kinds(self.cfg)) <= {"dense", "vlm_self", "moe",
+                                                 "cross"}
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -14,20 +14,25 @@ Block kinds (the reference's ``init_layer`` / ``apply_layer_train``):
 Whisper's encoder-decoder lives in ``encdec.py`` and reuses these blocks.
 The layers are one ``nn.ModuleList`` in order and run in a Python loop: no
 scan over stacked layers and no remat (the forward half keeps no
-activations).
+activations).  The decode caches are a list with one dict a layer, in the
+same order (``init_decode_cache``), where the reference stacks them per
+layer group.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List
 
 import torch
 from torch import nn
 
-from .attention import Attention, attention_train, cross_attention
+from .attention import (Attention, attention_decode, attention_train,
+                        cross_attention, init_kv_cache)
 from .layers import MLP, Embedding, Linear, RMSNorm, _param, dtype_of
 from .moe import MoE, moe_block
-from .ssm import MLSTM, SLSTM, SSD, mlstm_train, slstm_train, ssd_train
+from .ssm import (MLSTM, SLSTM, SSD, init_slstm_state, init_ssm_state,
+                  mlstm_decode, mlstm_train, slstm_decode, slstm_train,
+                  ssd_decode, ssd_train)
 
 KINDS = ("dense", "vlm_self", "moe", "mlstm", "slstm", "hymba", "cross")
 
@@ -103,6 +108,41 @@ def apply_layer_train(p: Layer, cfg, kind: str, x, positions, memory=None):
     else:
         raise ValueError(f"unknown block kind {kind!r}")
     return x, aux
+
+
+def apply_layer_decode(p: Layer, cfg, kind: str, x, cache: Dict,
+                       memory=None):
+    """x: (B, s1, D) (s1 > 1 only for attention-shaped kinds).  Returns
+    (x, new_cache)."""
+    if kind in ("dense", "vlm_self", "moe"):
+        h, cache_kv = attention_decode(p.attn, cfg, p.norm1(x), cache["kv"])
+        x = x + h
+        h2 = p.norm2(x)
+        if kind == "moe":
+            y, _ = moe_block(p.moe, cfg, h2)
+        else:
+            y = p.mlp(h2)
+        return x + y, {**cache, "kv": cache_kv}
+    if kind == "mlstm":
+        h, st = mlstm_decode(p.mlstm, cfg, p.norm1(x), cache["ssm"])
+        return x + h, {**cache, "ssm": st}
+    if kind == "slstm":
+        h, st = slstm_decode(p.slstm, cfg, p.norm1(x), cache["sl"])
+        return x + h, {**cache, "sl": st}
+    if kind == "hymba":
+        h2 = p.norm1(x)
+        a, cache_kv = attention_decode(p.attn, cfg, h2, cache["kv"])
+        s, st = ssd_decode(p.ssd, cfg, h2, cache["ssm"])
+        x = x + 0.5 * (a + s)
+        x = x + p.mlp(p.norm2(x))
+        return x, {**cache, "kv": cache_kv, "ssm": st}
+    if kind == "cross":
+        if memory is None:
+            raise ValueError("a cross layer needs the memory it attends to")
+        x = x + cross_attention(p.cross, cfg, p.norm1(x), memory)
+        x = x + p.mlp(p.norm2(x))
+        return x, cache
+    raise ValueError(f"unknown block kind {kind!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -183,3 +223,71 @@ def lm_logits(net: Decoder, cfg, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
         return torch.einsum("bsd,vd->bsv", x, net.embed.w)
     return net.lm_head(x)
+
+
+# ---------------------------------------------------------------------------
+# decode path
+# ---------------------------------------------------------------------------
+
+
+def init_decode_cache(cfg, batch: int, max_len: int, device=None
+                      ) -> List[Dict]:
+    """One cache dict a layer, in ``layer_kinds`` order: "kv" (a KV ring
+    of ``min(max_len, window)`` slots with a window, else ``max_len``) for
+    the attention kinds, "ssm" for hymba's SSD head and the mLSTM, "sl"
+    for the sLSTM; a cross layer keeps nothing."""
+    dt = dtype_of(cfg.dtype)
+    kv_len = (min(max_len, cfg.sliding_window) if cfg.sliding_window
+              else max_len)
+    caches = []
+    for kind in layer_kinds(cfg):
+        c = {}
+        if kind in ("dense", "vlm_self", "moe", "hymba"):
+            c["kv"] = init_kv_cache(batch, cfg.n_kv_heads, kv_len, cfg.hd,
+                                    dt, device)
+        if kind == "hymba":
+            h = cfg.ssm.n_ssm_heads or cfg.n_heads
+            c["ssm"] = init_ssm_state(batch, h, cfg.ssm.state_dim, cfg.hd,
+                                      device)
+        if kind == "mlstm":
+            c["ssm"] = init_ssm_state(batch, cfg.n_heads, cfg.hd, cfg.hd,
+                                      device)
+        if kind == "slstm":
+            c["sl"] = init_slstm_state(batch, cfg.n_heads * cfg.hd, device)
+        caches.append(c)
+    return caches
+
+
+def caches_length(caches) -> torch.Tensor:
+    """Each row's decode position, (B,), from the first cache that counts
+    its tokens (a KV cache or an SSM state); a scalar 0 when none does."""
+    for c in caches:
+        for key in ("kv", "ssm"):
+            if key in c:
+                return c[key].length
+    return torch.zeros((), dtype=torch.long)
+
+
+def position_rows(table: torch.Tensor, pos: torch.Tensor, s1: int
+                  ) -> torch.Tensor:
+    """Rows ``pos .. pos + s1`` of a learned position table, per batch row:
+    (B, s1, D).  The start is clamped to ``[0, len(table) - s1]``, as the
+    reference's ``dynamic_slice`` clamps it."""
+    pos = torch.as_tensor(pos, device=table.device).reshape(-1)
+    start = torch.clamp(pos, min=0, max=max(table.shape[0] - s1, 0))
+    return table[start[:, None] + torch.arange(s1, device=table.device)]
+
+
+def decoder_decode_step(net: Decoder, cfg, tokens: torch.Tensor, caches,
+                        *, memory=None):
+    """tokens: (B, s1), one new token or a chunked-prefill chunk a row.
+    Returns (logits (B, s1, V), new_caches)."""
+    x = net.embed(tokens)
+    if net.pos_table is not None:
+        x = x + position_rows(net.pos_table, caches_length(caches),
+                              tokens.shape[1])
+    new_caches = []
+    for kind, layer, c in zip(net.kinds, net.layers, caches):
+        x, nc = apply_layer_decode(layer, cfg, kind, x, c, memory)
+        new_caches.append(nc)
+    return lm_logits(net, cfg, net.final_norm(x)), new_caches

@@ -10,9 +10,6 @@ when nobody is watching.  When tracing is on, every timed region that
 knows its model-predicted duration carries it on the span, and
 :mod:`repro_torch.obs.export` renders measured and predicted timelines
 side-by-side with flow links and signed residuals.
-
-The streaming watch layer (``obs/watch/``: rolling detectors, SLOs, the
-dashboard) comes with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -38,7 +35,17 @@ __all__ = [
     "maybe_span", "alert",
     "export_spans", "sim_trace", "serving_trace", "save_trace",
     "summary", "save_summary", "tier_of", "parse_prometheus_text",
+    "watch",
 ]
+
+def __getattr__(name):
+    # `watch` is loaded lazily: its modules use ``from .. import alert``,
+    # which needs this module fully initialized first.
+    if name == "watch":
+        import importlib
+        return importlib.import_module(".watch", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 _LOCK = threading.Lock()
 _ENABLED: Optional[bool] = None     # None -> consult the environment

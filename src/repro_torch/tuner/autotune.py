@@ -21,11 +21,10 @@ candidate on the machine's topology and the argmin is taken over
 *simulated* makespans (DESIGN.md §4.4).
 
 The same Tuner also serves the LM layers: ``recommend_fsdp`` consults the
-LM-step model for the parameter-sharding layout choice.  Devices are
-``torch.device`` objects: the platform is the device type (``"cuda"`` /
-``"cpu"``) and the device kind is the card's name.  ``serve_chunk``
-belongs to the serving slice of the port and raises
-``NotImplementedError`` here.
+LM-step model for the parameter-sharding layout choice, and
+``prefill_chunk`` / ``serve_chunk`` size the serving engine's chunked
+prefill.  Devices are ``torch.device`` objects: the platform is the device
+type (``"cuda"`` / ``"cpu"``) and the device kind is the card's name.
 """
 
 from __future__ import annotations
@@ -416,10 +415,25 @@ class Tuner:
                     granularity: int = 8, base_prefill=(),
                     base_prefill_s: Optional[float] = None) -> int:
         """Prefill chunk sizing for the serving scheduler's batch mix: the
-        serving slice of the port brings it."""
-        raise NotImplementedError(
-            "serve_chunk sizes the serving scheduler's prefill, which the "
-            "serving slice of the port brings")
+        largest token count (a multiple of ``granularity``, so the engine
+        keeps its two compiled shapes) whose *marginal* predicted prefill
+        time — on top of the chunks already packed into this step
+        (``base_prefill``) — fits ``budget_s``.  Returns 0 when even one
+        granularity chunk cannot fit; the policy decides whether to force
+        progress anyway."""
+        if remaining <= 0 or budget_s <= 0:
+            return 0
+        g = max(1, int(granularity))
+        base = list(base_prefill)
+        base_s = base_prefill_s if base_prefill_s is not None else (
+            cost.prefill_step(base).prefill_s if base else 0.0)
+        n = int(remaining)
+        while n > 0:
+            marginal = cost.prefill_step(base + [(n, ctx0)]).prefill_s - base_s
+            if marginal <= budget_s:
+                return n
+            n = (n // 2) // g * g if n > g else 0
+        return 0
 
 
 _DEFAULT: Optional[Tuner] = None

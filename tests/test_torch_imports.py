@@ -70,14 +70,24 @@ SIMULATOR = ["repro_torch.sim", "repro_torch.telemetry.diagnose",
 MODELS = ["repro_torch.models.moe", "repro_torch.models.encdec",
           "repro_torch.models.ssm", "repro_torch.kernels.slstm",
           "repro_torch.launch.prefill"]
+# serving: the decode path's modules, the serving package, obs/watch
+SERVING = ["repro_torch.models.attention", "repro_torch.models.transformer",
+           "repro_torch.models.model", "repro_torch.serving",
+           "repro_torch.serving.kvblocks", "repro_torch.serving.cost",
+           "repro_torch.serving.policy", "repro_torch.serving.scheduler",
+           "repro_torch.serving.engine", "repro_torch.serving.trace",
+           "repro_torch.obs.watch", "repro_torch.obs.watch.detect",
+           "repro_torch.obs.watch.slo", "repro_torch.obs.watch.history",
+           "repro_torch.obs.watch.dashboard", "repro_torch.launch.serve"]
 
 
-@pytest.mark.parametrize("module", MEASURING + SIMULATOR + MODELS)
+@pytest.mark.parametrize("module", MEASURING + SIMULATOR + MODELS + SERVING)
 def test_measuring_modules_import_with_jax_and_the_reference_blocked(module):
-    """Each module of the measuring half, of the simulator and of the
-    models imports on its own in a process where importing JAX or the
-    reference package fails."""
-    assert set(MEASURING + SIMULATOR + MODELS) <= set(_port_modules())
+    """Each module of the measuring half, of the simulator, of the models
+    and of serving imports on its own in a process where importing JAX or
+    the reference package fails."""
+    assert set(MEASURING + SIMULATOR + MODELS + SERVING) <= \
+        set(_port_modules())
     code = textwrap.dedent(f"""
         import importlib, sys
         sys.modules["jax"] = None

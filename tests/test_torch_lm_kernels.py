@@ -26,7 +26,8 @@ from repro.models import ssm as ref_ssm
 from repro_torch import kernels as tk
 from repro_torch.kernels.common import TilePlan
 from repro_torch.kernels.flash_attention.ops import (HEAD_DIMS, _ref4,
-                                                     loadable, pad_head_dim)
+                                                     loadable, pad_head_dim,
+                                                     padded_head_dim)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -129,14 +130,36 @@ class TestFlashAttention:
         assert torch.equal(got[..., d:], torch.zeros_like(got[..., d:]))
 
     def test_padding_leaves_supported_dims_and_refuses_above_128(self):
-        # the widest body is 256 since head dims 129-256 were added; the
-        # name is kept from when it was 128
-        for d in HEAD_DIMS:
+        # the widest body is 256 since head dims 129-256 were added, and
+        # above it D pads to a multiple of 128, as the reference pads (the
+        # refusal moved to the launcher: D above what a block's shared
+        # memory holds); the name is kept from when the widest was 128
+        for d in HEAD_DIMS + (384, 512, 640):
             q = torch.zeros(1, 128, d)
             assert pad_head_dim(q, q, q)[0] is q
         assert pad_head_dim(torch.zeros(1, 128, 129))[0].shape[-1] == 256
-        with pytest.raises(ValueError, match="above 256"):
-            pad_head_dim(torch.zeros(1, 128, 257))
+        for d, dp in ((257, 384), (320, 384), (385, 512), (700, 768)):
+            assert padded_head_dim(d) == dp
+            assert pad_head_dim(torch.zeros(1, 128, d))[0].shape[-1] == dp
+
+    @pytest.mark.parametrize("d", [320, 384])
+    def test_padded_head_dim_above_256_gives_the_unpadded_result(self, d):
+        """Above 256, D pads to a multiple of 128 (320 -> 384; 384 stays):
+        the plain attention over the padded operands, scaled by the true
+        d^-0.5, is the unpadded result followed by zeros, and the wrapper's
+        CPU path gives the unpadded result."""
+        rng = np.random.default_rng(d)
+        q, k, v = (torch.tensor(rng.standard_normal((1, 2, 160, d)),
+                                dtype=torch.float32) for _ in range(3))
+        qp, kp, vp = pad_head_dim(q, k, v)
+        dp = qp.shape[-1]
+        assert dp == 384
+        got = _ref4(qp * (dp / d) ** 0.5, kp, vp, True)
+        want = _ref4(q, k, v, True)
+        assert torch.allclose(got[..., :d], want, rtol=0, atol=1e-6)
+        assert torch.equal(got[..., d:], torch.zeros_like(got[..., d:]))
+        assert torch.equal(tk.flash_attention_cuda(q, k, v, causal=True),
+                           want)
 
     def test_cpu_runs_the_plain_version_and_counts_no_launch(self):
         rng = np.random.default_rng(10)

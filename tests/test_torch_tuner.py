@@ -207,9 +207,28 @@ def test_plan_observe_records_the_plan(tmp_path):
 
 
 def test_lm_helpers_raise(tmp_path):
-    tuner = Tuner(cache=PlanCache(str(tmp_path)))
-    with pytest.raises(NotImplementedError, match="serving slice"):
-        tuner.serve_chunk(64, ctx0=0, cost=None, budget_s=1.0)
+    """``serve_chunk`` no longer raises: it sizes a prefill chunk to a step
+    budget as the reference's does (both packages' serving cost models of
+    reduced qwen1.5-4b on the CPU host profile), and both packages'
+    ``prefill_chunk`` agree."""
+    from repro.configs import get as ref_get
+    from repro.core.machine import CPU_HOST as REF_CPU_HOST
+    from repro.serving import ServeCostModel as RefCost
+    from repro_torch.configs import get
+    from repro_torch.core.machine import CPU_HOST
+    from repro_torch.serving import ServeCostModel
+    ref, port = _tuners(tmp_path)
+    cm = ServeCostModel(get("qwen1.5-4b").reduced(), CPU_HOST)
+    ref_cm = RefCost(ref_get("qwen1.5-4b").reduced(), REF_CPU_HOST)
+    whole = cm.prefill_step([(512, 0)]).prefill_s
+    for budget in (2 * whole, whole / 4, 0.0):
+        got = port.serve_chunk(512, ctx0=0, cost=cm, budget_s=budget,
+                               granularity=32)
+        assert got == ref.serve_chunk(512, ctx0=0, cost=ref_cm,
+                                      budget_s=budget, granularity=32)
+        assert got % 32 == 0 and 0 <= got <= 512
+    for s in (3, 8, 21, 4096):
+        assert port.prefill_chunk(s) == ref.prefill_chunk(s)
 
 
 @pytest.mark.parametrize("mesh", [{"data": 16, "model": 16}, {"data": 256}])
