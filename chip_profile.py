@@ -26,7 +26,10 @@ trailing-update width), and of the library call beside each (the
 profiler's device events only: at small shapes the CUDA-event times of
 chip_smoke.py are the wrappers' host time), and of one K5 call at
 hymba-1.5b's and xlstm-350m's shapes, split over its three launches, and
-of one K6 call at xlstm-350m's sLSTM shape.
+of one K6 call at xlstm-350m's sLSTM shape.  One warm train step of
+starcoder2-3b (chip_smoke.py §10.2's) splits its device time into K4, the
+K4 sites' backward through the twin, the optimizer, the products and the
+rest.
 Exits non-zero without a CUDA device or when a profile holds no device
 time.
 
@@ -155,6 +158,8 @@ def main() -> int:
         del net, stubs
         torch.cuda.empty_cache()
     if not decode_step_profile(torch, gen):
+        return 1
+    if not train_step_profile(torch):
         return 1
     kernel_device_times(torch, gen)
     k1_device_times(torch, gen)
@@ -488,6 +493,74 @@ def ptxas_report(build) -> None:
                 entry["static_smem"] = int(smem.group(1)) if smem else 0
                 print(json.dumps(entry), flush=True)
                 entry = None
+
+
+# the profiler ranges of one train step: the K4 sites' backward (the twin
+# _sdpa_chunked recomputed and differentiated) and the optimizer's update
+TRAIN_RANGES = ("k4_twin_backward", "optimizer")
+TRAIN_LEN = 4096
+
+
+def train_step_profile(torch) -> bool:
+    """One warm train step of chip_smoke.py §10.2: starcoder2-3b at full
+    width and depth, bf16, remat, one prompt of 4096 tokens, AdamW with
+    fp32 moments, through ``Trainer``.  Prints the step's wall and device
+    time, the device-busy share, and the device time split into K4 (the
+    forward and its recompute under remat), the K4 sites' backward
+    through the twin (its products included), the optimizer, cuBLAS's
+    products elsewhere (the forward, its recompute and their backward),
+    and the rest.  False when the profile holds no device time."""
+    from repro_torch import kernels
+    from repro_torch.configs import get
+    from repro_torch.models import attention
+    from repro_torch.training import (AdamWConfig, DataConfig, TrainConfig,
+                                      Trainer, trainer)
+    cfg = get("starcoder2-3b")
+    tr = Trainer(TrainConfig(
+        model=cfg, opt=AdamWConfig(lr=3e-4, warmup_steps=20,
+                                   total_steps=100),
+        data=DataConfig(cfg.vocab_size, TRAIN_LEN, 1, seed=0), n_steps=2),
+        seed=0)
+    batch = tr.batch_at(0)
+    tr.train_step(batch)                                  # warm-up
+    orig_backward = attention.FlashAttention.backward
+    orig_update = trainer.apply_update
+    attention.FlashAttention.backward = staticmethod(
+        ranged(torch, "k4_twin_backward", orig_backward))
+    trainer.apply_update = ranged(torch, "optimizer", orig_update)
+    kernels.reset_launches()
+    try:
+        record = profiled(torch, lambda: tr.train_step(batch),
+                          keep_profile=True, ranges=TRAIN_RANGES)
+    finally:
+        attention.FlashAttention.backward = staticmethod(orig_backward)
+        trainer.apply_update = orig_update
+    prof = record.pop("profile")
+    events = list(prof.events())
+    split = {label: sum(ms for _, ms in range_kernels(events, label))
+             for label in TRAIN_RANGES}
+    in_ranges = [name for label in TRAIN_RANGES
+                 for name, _ in range_kernels(events, label)]
+    ranged_products = sum(ms for label in TRAIN_RANGES
+                          for name, ms in range_kernels(events, label)
+                          if PRODUCT.search(name))
+    split["K4"] = sum(r["ms"] for r in record["all"]
+                      if K4_BF16.search(r["name"]))
+    split["products elsewhere"] = sum(
+        r["ms"] for r in record["all"]
+        if PRODUCT.search(r["name"])) - ranged_products
+    split["rest"] = record["device_ms"] - sum(split.values())
+    device_events = len(record.pop("events"))
+    del record["all"]
+    print(json.dumps({
+        "train_step": "starcoder2-3b", "dtype": cfg.dtype,
+        "layers": cfg.n_layers, "remat": cfg.remat, "tokens": TRAIN_LEN,
+        "device_events": device_events, "ranged_kernels": len(in_ranges),
+        "counted_launches": kernels.launches(), "split_ms": split,
+        **record}), flush=True)
+    del tr
+    torch.cuda.empty_cache()
+    return record["device_ms"] > 0 and split["k4_twin_backward"] > 0
 
 
 def profiled(torch, fn, keep_profile=False, ranges=()):

@@ -84,6 +84,27 @@
    full-sequence forward; and three staggered fp32 requests (starcoder2-3b
    at depth 2) through the scheduler's batch against each alone, token
    for token.
+10. Trains on the card (``repro_torch.training``; ``Model.loss`` through
+   the differentiable K4, K5 and K6 sites, whose backward recomputes
+   through the twins the reference differentiates).  10.1: the loss and
+   every parameter's gradient at full width, fp32, depth 2 (whisper-tiny
+   at full depth, the VLM with a cross layer every 2 layers) on the card
+   against the CPU with one state dict and one numpy batch, for
+   starcoder2-3b (K4 at S = 2304), hymba-1.5b (K5 and its windowed loop),
+   xlstm-350m (K5 at 256 x 257 and K6), qwen2-moe-a2.7b (the aux loss,
+   its routing compared: gated only where it agrees), whisper-tiny and
+   llama-3.2-vision-11b: loss < 1e-4 relative, each gradient < 1e-3 of
+   its largest entry; starcoder2-3b also with remat against without on
+   the card.  10.2: starcoder2-3b bf16 at full width and depth, one
+   prompt of 4096 tokens, remat, AdamW with fp32 moments, four steps
+   through ``Trainer`` and its synthetic pipeline (synchronized wall,
+   tokens/s, loss, grad norm, lr, peak memory, K4 launches each step;
+   the parameters move), one more step under the CPU-op guard (0
+   operations), then xlstm-350m bf16 at full depth, 1024 tokens, two
+   steps (K5 and K6 launched; the twins' backward time).  10.3: the loss
+   falls over five steps on one fixed batch (starcoder2-3b at depth 2,
+   fp32).  10.4: ``Trainer.run`` checkpoints at step 2, a new Trainer
+   restores it, and its step 3 matches the first's within 1e-5.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero, as do
@@ -168,13 +189,15 @@ def main() -> int:
         measuring_half(torch)
     simulator_counts = simulator(torch, measured_records, measured_registry)
     serving_counts = serving(torch)
+    training_counts = training(torch)
 
     for entry in kernels:
         entry["launches"] = (main_counts[entry["wrapper"]]
                              + prefill_counts[entry["wrapper"]]
                              + measuring_counts[entry["wrapper"]]
                              + simulator_counts[entry["wrapper"]]
-                             + serving_counts[entry["wrapper"]])
+                             + serving_counts[entry["wrapper"]]
+                             + training_counts[entry["wrapper"]])
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -1915,6 +1938,371 @@ def batch_against_single(torch):
     check(all(line["equal"].values()), "batch vs single: a request's "
           f"tokens differ from its own: {line.get('first_difference')}")
     del net
+    torch.cuda.empty_cache()
+
+
+# -- 10. training: the loss, its gradients, the optimizer, the trainer -------
+
+# card against CPU, fp32, full width, depth 2 (whisper-tiny: full depth,
+# the VLM with a cross layer every 2 layers, as in §6), one prompt a batch,
+# remat off (checked on and off on the card for starcoder2-3b below):
+# (arch, config changes, tokens, the launches each kernel makes in the
+# card's forward).  S = 2304 takes K4 (starcoder2-3b, whisper-tiny's
+# decoder) and hymba-1.5b's windowed loop; K5 and K6 take any S >= 128.
+# Loss within 1e-4 relative, each parameter's gradient within 1e-3 of its
+# largest entry: only summation orders differ (fp32 products with IEEE
+# fp32, the kernels' forward, the twins' backward on both sides)
+TRAIN_CHECKS = (
+    ("starcoder2-3b", {"n_layers": 2}, 2304, {"flash_attention_cuda": 2}),
+    ("hymba-1.5b", {"n_layers": 2}, 2304, {"ssm_scan_cuda": 2}),
+    ("xlstm-350m", {"n_layers": 2}, 1024,
+     {"ssm_scan_cuda": 1, "slstm_scan_cuda": 1}),
+    ("qwen2-moe-a2.7b", {"n_layers": 2}, 512, {}),
+    ("whisper-tiny", {}, 2304, {"flash_attention_cuda": 4}),
+    ("llama-3.2-vision-11b", {"n_layers": 2, "cross_attn_every": 2}, 512, {}),
+)
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GRAD_TOL = 1e-3
+# full width and depth through Trainer: (arch, tokens, steps, the kernels
+# each step must launch)
+TRAIN_FULL = (("starcoder2-3b", 4096, 4, ("flash_attention_cuda",)),
+              ("xlstm-350m", 1024, 2, ("ssm_scan_cuda", "slstm_scan_cuda")))
+# the loss on one fixed batch, and the restart: starcoder2-3b, depth 2,
+# fp32, one prompt of 512 tokens
+SMALL_TRAIN = ("starcoder2-3b", {"n_layers": 2}, 512)
+
+
+def training(torch):
+    """§10; returns the launch counts of its runs, summed."""
+    from repro_torch import kernels
+    totals = {name: 0 for name in kernels.launches()}
+    t_start = time.perf_counter()
+    for part in (train_against_cpu, train_full_width, loss_falls,
+                 restart_matches):
+        t0 = time.perf_counter()
+        kernels.reset_launches()
+        part(torch)
+        counts = kernels.launches()
+        emit({"training_part": part.__name__, "launches": counts,
+              "wall_s": time.perf_counter() - t0})
+        for name, n in counts.items():
+            totals[name] += n
+    emit({"training_s": time.perf_counter() - t_start})
+    return totals
+
+
+def launches_since(before):
+    """Each kernel's launches since the counts ``before`` were read (§10
+    reads its counts this way, so that its parts' totals keep every
+    launch)."""
+    from repro_torch import kernels
+    return {k: n - before[k] for k, n in kernels.launches().items()}
+
+
+def numpy_batch(cfg, seq, seed):
+    """One prompt's tokens and next-token labels (int32), and the stub
+    inputs the architecture takes (fp32), drawn with numpy."""
+    import numpy as np
+    from repro_torch.launch.prefill import stub_shapes
+    rng = np.random.default_rng(seed)
+    tok = rng.integers(0, cfg.vocab_size, (1, seq + 1)).astype(np.int32)
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    for name, shape in stub_shapes(cfg).items():
+        batch[name] = (rng.standard_normal((1,) + shape)
+                       * 0.1).astype(np.float32)
+    return batch
+
+
+def loss_and_grads(torch, model, net, batch):
+    """(loss, {"ce", "aux"}, {name: gradient}) of one batch of numpy
+    arrays on ``net``'s device."""
+    device = next(net.parameters()).device
+    names, params = zip(*net.named_parameters())
+    loss, metrics = model.loss(net, {k: torch.from_numpy(v).to(device)
+                                     for k, v in batch.items()})
+    grads = torch.autograd.grad(loss, params)
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            dict(zip(names, grads)))
+
+
+def grad_errors(got, want):
+    """Per parameter: the largest difference over the CPU's largest entry
+    (fp32, on the host)."""
+    out = {}
+    for name, w in want.items():
+        g = got[name].float().cpu()
+        out[name] = float((g - w).abs().max()
+                          / w.abs().max().clamp(min=1e-30))
+    return out
+
+
+def train_against_cpu(torch):
+    """10.1: the loss and every parameter's gradient on the card against
+    the CPU with one state dict and one numpy batch; the MoE's routing
+    compared; remat on against off on the card (starcoder2-3b)."""
+    import dataclasses
+    from repro_torch import kernels
+    from repro_torch.models import build_model
+    for arch, changes, seq, want_counts in TRAIN_CHECKS:
+        cfg = dataclasses.replace(check_config(arch, "float32", changes),
+                                  remat=False)
+        model = build_model(cfg)
+        net = model.init(SEED, device="cuda")
+        net_cpu = type(net)(cfg, device="cpu")
+        net_cpu.load_state_dict({k: v.cpu()
+                                 for k, v in net.state_dict().items()})
+        batch = numpy_batch(cfg, seq, SEED + 10)
+        before = kernels.launches()
+        t0 = time.perf_counter()
+        with RoutingLog() as card_routes:
+            loss, metrics, grads = loss_and_grads(torch, model, net, batch)
+            torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        counts = launches_since(before)
+        t0 = time.perf_counter()
+        with RoutingLog() as cpu_routes:
+            loss_c, metrics_c, grads_c = loss_and_grads(torch, model,
+                                                        net_cpu, batch)
+        cpu_s = time.perf_counter() - t0
+        loss_err = abs(float(loss) - float(loss_c)) / abs(float(loss_c))
+        errs = grad_errors(grads, grads_c)
+        worst = max(errs, key=errs.get)
+        line = {"train_vs_cpu": arch, "layers": cfg.n_layers,
+                "dtype": "float32", "tokens": seq, "config_changes": changes,
+                "loss_card": float(loss), "loss_cpu": float(loss_c),
+                "loss_rel_err": loss_err, "loss_tol": TRAIN_LOSS_TOL,
+                "aux_card": float(metrics["aux"]),
+                "aux_cpu": float(metrics_c["aux"]),
+                "params": len(errs), "grad_max_rel_err": errs[worst],
+                "grad_worst_param": worst, "grad_tol": TRAIN_GRAD_TOL,
+                "launches": counts, "card_s": card_s, "cpu_s": cpu_s}
+        routing_equal = True
+        if cfg.moe:
+            diffs = routing_differences(card_routes.calls, cpu_routes.calls)
+            line["routing_card_vs_cpu"] = diffs
+            routing_equal = not any(d["gate_idx_differs"] or d["keep_differs"]
+                                    for d in diffs)
+            line["gated"] = routing_equal
+            check(len(card_routes.calls) == len(cpu_routes.calls)
+                  == cfg.n_layers, f"train vs cpu {arch}: routing decisions "
+                  f"{len(card_routes.calls)} / {len(cpu_routes.calls)}")
+            check(float(metrics["aux"]) > 0, f"train vs cpu {arch}: no aux "
+                  "loss")
+        emit(line)
+        for name, n in want_counts.items():
+            check(counts[name] == n, f"train vs cpu {arch}: {name} "
+                  f"launched {counts[name]} times, not {n}")
+        check(torch.isfinite(loss).item(), f"train vs cpu {arch}: loss")
+        if routing_equal:
+            check(loss_err < TRAIN_LOSS_TOL, f"train vs cpu {arch}: loss rel "
+                  f"err {loss_err:.3e}")
+            check(errs[worst] < TRAIN_GRAD_TOL, f"train vs cpu {arch}: "
+                  f"gradient of {worst} rel err {errs[worst]:.3e}")
+        if arch == "starcoder2-3b":
+            remat_against_no_remat(torch, cfg, net, batch, loss, grads)
+        del net, net_cpu, grads, grads_c
+        torch.cuda.empty_cache()
+
+
+def remat_against_no_remat(torch, cfg, net, batch, loss, grads):
+    """The same loss and gradients on the card with each layer
+    checkpointed: K4 launched twice as often (the recompute), peak memory
+    beside the run without."""
+    import dataclasses
+    from repro_torch import kernels
+    from repro_torch.models import build_model
+    peaks = {}
+    for remat in (False, True):
+        model = build_model(dataclasses.replace(cfg, remat=remat))
+        before = kernels.launches()
+        torch.cuda.reset_peak_memory_stats()
+        l, _, g = loss_and_grads(torch, model, net, batch)
+        torch.cuda.synchronize()
+        peaks[remat] = (torch.cuda.max_memory_allocated(),
+                        launches_since(before)["flash_attention_cuda"])
+    err = max(float((g[n] - grads[n]).abs().max()
+                    / grads[n].abs().max().clamp(min=1e-30)) for n in grads)
+    line = {"train_remat": cfg.name, "layers": cfg.n_layers,
+            "loss_rel_err": abs(float(l) - float(loss)) / abs(float(loss)),
+            "grad_max_rel_err": err, "tol": 1e-5,
+            "peak_memory_no_remat": peaks[False][0],
+            "peak_memory_remat": peaks[True][0],
+            "k4_launches_no_remat": peaks[False][1],
+            "k4_launches_remat": peaks[True][1]}
+    emit(line)
+    check(line["loss_rel_err"] < 1e-5 and err < 1e-5,
+          f"remat against no remat: rel err {err:.3e}")
+    check(peaks[True][1] == 2 * peaks[False][1],
+          "remat: K4 not launched again in the recompute")
+
+
+class TwinTimer:
+    """Adds up, while installed, the synchronized wall time of the K5 and
+    K6 sites' backward passes (the twins' recompute and its gradient)."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import ssm
+        self.s = {"SSMScan": 0.0, "SLSTMScan": 0.0}
+        self._saved = []
+        for name in self.s:
+            fn_cls = getattr(ssm, name)
+            orig = fn_cls.backward
+            self._saved.append((fn_cls, orig))
+
+            def timed(ctx, *grads, _orig=orig, _name=name):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _orig(ctx, *grads)
+                torch.cuda.synchronize()
+                self.s[_name] += time.perf_counter() - t0
+                return out
+
+            fn_cls.backward = staticmethod(timed)
+        return self
+
+    def __exit__(self, *exc):
+        for fn_cls, orig in self._saved:
+            fn_cls.backward = staticmethod(orig)
+        return False
+
+
+def train_full_width(torch):
+    """10.2: full width and depth, bf16, remat, AdamW with fp32 moments,
+    through ``Trainer`` (the current GPU) and its synthetic pipeline: each
+    step's synchronized wall, tokens/s, metrics, peak memory and kernel
+    launches; the parameters move; then one warm starcoder2-3b step under
+    the CPU-op guard (the batch drawn and moved beforehand)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get
+    from repro_torch.training import (AdamWConfig, DataConfig, TrainConfig,
+                                      Trainer)
+    for arch, seq, steps, wrappers in TRAIN_FULL:
+        cfg = get(arch)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr = Trainer(TrainConfig(
+            model=cfg, opt=AdamWConfig(lr=3e-4, warmup_steps=20,
+                                       total_steps=100),
+            data=DataConfig(cfg.vocab_size, seq, 1, seed=SEED),
+            n_steps=steps), seed=SEED)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        check(all(p.device.type == "cuda" for p in tr.net.parameters())
+              and tr.device.type == "cuda", f"train {arch}: not on the card")
+        emit({"train_init": arch, "dtype": cfg.dtype, "layers": cfg.n_layers,
+              "params": sum(p.numel() for p in tr.net.parameters()),
+              "remat": cfg.remat, "init_s": init_s,
+              "max_memory_allocated_init": torch.cuda.max_memory_allocated()})
+        name0, p0 = next(iter(tr.net.named_parameters()))
+        before = p0.detach().clone()
+        for step in range(steps):
+            batch = tr.batch_at(step)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            counts0 = kernels.launches()
+            with TwinTimer() as twins:
+                t0 = time.perf_counter()
+                metrics = tr.train_step(batch)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            counts = launches_since(counts0)
+            out = {k: float(v) for k, v in metrics.items()}
+            emit({"train_step": arch, "step": step,
+                  "run": "cold" if step == 0 else "warm", "tokens": seq,
+                  "wall_s": wall, "tokens_per_s": seq / wall, **out,
+                  "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                  "launches": counts,
+                  "twin_backward_s": {"K5 (SSMScan)": twins.s["SSMScan"],
+                                      "K6 (SLSTMScan)": twins.s["SLSTMScan"]},
+                  "twin_timer_note": "synchronized around each backward: "
+                                     "the wall above carries those syncs"})
+            check(all(math.isfinite(v) for v in out.values()),
+                  f"train {arch} step {step}: non-finite metrics {out}")
+            for wrapper in wrappers:
+                check(counts[wrapper] > 0, f"train {arch} step {step}: "
+                      f"{wrapper} never launched")
+        moved = float((p0.detach().float() - before.float()).abs().max())
+        emit({"train_params_moved": arch, "param": name0,
+              "max_abs_change": moved})
+        check(moved > 0, f"train {arch}: the parameters did not change")
+        if arch == "starcoder2-3b":
+            batch = tr.batch_at(steps)
+            torch.cuda.synchronize()
+            guard = cpu_op_guard(torch)
+            t0 = time.perf_counter()
+            with guard:
+                metrics = tr.train_step(batch)
+                torch.cuda.synchronize()
+            emit({"train_guarded_step": arch, "step": steps,
+                  "wall_s": time.perf_counter() - t0,
+                  "loss": float(metrics["loss"]),
+                  "cpu_ops": dict(guard.ops),
+                  "cpu_op_count": sum(guard.ops.values())})
+            check(not guard.ops, f"train {arch}: operations ran on the CPU: "
+                  f"{dict(guard.ops)}")
+        del tr, before, p0
+        torch.cuda.empty_cache()
+
+
+def small_trainer(torch, directory=None, seed=SEED):
+    """A ``Trainer`` of SMALL_TRAIN (fp32, no remat) on the card."""
+    import dataclasses
+    from repro_torch.training import (AdamWConfig, DataConfig, TrainConfig,
+                                      Trainer)
+    arch, changes, seq = SMALL_TRAIN
+    cfg = dataclasses.replace(check_config(arch, "float32", changes),
+                              remat=False)
+    return Trainer(TrainConfig(
+        model=cfg, opt=AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=20),
+        data=DataConfig(cfg.vocab_size, seq, 1, seed=SEED),
+        n_steps=2, checkpoint_dir=directory, checkpoint_every=100),
+        seed=seed, device="cuda")
+
+
+def loss_falls(torch):
+    """10.3: five steps on one fixed batch; the last loss is below the
+    first."""
+    tr = small_trainer(torch)
+    batch = tr.batch_at(0)
+    losses = [float(tr.train_step(batch)["loss"]) for _ in range(5)]
+    emit({"train_loss_falls": SMALL_TRAIN[0],
+          "layers": tr.cfg.model.n_layers, "dtype": tr.cfg.model.dtype,
+          "tokens": SMALL_TRAIN[2], "losses": losses})
+    check(losses[-1] < losses[0], f"train: the loss did not fall: {losses}")
+    del tr
+    torch.cuda.empty_cache()
+
+
+def restart_matches(torch):
+    """10.4: ``Trainer.run`` checkpoints at step 2; a new Trainer (another
+    seed) restores it; step 3 on each matches within 1e-5 relative (the
+    embedding's backward adds with atomics, so not bitwise)."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        a = small_trainer(torch, d)
+        report = a.run()
+        b = small_trainer(torch, d, seed=SEED + 1)
+        start = b.restore()
+        check(report["steps"] == 2 and start == 2,
+              f"restart: ran {report['steps']}, restored at {start}")
+        ma = a.train_step(a.batch_at(2))
+        mb = b.train_step(b.batch_at(2))
+        loss_err = abs(float(ma["loss"]) - float(mb["loss"])) / abs(
+            float(ma["loss"]))
+        pb = dict(b.net.named_parameters())
+        with torch.no_grad():
+            err = max(float((p - pb[n]).abs().max()
+                            / p.abs().max().clamp(min=1e-30))
+                      for n, p in a.net.named_parameters())
+        emit({"train_restart": SMALL_TRAIN[0], "checkpoint_step": 2,
+              "restored_step": start, "loss_a": float(ma["loss"]),
+              "loss_b": float(mb["loss"]), "loss_rel_err": loss_err,
+              "param_max_rel_err": err, "tol": 1e-5})
+        check(loss_err < 1e-5 and err < 1e-5,
+              f"restart: step 3 differs (loss {loss_err:.3e}, params "
+              f"{err:.3e})")
+        del a, b
     torch.cuda.empty_cache()
 
 

@@ -26,13 +26,17 @@ def slstm_step(c, n, m, z, i, f, o):
 
 
 def slstm_scan_ref(z, i, f, o):
-    """z, i, f, o: (B, S, W) fp32 pre-activations -> y (B, S, W) fp32."""
+    """z, i, f, o: (B, S, W) fp32 pre-activations -> y (B, S, W) fp32.
+    The steps' outputs are stacked at the end (not written into one
+    tensor step by step), so autograd differentiates the loop without a
+    copy of the whole output a step: it is also the twin the model's K6
+    site differentiates (``models/ssm.py::SLSTMScan``)."""
     b, s, w = z.shape
     c = torch.zeros((b, w), dtype=torch.float32, device=z.device)
     n = torch.zeros_like(c)
     m = torch.zeros_like(c)
-    y = torch.empty((b, s, w), dtype=torch.float32, device=z.device)
+    ys = []
     for t in range(s):
-        c, n, m, y[:, t] = slstm_step(c, n, m, z[:, t], i[:, t], f[:, t],
-                                      o[:, t])
-    return y
+        c, n, m, y = slstm_step(c, n, m, z[:, t], i[:, t], f[:, t], o[:, t])
+        ys.append(y)
+    return torch.stack(ys, dim=1)

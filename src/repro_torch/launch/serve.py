@@ -8,9 +8,10 @@ from a seed.
         --batch 4 --prompt-len 512 --new-tokens 32     # the current GPU
 
 Whisper (encdec) and the VLM take the stub frame / image embeddings of
-:func:`launch.prefill.stub_inputs`, drawn from the seed.  It prints each
-row's tokens and the wall time of the call.  Checkpoints come with the
-training slice of the port: ``--ckpt-dir`` raises until then.
+:func:`launch.prefill.stub_inputs`, drawn from the seed.  With
+``--ckpt-dir`` the weights are the params of the newest step in that
+directory, written by either package's trainer.  It prints each row's
+tokens and the wall time of the call.
 """
 
 from __future__ import annotations
@@ -23,7 +24,10 @@ import torch
 
 from ..configs import get
 from ..models import build_model
+from ..models.convert import load_leaves
 from ..serving import Engine, ServeConfig
+from ..training import checkpoint
+from ..training.trainer import leaf_templates
 from .prefill import stub_inputs
 
 
@@ -39,16 +43,16 @@ def main(argv=None) -> None:
                     help="torch device (default: the current GPU)")
     ap.add_argument("--ckpt-dir", default=None)
     args = ap.parse_args(argv)
-    if args.ckpt_dir:
-        raise NotImplementedError(
-            "--ckpt-dir: checkpoints come with the training slice of the "
-            "port, which is not ported yet")
 
     cfg = get(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
     model = build_model(cfg)
     net = model.init(0, device=args.device)
+    if args.ckpt_dir:
+        trees, _ = checkpoint.restore(args.ckpt_dir,
+                                      {"params": leaf_templates(net)})
+        load_leaves(net, trees["params"])
     device = net.embed.w.device
     engine = Engine(model, net, ServeConfig(
         max_new_tokens=args.new_tokens,

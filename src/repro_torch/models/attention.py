@@ -13,6 +13,11 @@ Three routes, chosen as the reference chooses them:
 Cross-attention (the VLM's image layers, whisper's decoder) takes ``_sdpa``
 with no mask at every length, as in the reference.
 
+K4 has no backward.  Where a graph is built (training), the K4 site goes
+through ``FlashAttention``: its forward launches K4, its backward recomputes
+the output through ``_sdpa_chunked`` (window 0), the twin that the
+reference's gradient goes through, and differentiates that.
+
 Decode (``attention_decode``) runs ``_sdpa`` over the whole KV ring buffer,
 as the reference's does: no kernel.  The reference keeps one cache a request
 and maps its step over the requests, each with a scalar length; here a cache
@@ -120,6 +125,37 @@ def _sdpa_chunked(q, k, v, *, causal: bool, window: int, scale: float):
     return o.reshape(b, h, sq, hd).to(q.dtype)
 
 
+class FlashAttention(torch.autograd.Function):
+    """K4 with a gradient: the kernel's forward; a backward that recomputes
+    the output through ``_sdpa_chunked`` and differentiates it.  Only the
+    inputs are saved (K4's wrapper pads D; the padded copies are not
+    kept)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return flash_attention(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            o = _sdpa_chunked(q, k, v, causal=ctx.causal, window=0,
+                              scale=q.shape[-1] ** -0.5)
+            dq, dk, dv = torch.autograd.grad(o, (q, k, v), grad_out)
+        return dq, dk, dv, None
+
+
+def flash_attention_site(q, k, v, *, causal: bool):
+    """K4 at the model's site: the wrapper as it is where no graph is built
+    (inference mode, ``no_grad``, or no input that takes a gradient), else
+    through :class:`FlashAttention`."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal)
+    return flash_attention(q, k, v, causal=causal)
+
+
 def causal_mask(sq: int, skv: int, window: int = 0, offset: int = 0,
                 device=None) -> torch.Tensor:
     """(1, Sq, Skv) bool; offset = start position of q within kv
@@ -146,7 +182,7 @@ def attention_train(p: Attention, cfg, x, positions, *, causal: bool = True,
                        cfg.rope_theta).transpose(1, 2)
     sq = x.shape[1]
     if sq > CHUNKED_ATTN_THRESHOLD and not window:
-        o = flash_attention(q, k, v, causal=causal)
+        o = flash_attention_site(q, k, v, causal=causal)
     elif sq > CHUNKED_ATTN_THRESHOLD:
         o = _sdpa_chunked(q, k, v, causal=causal, window=window,
                           scale=hd ** -0.5)

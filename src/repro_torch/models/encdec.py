@@ -13,10 +13,11 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .attention import (Attention, attention_decode, attention_train,
                         cross_attention, init_kv_cache)
-from .layers import MLP, Embedding, Linear, RMSNorm, _param, dtype_of
+from .layers import REMAT, MLP, Embedding, Linear, RMSNorm, _param, dtype_of
 from .transformer import Layer, lm_logits, position_rows
 
 
@@ -79,19 +80,34 @@ def encode(net: EncDec, cfg, frames: torch.Tensor) -> torch.Tensor:
 
 def encdec_forward_train(net: EncDec, cfg, frames: torch.Tensor,
                          tokens: torch.Tensor):
-    """Returns (hidden after the decoder's final norm, aux = 0)."""
+    """Returns (hidden after the decoder's final norm, aux = 0).  With
+    ``cfg.remat``, where a graph is built, each decoder layer is
+    checkpointed, as the reference checkpoints them (not the encoder's)."""
     memory = encode(net, cfg, frames)
     x = net.embed(tokens)
     b, s = x.shape[:2]
     x = x + net.pos_table[None, :s]
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    remat = cfg.remat and torch.is_grad_enabled()
     for p in net.dec_layers:
+        if remat:
+            x = checkpoint(_dec_layer_train, p, cfg, x, positions, memory,
+                           **REMAT)
+            continue
+        # inline (not through _dec_layer_train), so that the layer's input
+        # is freed after its first residual add, as without a graph
         x = x + attention_train(p.attn, cfg, p.norm1(x), positions,
                                 causal=True)
         x = x + cross_attention(p.cross, cfg, p.norm_x(x), memory)
         x = x + p.mlp(p.norm2(x))
     return (net.final_norm(x),
             torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def _dec_layer_train(p: DecoderLayer, cfg, x, positions, memory):
+    x = x + attention_train(p.attn, cfg, p.norm1(x), positions, causal=True)
+    x = x + cross_attention(p.cross, cfg, p.norm_x(x), memory)
+    return x + p.mlp(p.norm2(x))
 
 
 def init_encdec_cache(cfg, batch: int, max_len: int, device=None):

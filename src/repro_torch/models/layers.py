@@ -6,8 +6,9 @@ renaming or transposing (``models/convert.py``).
 A module given a ``torch.Generator`` draws its parameters from the
 reference's distributions (normal(0, 1/sqrt(d_in)) linear weights, zero
 biases, unit norm scales, normal(0, 0.02) embeddings); given none it leaves
-them uninitialised, for a state dict to be loaded.  Parameters take no
-gradient: this is the forward half only.
+them uninitialised, for a state dict to be loaded.  Parameters are
+trainable (``requires_grad``, PyTorch's default); the paths that must build
+no graph (prefill, serving, decode) run under ``torch.inference_mode()``.
 """
 
 from __future__ import annotations
@@ -21,6 +22,10 @@ from torch import nn
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
+#: ``torch.utils.checkpoint`` arguments of the rematerialised blocks: the
+#: non-reentrant form, and no RNG state stashed, since the forward draws no
+#: random numbers
+REMAT = dict(use_reentrant=False, preserve_rng_state=False)
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -41,7 +46,7 @@ def _param(shape, dtype, device, generator: Optional[torch.Generator],
     else:
         t = torch.randn(shape, generator=generator, device=device,
                         dtype=torch.float32).mul_(std).to(dtype)
-    return nn.Parameter(t, requires_grad=False)
+    return nn.Parameter(t)
 
 
 class Linear(nn.Module):

@@ -9,13 +9,18 @@ reference's functions take their parameter tree.
                                                     memory=memory)
     hidden, aux = encdec.encdec_forward_train(net, cfg, frames, tokens)
 
+    loss, metrics = build_model(cfg).loss(net, batch)   # {"ce", "aux"}
+
     caches = build_model(cfg).init_cache(batch, max_len, device=...)
     logits, caches = build_model(cfg).decode_step(net, tokens, caches,
                                                   memory)
 
-Without ``device=`` the module and the caches go on the current GPU, and
-without a GPU ``init`` and ``init_cache`` raise: the caller names the CPU to
-run the plain versions.  The loss comes with the training slice.
+Batches are dicts: tokens / labels (LM), frames (whisper), images (vlm).
+The loss computes cross-entropy in sequence chunks (``cfg.logits_chunk``),
+each chunk's (B, chunk, V) logits recomputed in the backward, so the whole
+logits tensor is never held.  Without ``device=`` the module and the caches
+go on the current GPU, and without a GPU ``init`` and ``init_cache`` raise:
+the caller names the CPU to run the plain versions.
 """
 
 from __future__ import annotations
@@ -24,11 +29,45 @@ import dataclasses
 from typing import Mapping, Optional, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..devices import canonical, default_devices
 from . import encdec as ed
 from . import transformer as tf
+from .layers import REMAT
+
+
+def _ce_chunk(net, cfg, h, y):
+    """(sum of the token losses, count of valid labels) of one chunk;
+    labels < 0 are ignored."""
+    logits = tf.lm_logits(net, cfg, h).to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    valid = y >= 0
+    gold = torch.gather(logits, -1,
+                        torch.where(valid, y, 0)[..., None])[..., 0]
+    valid = valid.to(torch.float32)
+    return torch.sum((logz - gold) * valid), torch.sum(valid)
+
+
+def _chunked_ce(net, cfg, hidden, labels, chunk: int):
+    """Mean cross-entropy over the valid tokens, chunk by chunk along the
+    sequence: the chunk is ``chunk or S``, at most S, halved until it
+    divides S; each chunk's body is recomputed in the backward."""
+    s = hidden.shape[1]
+    chunk = min(chunk or s, s)
+    while s % chunk != 0:
+        chunk //= 2
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, s, chunk):
+        h, y = hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk].long()
+        if torch.is_grad_enabled():
+            t, n = checkpoint(_ce_chunk, net, cfg, h, y, **REMAT)
+        else:
+            t, n = _ce_chunk(net, cfg, h, y)
+        total, count = total + t, count + n
+    return total / torch.clamp(count, min=1.0)
 
 
 @dataclasses.dataclass
@@ -45,6 +84,21 @@ class Model:
         if self.cfg.block_pattern == "encdec":
             return ed.EncDec(self.cfg, device=device, generator=gen)
         return tf.Decoder(self.cfg, device=device, generator=gen)
+
+    def loss(self, net, batch: Mapping[str, torch.Tensor]):
+        """(loss, {"ce", "aux"}): the mean cross-entropy of
+        ``batch["labels"]`` (< 0 ignored) plus the MoE layers' load-balance
+        losses."""
+        cfg = self.cfg
+        if cfg.block_pattern == "encdec":
+            hidden, aux = ed.encdec_forward_train(
+                net, cfg, batch["frames"], batch["tokens"])
+        else:
+            hidden, aux = tf.decoder_forward_train(
+                net, cfg, batch["tokens"],
+                memory=self.encode_memory(net, batch))
+        ce = _chunked_ce(net, cfg, hidden, batch["labels"], cfg.logits_chunk)
+        return ce + aux, {"ce": ce, "aux": aux}
 
     def encode_memory(self, net, batch: Mapping[str, torch.Tensor]
                       ) -> Optional[torch.Tensor]:

@@ -14,6 +14,13 @@ recurrence with a scalar memory per feature; the kernel K6
 (``kernels/slstm``) runs its time loop on the device, where the reference
 scans ``_slstm_step`` over time.
 
+K5 and K6 have no backward.  Where a graph is built (training), their
+sites go through ``SSMScan`` and ``SLSTMScan``: the kernel's forward, and a
+backward that recomputes the output through the twin the reference's
+gradient goes through (``decayed_linear_attention``, the chunked form, in
+chunks of ``cfg.ssm.chunk``; the step loop of
+``kernels/slstm/ref.py::slstm_scan_ref``) and differentiates it.
+
 Decode runs one step of each recurrence in plain tensor code, as the
 reference's does: ``decayed_linear_attention_step`` (the SSD head),
 ``mlstm_decode`` and ``slstm_decode``, whose step is K6's plain version's
@@ -31,7 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.slstm import slstm_scan
-from ..kernels.slstm.ref import slstm_step
+from ..kernels.slstm.ref import slstm_scan_ref, slstm_step
 from ..kernels.ssm_scan import ssm_scan
 from .layers import Linear, dtype_of
 
@@ -65,6 +72,117 @@ class SLSTMState(NamedTuple):
 def init_slstm_state(batch: int, width: int, device=None) -> SLSTMState:
     z = torch.zeros((batch, width), dtype=torch.float32, device=device)
     return SLSTMState(z, z.clone(), z.clone())
+
+
+def decayed_linear_attention(q, k, v, log_a, *, chunk: int = 256):
+    """Chunked decayed linear attention, the reference's twin of K5:
+    q, k (B, H, S, DK); v (B, H, S, DV); log_a (B, H, S) <= 0.  Within a
+    chunk of ``chunk`` rows (halved until it divides S) the decayed scores
+    are a masked (C, C) product; across chunks the fp32 state is carried
+    forward one chunk at a time.  Returns (y in q's type, the final state
+    (B, H, DK, DV) fp32)."""
+    b, h, s, dk = q.shape
+    dv = v.shape[-1]
+    c = min(chunk, s)
+    while s % c != 0:
+        c //= 2
+    n = s // c
+    f32 = torch.float32
+    qc = q.reshape(b, h, n, c, dk).to(f32)
+    kc = k.reshape(b, h, n, c, dk).to(f32)
+    vc = v.reshape(b, h, n, c, dv).to(f32)
+    A = torch.cumsum(log_a.reshape(b, h, n, c).to(f32), dim=-1)  # inclusive
+    total = A[..., -1]                                           # (B,H,N)
+    idx = torch.arange(c, device=q.device)
+    tri = idx[:, None] >= idx[None, :]
+
+    # intra-chunk; the mask goes in before the exponential: above the
+    # diagonal exp(rel) can overflow, and its gradient (0 * inf) would not
+    # vanish where the mask is applied after it
+    rel = A[..., :, None] - A[..., None, :]                      # (B,H,N,C,C)
+    dec = torch.exp(torch.where(tri, rel, float("-inf")))
+    scores = torch.einsum("bhncd,bhnld->bhncl", qc, kc) * dec
+    y_intra = torch.einsum("bhncl,bhnlv->bhncv", scores, vc)
+
+    # inter-chunk: each chunk's state contribution, then the states carried
+    k_dec = kc * torch.exp(total[..., None, None] - A[..., None])
+    chunk_state = torch.einsum("bhncd,bhncv->bhndv", k_dec, vc)
+    S = torch.zeros((b, h, dk, dv), dtype=f32, device=q.device)
+    prevs = []
+    for i in range(n):
+        prevs.append(S)                                  # the state *before*
+        S = (S * torch.exp(total[..., i])[..., None, None]
+             + chunk_state[:, :, i])
+    S_prevs = torch.stack(prevs, dim=2)                  # (B,H,N,DK,DV)
+
+    q_dec = qc * torch.exp(A[..., None])
+    y_inter = torch.einsum("bhncd,bhndv->bhncv", q_dec, S_prevs)
+    y = (y_intra + y_inter).reshape(b, h, s, dv)
+    return y.to(q.dtype), S
+
+
+class SSMScan(torch.autograd.Function):
+    """K5 with a gradient: the kernel's forward; a backward that recomputes
+    the output through :func:`decayed_linear_attention` in chunks of
+    ``chunk`` and differentiates it.  Only the inputs are saved."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, log_a, chunk: int):
+        ctx.save_for_backward(q, k, v, log_a)
+        ctx.chunk = chunk
+        return ssm_scan(q, k, v, log_a)
+
+    @staticmethod
+    def backward(ctx, grad_y):
+        ins = tuple(t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            y, _ = decayed_linear_attention(*ins, chunk=ctx.chunk)
+            grads = torch.autograd.grad(y, ins, grad_y)
+        return (*grads, None)
+
+
+class SLSTMScan(torch.autograd.Function):
+    """K6 with a gradient: the kernel's forward; a backward that recomputes
+    the output through the step loop of ``slstm_scan_ref`` (the reference
+    scans the same step) and differentiates it.  Only the inputs are
+    saved."""
+
+    @staticmethod
+    def forward(ctx, z, i, f, o):
+        ctx.save_for_backward(z, i, f, o)
+        return slstm_scan(z, i, f, o)
+
+    @staticmethod
+    def backward(ctx, grad_y):
+        ins = tuple(t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            y = slstm_scan_ref(*ins)
+            return torch.autograd.grad(y, ins, grad_y)
+
+
+def _builds_graph(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def ssm_scan_site(q, k, v, log_a, *, chunk: int):
+    """K5 at the model's site: the wrapper as it is where no graph is built,
+    else through :class:`SSMScan`."""
+    if _builds_graph(q, k, v, log_a):
+        return SSMScan.apply(q, k, v, log_a, chunk)
+    return ssm_scan(q, k, v, log_a)
+
+
+def slstm_scan_site(z, i, f, o):
+    """K6 at the model's site: the wrapper as it is where no graph is built,
+    else through :class:`SLSTMScan`."""
+    if _builds_graph(z, i, f, o):
+        return SLSTMScan.apply(z, i, f, o)
+    return slstm_scan(z, i, f, o)
+
+
+def _chunk(cfg) -> int:
+    """The twin's chunk: ``cfg.ssm.chunk``, as the reference takes it."""
+    return cfg.ssm.chunk if cfg.ssm else 256
 
 
 def decayed_linear_attention_step(q, k, v, log_a, state):
@@ -105,7 +223,7 @@ def ssd_train(p: SSD, cfg, x: torch.Tensor) -> torch.Tensor:
     Cm = _heads(p.wC(x), h, st)
     v = _heads(p.wx(x), h, hd)
     log_a = -F.softplus(p.wdt(x).to(torch.float32)).transpose(1, 2)
-    y = ssm_scan(Cm, Bm, v, log_a)
+    y = ssm_scan_site(Cm, Bm, v, log_a, chunk=_chunk(cfg))
     y = y.transpose(1, 2).reshape(b, s, h * hd)
     return p.wo(y)
 
@@ -149,8 +267,8 @@ class MLSTM(nn.Module):
 
 def mlstm_train(p: MLSTM, cfg, x: torch.Tensor) -> torch.Tensor:
     """Full-sequence mLSTM: x (B, S, D) -> (B, S, D).  K5 scans in chunks
-    of its own (64 rows) where the reference takes ``cfg.ssm.chunk``: only
-    the order of the sums differs."""
+    of its own (64 rows) where the reference takes ``cfg.ssm.chunk`` (as
+    the backward's twin does): only the order of the sums differs."""
     h, hd = cfg.n_heads, cfg.hd
     b, s, _ = x.shape
     q = _heads(p.wq(x), h, hd) * hd ** -0.5
@@ -161,7 +279,7 @@ def mlstm_train(p: MLSTM, cfg, x: torch.Tensor) -> torch.Tensor:
     k = k * torch.exp(log_i).to(k.dtype)[..., None]   # fold the input gate
     # the normaliser through a ones column: y_aug[..., hd] = q . n
     v_aug = torch.cat([v, torch.ones_like(v[..., :1])], dim=-1)
-    y_aug = ssm_scan(q, k, v_aug, log_f)
+    y_aug = ssm_scan_site(q, k, v_aug, log_f, chunk=_chunk(cfg))
     y, denom = y_aug[..., :hd], y_aug[..., hd:]
     y = y / torch.clamp(denom.abs(), min=1.0)
     o_gate = torch.sigmoid(p.wo_gate(x))
@@ -220,7 +338,7 @@ def slstm_train(p: SLSTM, cfg, x: torch.Tensor) -> torch.Tensor:
     i = p.wi(x).to(torch.float32)
     f = p.wf(x).to(torch.float32)
     o = p.wog(x).to(torch.float32)
-    y = slstm_scan(z, i, f, o)
+    y = slstm_scan_site(z, i, f, o)
     return p.wo(y.to(x.dtype))
 
 

@@ -13,10 +13,12 @@ Block kinds (the reference's ``init_layer`` / ``apply_layer_train``):
 
 Whisper's encoder-decoder lives in ``encdec.py`` and reuses these blocks.
 The layers are one ``nn.ModuleList`` in order and run in a Python loop: no
-scan over stacked layers and no remat (the forward half keeps no
-activations).  The decode caches are a list with one dict a layer, in the
-same order (``init_decode_cache``), where the reference stacks them per
-layer group.
+scan over stacked layers.  With ``cfg.remat``, where a graph is built, each
+unit of ``stack_plan`` (the layers the reference's scan steps over at once)
+runs under ``torch.utils.checkpoint`` and is recomputed in the backward, as
+the reference checkpoints each unit.  The decode caches are a list with one
+dict a layer, in the same order (``init_decode_cache``), where the
+reference stacks them per layer group.
 """
 
 from __future__ import annotations
@@ -25,10 +27,11 @@ from typing import Dict, List
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .attention import (Attention, attention_decode, attention_train,
                         cross_attention, init_kv_cache)
-from .layers import MLP, Embedding, Linear, RMSNorm, _param, dtype_of
+from .layers import REMAT, MLP, Embedding, Linear, RMSNorm, _param, dtype_of
 from .moe import MoE, moe_block
 from .ssm import (MLSTM, SLSTM, SSD, init_slstm_state, init_ssm_state,
                   mlstm_decode, mlstm_train, slstm_decode, slstm_train,
@@ -213,10 +216,30 @@ def decoder_forward_train(net: Decoder, cfg, tokens: torch.Tensor, *,
     if net.pos_table is not None:
         x = x + net.pos_table[:s][None]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for kind, layer in zip(net.kinds, net.layers):
+    if not (cfg.remat and torch.is_grad_enabled()):
+        # layer by layer: each layer's input is freed as the next one runs
+        for kind, layer in zip(net.kinds, net.layers):
+            x, a = apply_layer_train(layer, cfg, kind, x, positions, memory)
+            aux = aux + a
+        return net.final_norm(x), aux
+    start = 0
+    for _, n, kinds in stack_plan(cfg):
+        for _ in range(n):
+            unit = net.layers[start:start + len(kinds)]
+            start += len(kinds)
+            x, a = checkpoint(_unit_train, unit, cfg, kinds, x, positions,
+                              memory, **REMAT)
+            aux = aux + a
+    return net.final_norm(x), aux
+
+
+def _unit_train(unit, cfg, kinds, x, positions, memory):
+    """The layers of one ``stack_plan`` unit in order: (x, their aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for kind, layer in zip(kinds, unit):
         x, a = apply_layer_train(layer, cfg, kind, x, positions, memory)
         aux = aux + a
-    return net.final_norm(x), aux
+    return x, aux
 
 
 def lm_logits(net: Decoder, cfg, x: torch.Tensor) -> torch.Tensor:

@@ -79,14 +79,21 @@ SERVING = ["repro_torch.models.attention", "repro_torch.models.transformer",
            "repro_torch.obs.watch", "repro_torch.obs.watch.detect",
            "repro_torch.obs.watch.slo", "repro_torch.obs.watch.history",
            "repro_torch.obs.watch.dashboard", "repro_torch.launch.serve"]
+# training: the package, its modules and the launcher
+TRAINING = ["repro_torch.training", "repro_torch.training.data",
+            "repro_torch.training.optimizer",
+            "repro_torch.training.compression",
+            "repro_torch.training.checkpoint", "repro_torch.training.fault",
+            "repro_torch.training.trainer", "repro_torch.launch.train"]
 
 
-@pytest.mark.parametrize("module", MEASURING + SIMULATOR + MODELS + SERVING)
+@pytest.mark.parametrize("module", MEASURING + SIMULATOR + MODELS + SERVING
+                         + TRAINING)
 def test_measuring_modules_import_with_jax_and_the_reference_blocked(module):
-    """Each module of the measuring half, of the simulator, of the models
-    and of serving imports on its own in a process where importing JAX or
-    the reference package fails."""
-    assert set(MEASURING + SIMULATOR + MODELS + SERVING) <= \
+    """Each module of the measuring half, of the simulator, of the models,
+    of serving and of training imports on its own in a process where
+    importing JAX or the reference package fails."""
+    assert set(MEASURING + SIMULATOR + MODELS + SERVING + TRAINING) <= \
         set(_port_modules())
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -121,3 +128,20 @@ def test_default_devices_raise_without_a_gpu(op, monkeypatch, tmp_path):
     tuner = Tuner(cache=PlanCache(str(tmp_path)))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         getattr(linalg, op)(*args, tuner=tuner)
+
+
+def test_training_entry_points_raise_without_a_gpu(monkeypatch):
+    """``Trainer`` without a device and the training launcher without
+    ``--device`` refuse to fall back to the CPU."""
+    from repro_torch.configs import get
+    from repro_torch.launch import train
+    from repro_torch.training import (AdamWConfig, DataConfig, TrainConfig,
+                                      Trainer)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get("qwen1.5-4b").reduced()
+    tc = TrainConfig(model=cfg, opt=AdamWConfig(),
+                     data=DataConfig(cfg.vocab_size, 8, 2), n_steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(tc)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "qwen1.5-4b", "--smoke", "--steps", "1"])

@@ -40,6 +40,15 @@ ARCHS = ["starcoder2-3b", "starcoder2-3b-gqa4", "hymba-1.5b", "xlstm-350m",
          "whisper-tiny"]
 
 
+@pytest.fixture(autouse=True)
+def _forward_only():
+    """These are checks of the forward path, as the prefill runs it: no
+    graph is built, so the outputs carry no gradient.  (The parameters are
+    trainable; the loss and its gradients: tests/test_torch_loss.py.)"""
+    with torch.no_grad():
+        yield
+
+
 def _cfgs(arch, s=64):
     """(reference config, port config) for a reduced arch.  reduced()
     gives starcoder2 GQA 4/2 already; '-gqa4' widens the group to 4.
@@ -122,21 +131,21 @@ def test_convert_round_trip(arch):
     own = dict(net.named_parameters())
     assert set(flat) == set(own)
     for name, p in own.items():
-        assert np.array_equal(p.numpy(), np.asarray(flat[name])), name
+        assert np.array_equal(p.detach().numpy(), np.asarray(flat[name])), name
     # a layer leaf is row i of the reference's stacked layers
     if cfg.block_pattern == "encdec":
         assert len(net.enc_layers) == cfg.encoder.n_layers
         assert len(net.dec_layers) == cfg.n_layers
         for stack in ("enc_layers", "dec_layers"):
             stacked = params_np[stack]["attn"]["wq"]["w"]
-            assert np.array_equal(own[f"{stack}.1.attn.wq.w"].numpy(),
+            assert np.array_equal(own[f"{stack}.1.attn.wq.w"].detach().numpy(),
                                   stacked[1])
         return
     assert len(net.layers) == cfg.n_layers
     layer, kind = _layer(params_np, cfg, 1)
     assert kind == net.kinds[1]
     mixer = kind if kind in ("mlstm", "slstm", "cross") else "attn"
-    assert np.array_equal(own[f"layers.1.{mixer}.wo.w"].numpy(),
+    assert np.array_equal(own[f"layers.1.{mixer}.wo.w"].detach().numpy(),
                           layer[mixer]["wo"]["w"])
 
 
@@ -184,7 +193,7 @@ def test_convert_refuses_a_different_type(arch):
         1, device="cpu")
     load_reference_params(net, params_np)
     assert net.embed.w.dtype == torch.bfloat16
-    assert np.array_equal(net.embed.w.float().numpy(),
+    assert np.array_equal(net.embed.w.detach().float().numpy(),
                           params_np["embed"]["w"].astype(np.float32))
     with pytest.raises(TypeError, match="bfloat16"):
         load_reference_params(build_model(cfg).init(1, device="cpu"),

@@ -25,6 +25,7 @@ from hypothesis import given, settings, strategies as st
 
 from repro import serving as ref_serving
 from repro import telemetry as ref_tel
+from repro import training as ref_training
 from repro.configs import ARCHS
 from repro.configs import get as ref_get
 from repro.core import machine as ref_machine
@@ -513,10 +514,46 @@ def test_launch_serve_on_the_cpu(arch, capsys):
     assert lines[2].startswith(f"serve {arch} B=2 S=6 new=3 on cpu")
 
 
-def test_launch_serve_refuses_a_checkpoint_dir():
-    with pytest.raises(NotImplementedError, match="training slice"):
+def test_launch_serve_refuses_a_checkpoint_dir(tmp_path):
+    """A directory that holds no committed checkpoint is refused."""
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
         launch_serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
-                           "--ckpt-dir", "/nonexistent"])
+                           "--ckpt-dir", str(tmp_path)])
+
+
+def test_launch_serve_from_a_checkpoint_of_the_reference(tmp_path, capsys):
+    """``--ckpt-dir`` serves the newest step the reference's trainer wrote:
+    the reference's greedy tokens on those parameters."""
+    ref_cfg = ref_get(ARCH).reduced()
+    tc = ref_training.TrainConfig(
+        model=ref_cfg,
+        opt=ref_training.AdamWConfig(lr=1e-2, total_steps=3, warmup_steps=1),
+        data=ref_training.DataConfig(vocab_size=ref_cfg.vocab_size,
+                                     seq_len=16, global_batch=2),
+        n_steps=3, checkpoint_dir=str(tmp_path), checkpoint_every=100)
+    ref_tr = ref_training.Trainer(tc)
+    ref_tr.run()
+    batch, plen, new = 2, 6, 5
+    launch_serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                       "--batch", str(batch), "--prompt-len", str(plen),
+                       "--new-tokens", str(new), "--ckpt-dir",
+                       str(tmp_path)])
+    lines = capsys.readouterr().out.strip().splitlines()
+    got = [eval(line.split("] ", 1)[1]) for line in lines[:batch]]
+    prompts = np.random.default_rng(0).integers(0, ref_cfg.vocab_size,
+                                                (batch, plen))
+    want = np.asarray(ref_serving.Engine(
+        ref_build(ref_cfg), ref_tr.params, ref_serving.ServeConfig(
+            max_new_tokens=new, max_cache_len=plen + new + 8)).generate(
+        jnp.asarray(prompts, jnp.int32)))
+    assert got == want.tolist()
+    # the trained parameters, not the seed's draw
+    fresh = np.asarray(ref_serving.Engine(
+        ref_build(ref_cfg), ref_build(ref_cfg).init(jax.random.PRNGKey(0)),
+        ref_serving.ServeConfig(max_new_tokens=new,
+                                max_cache_len=plen + new + 8)).generate(
+        jnp.asarray(prompts, jnp.int32)))
+    assert got != fresh.tolist()
 
 
 # -- obs/watch --------------------------------------------------------------------
