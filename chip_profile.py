@@ -29,7 +29,12 @@ hymba-1.5b's and xlstm-350m's shapes, split over its three launches, and
 of one K6 call at xlstm-350m's sLSTM shape.  One warm train step of
 starcoder2-3b (chip_smoke.py §10.2's) splits its device time into K4, the
 K4 sites' backward through the twin, the optimizer, the products and the
-rest.
+rest.  Last, one warm n = 16384 matmul of chip_smoke.py §11.2 on a world
+of 4 processes on cuda:0 (gloo, blocks staged through pinned host memory),
+profiled in every rank: its wall, K1's device time (the products), the
+device time of the device-to-host and host-to-device copies (the staging),
+and the host time waiting on gloo (the ``comm_wait`` ranges of
+``linalg.collectives.GroupComm``).
 Exits non-zero without a CUDA device or when a profile holds no device
 time.
 
@@ -165,7 +170,73 @@ def main() -> int:
     k1_device_times(torch, gen)
     k5_device_times(torch, gen)
     k6_device_times(torch, gen)
-    return 0
+    return 0 if group_profile() else 1
+
+
+# the world of chip_smoke.py §11.2 on the one card
+GROUP_WORLD = 4
+
+
+def group_profile() -> bool:
+    """One warm §11.2 matmul per rank of a gloo world on cuda:0, profiled
+    in each rank; prints each rank's split."""
+    from repro_torch.distributed import on_first_card, spawn
+    root = os.path.join(HERE, "build", "profile_group")
+    shutil.rmtree(root, ignore_errors=True)
+    ranks = spawn(profile_rank, GROUP_WORLD, device_of_rank=on_first_card,
+                  init_dir=os.path.join(root, "init"), timeout_s=600,
+                  args=(os.path.join(root, "plans"),))
+    for rank, split in enumerate(ranks):
+        print(json.dumps({"group_matmul": N, "rank": rank,
+                          "world": GROUP_WORLD,
+                          "transport": "gloo, staged through pinned host "
+                                       "memory", **split}), flush=True)
+    return all(r["products_ms"] > 0 for r in ranks)
+
+
+def profile_rank(rank, world, device, plan_dir):
+    """One rank: a cold matmul at n = 16384 on the group, then a warm one
+    under the profiler, split into products, staging copies and the host's
+    waits on gloo."""
+    import torch
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import linalg
+    from repro_torch.kernels import _build
+    from repro_torch.tuner import PlanCache, Tuner
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.extension()
+    tuner = Tuner(cache=PlanCache(os.path.join(plan_dir, str(rank))))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a, b = operands(torch, "matmul", N, gen)
+    group = dist.group.WORLD
+    linalg.matmul(a, b, tuner=tuner, group=group)            # cold
+    torch.cuda.synchronize()
+    dist.barrier()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        linalg.matmul(a, b, tuner=tuner, group=group)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    split = {"wall_ms": wall * 1e3, "products_ms": 0.0, "d2h_ms": 0.0,
+             "h2d_ms": 0.0, "other_device_ms": 0.0, "comm_wait_host_ms": 0.0,
+             "stage_d2h_host_ms": 0.0, "stage_h2d_host_ms": 0.0}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            ms = e.self_device_time_total / 1e3
+            if "matmul_f32_kernel" in e.key:
+                split["products_ms"] += ms
+            elif "DtoH" in e.key:
+                split["d2h_ms"] += ms
+            elif "HtoD" in e.key:
+                split["h2d_ms"] += ms
+            else:
+                split["other_device_ms"] += ms
+        elif e.key in ("comm_wait", "stage_d2h", "stage_h2d"):
+            split[f"{e.key}_host_ms"] += e.cpu_time_total / 1e3
+    return split
 
 
 # chip_smoke.py §9's served batch: starcoder2-3b at full width and depth,

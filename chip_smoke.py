@@ -6,8 +6,9 @@
 2. Holds each kernel (K1 matmul, K2 diagonal-block trsm, K3 block Cholesky,
    K4 flash attention, K5 the SSD scan, K6 the sLSTM recurrence) to its
    plain PyTorch version on the card at its path's shapes (K1 at the main
-   path's three product classes, on its 4-byte copy path and on a stacked
-   batch; K2 also on a strided B and at the Cholesky's last panel, K3 also
+   path's three product classes, on its 4-byte copy path, on a stacked
+   batch and on a batch of one, §11's rank blocks; K2 also on a strided B
+   (§11's rank blocks among them) and at the Cholesky's last panel, K3 also
    at a ragged width; K4, K5 and K6 in the path's layouts, with the error
    taken per output row; K4 also at head dims 16, 80 and 160, which its
    wrapper pads, at 256, and at 320 (padded to 384) and 512 on its wide
@@ -105,6 +106,28 @@
    falls over five steps on one fixed batch (starcoder2-3b at depth 2,
    fp32).  10.4: ``Trainer.run`` checkpoints at step 2, a new Trainer
    restores it, and its step 3 matches the first's within 1e-5.
+11. Runs the group backend on the card: ranks as processes of a gloo
+   group (``repro_torch.distributed.spawn``), every rank on cuda:0, blocks
+   staged through pinned host memory, IEEE fp32 in every rank; the ranks
+   load §1's build (its ``.so`` must not change).  11.1: the 16 variants
+   forced through ``execute`` on 4 (2D, 2x2) and 8 (2.5D, 2x2x2) ranks at
+   n = 2048 on §4's operands: within 1e-4 of the library, within 1e-6 of
+   §4's stacked run (Cannon 2D and 2D_ovlp bitwise), K1 (and K2 / K3
+   where §4 needs them) launched in every rank.  11.2: on the 4 ranks,
+   ``linalg.matmul / trsm / cholesky`` at n = 16384, cold and warm (the
+   warm call observed: the slowest rank's phases and communication),
+   residual < 1e-4, the plan's predicted total beside the wall, the same
+   plan stacked on ``[cuda:0] * 4`` beside it; Cannon 2D against 2D_ovlp
+   forced at the same n, in turns.  11.3: the ranks of each world run the
+   port's Fig. 2 and Figs. 3-4 benchmarks (``benchmarks.fig2_alpha_beta``
+   and ``fig34_calibration``'s ``measure``): the ping between two ranks
+   (the reference's sizes, 8-byte words) on cuda:0 and on the host, and
+   its fit, on the 4 ranks; the contention factors (wall over L + beta
+   words) at distances 1, 2 and P/2 on 4 and 8 ranks.
+   11.4: with a card for each of 4 ranks, 11.1's Cannon and SUMMA 2D rows
+   over NCCL (cuda:r a rank); else one line saying it was not run.  A
+   rank that fails fails the run; the kernels line adds every rank's
+   launches of 11.1 and 11.2.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero, as do
@@ -182,7 +205,7 @@ def main() -> int:
     kernels = kernel_checks(torch) + lm_kernel_checks(torch)
     main_counts = main_path(torch)
     multi_rank(torch)
-    forced_variants(torch)
+    stacked_variants = forced_variants(torch)
     prefill_counts = prefill_path(torch)
     prefill_against_cpu(torch)
     measuring_counts, measured_records, measured_registry = \
@@ -190,6 +213,7 @@ def main() -> int:
     simulator_counts = simulator(torch, measured_records, measured_registry)
     serving_counts = serving(torch)
     training_counts = training(torch)
+    group_counts = process_groups(torch, stacked_variants)
 
     for entry in kernels:
         entry["launches"] = (main_counts[entry["wrapper"]]
@@ -197,7 +221,8 @@ def main() -> int:
                              + measuring_counts[entry["wrapper"]]
                              + simulator_counts[entry["wrapper"]]
                              + serving_counts[entry["wrapper"]]
-                             + training_counts[entry["wrapper"]])
+                             + training_counts[entry["wrapper"]]
+                             + group_counts[entry["wrapper"]])
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -285,7 +310,9 @@ def kernel_checks(torch):
     # passed as .mT as blocked_factor passes it (the wrapper copies it).
     # The 4-byte path: operands whose rows are not 16-byte aligned (130
     # columns; a view at a column offset of 1).  The batch: the local
-    # blocks of the [cuda:0] * 8 plans at n = 4096.
+    # blocks of the [cuda:0] * 8 plans at n = 4096.  A batch of one: a
+    # rank's (1, 1, 1, rb, rb) block in §11's group runs (rb = 1024 in
+    # 11.1, 8192 in 11.2's 2 x 2 plans).
     f32, bf16 = torch.float32, torch.bfloat16
 
     def rnd(*shape):
@@ -308,12 +335,15 @@ def kernel_checks(torch):
             rnd(2048, 2049)[:, 1:], rnd(2048, 2048)), f32, 10
         yield "stacked batch of 8", (rnd(8, 2048, 2048),
                                      rnd(8, 2048, 2048)), f32, 10
+        for rb, reps in ((N_VARIANTS // 2, 10), (N_MAIN // 2, 3)):
+            yield "a group rank's block", (rnd(1, 1, 1, rb, rb),
+                                           rnd(1, 1, 1, rb, rb)), f32, reps
 
     for layout, (a, b), odt, reps in k1_cases():
         dt = a.dtype
         *batch, m, k = a.shape
         n = b.shape[-1]
-        nb = batch[0] if batch else 1
+        nb = math.prod(batch)
         got = matmul_cuda(a, b, out_dtype=odt)
         want = matmul_ref(a, b, out_dtype=odt)
         if dt == odt:
@@ -344,7 +374,9 @@ def kernel_checks(torch):
     # K3 is a composition of K3, K2 and K1 launches.  Besides: K3 at a
     # ragged 200 (the last panel 8 wide), K2 at the Cholesky's last panel
     # (B 256 x 256: 4 strips of 64 rows) and K2 on a column slice of a
-    # 16384-wide B (row stride 16384), as the trsm path hands it over; and
+    # 16384-wide B (row stride 16384), as the trsm path hands it over, and
+    # of a group rank's block (1024 rows, stride 1024 in §11.1; 8192 and
+    # 8192 in 11.2's 2 x 2 plans); and
     # each at 130, whose rows are not 16-byte aligned, so the kernels take
     # their 4-byte copies.  The bytes count what each function needs: U's
     # upper and A's lower triangle.
@@ -353,6 +385,8 @@ def kernel_checks(torch):
                              (1024, N_MAIN - 1024, None, 2),
                              (256, 256, None, 20),
                              (256, N_MAIN, N_MAIN, 20),
+                             (256, N_VARIANTS // 2, N_VARIANTS // 2, 20),
+                             (256, N_MAIN // 2, N_MAIN // 2, 20),
                              (130, 1000, None, 20)):
         u = (torch.triu(torch.randn(nb, nb, device=dev, generator=gen), 1)
              / nb ** 0.5 + 4.0 * torch.eye(nb, device=dev))
@@ -868,25 +902,33 @@ def multi_rank(torch):
                       "never launched")
 
 
-def forced_variants(torch):
-    from repro_torch import kernels
+def forced_plan(algo, variant, n):
+    """The plan that forces one variant: 2D on 2x2, 2.5D on 2x2x2."""
     from repro_torch.core.machine import H100_SXM
-    from repro_torch.linalg import ALGORITHMS
     from repro_torch.perf.kernel import tiles_for_plan
-    from repro_torch.tuner.dispatch import execute
     from repro_torch.tuner.plan import ExecutionPlan
+    c, g = (2, 2) if variant.startswith("2.5d") else (1, 2)
+    return ExecutionPlan(
+        algo=algo, variant=variant, n=n, p=c * g * g, c=c, r=1, g=g,
+        local_kernel="pallas", dtype="float32", machine=H100_SXM.name,
+        fingerprint="forced", predicted={},
+        tiles=tiles_for_plan(H100_SXM, algo, n, g, "float32"))
+
+
+def forced_variants(torch):
+    """§4.2; returns each variant's output, on the host, for §11."""
+    from repro_torch import kernels
+    from repro_torch.linalg import ALGORITHMS
+    from repro_torch.tuner.dispatch import execute
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     ops = {op: operands(torch, op, N_VARIANTS, gen)
            for op in ("matmul", "trsm", "cholesky")}
     want = {op: library_result(torch, op, args) for op, args in ops.items()}
+    outputs = {}
     for algo, variant in ALGORITHMS:
-        c, g = (2, 2) if variant.startswith("2.5d") else (1, 2)
         op = "matmul" if algo in ("cannon", "summa") else algo
-        plan = ExecutionPlan(
-            algo=algo, variant=variant, n=N_VARIANTS, p=c * g * g, c=c, r=1,
-            g=g, local_kernel="pallas", dtype="float32",
-            machine=H100_SXM.name, fingerprint="forced", predicted={},
-            tiles=tiles_for_plan(H100_SXM, algo, N_VARIANTS, g, "float32"))
+        plan = forced_plan(algo, variant, N_VARIANTS)
+        c, g = plan.c, plan.g
         kernels.reset_launches()
         out = execute(plan, *ops[op], devices=[torch.device("cuda", 0)]
                       * plan.p)
@@ -899,6 +941,8 @@ def forced_variants(torch):
         for name in PATH_KERNELS[op]:
             check(counts[name] > 0, f"variant {algo} {variant}: {name} "
                   "never launched")
+        outputs[(algo, variant)] = out.cpu()
+    return outputs
 
 
 # -- 5. the LM prefill path at full width and depth --------------------------
@@ -2305,6 +2349,336 @@ def restart_matches(torch):
         del a, b
     torch.cuda.empty_cache()
 
+
+
+# -- 11. the group backend: ranks as processes on the one card ---------------
+
+# the worlds of §11 on cuda:0 (gloo): 11.1's 2D variants, 11.2 and 11.3's
+# pings on 4 ranks; 11.1's 2.5D variants on 8; the contention shift on both
+GROUP_WORLDS = {"2d": 4, "2.5d": 8}
+STAGED = "gloo, staged through pinned host memory"
+
+
+def process_groups(torch, stacked):
+    """§11; returns the launch counts of its path runs (11.1, 11.2), summed
+    over every rank of every world."""
+    from repro_torch import kernels
+    from repro_torch.distributed import on_first_card, spawn
+    from repro_torch.kernels import _build
+    so = os.path.join(_build.BUILD_DIR, "repro_torch_kernels.so")
+    built = os.stat(so).st_mtime_ns
+    root = os.path.join(HERE, "build", "smoke_group")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    ranks = {}
+    for kind, world in GROUP_WORLDS.items():
+        ranks[kind] = spawn(group_rank, world, device_of_rank=on_first_card,
+                            init_dir=os.path.join(root, kind), timeout_s=600,
+                            args=(kind, os.path.join(root, f"plans_{kind}")))
+    # §1 built the extension: the ranks load it and must not rebuild it
+    check(os.stat(so).st_mtime_ns == built,
+          "§11: a rank rebuilt the extension in build/torch_ext/")
+    emit({"group_worlds": {kind: len(rs) for kind, rs in ranks.items()},
+          "device": "cuda:0", "transport": STAGED,
+          "load_s": {kind: [r["load_s"] for r in rs]
+                     for kind, rs in ranks.items()},
+          "spawn_s": time.perf_counter() - t0})
+    totals = {name: 0 for name in kernels.launches()}
+    for rs in ranks.values():
+        for r in rs:
+            for name, count in r["launches"].items():
+                totals[name] += count
+    group_variant_report(torch, ranks, stacked, STAGED)
+    group_calls_report(torch, ranks["2d"])
+    link_report(ranks)
+    nccl_rows(torch, stacked)
+    emit({"group_s": time.perf_counter() - t0, "launches": totals})
+    return totals
+
+
+def group_rank(rank, world, device, kind, plan_dir):
+    """One rank of a §11 world: 11.1's forced variants of ``kind``; on the
+    2D world also 11.2's model-guided calls, the Cannon overlap comparison
+    and 11.3's Fig. 2 pings; on both 11.3's Figs. 3-4 contention.  Returns
+    its results and its launches on the path runs (11.1, 11.2)."""
+    import torch
+    from repro_torch.benchmarks import fig2_alpha_beta, fig34_calibration
+    from repro_torch.kernels import _build
+    # settings do not cross a spawn: IEEE fp32 in this rank too
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    _build.extension()
+    out = {"load_s": time.perf_counter() - t0}
+    totals = {}
+    out["variants"] = group_variants(torch, rank, world, device, kind,
+                                     totals)
+    if kind == "2d":
+        out["calls"] = group_calls(torch, rank, world, plan_dir, totals)
+        out["overlap"] = cannon_overlap(torch, rank, world, plan_dir)
+        out["fig2"] = {dev: fig2_alpha_beta.measure(rank, world, dev)
+                       for dev in ("cuda", "cpu")}
+    out["fig34"] = fig34_calibration.measure(rank, world, device)
+    out["launches"] = totals
+    return out
+
+
+def add_counts(totals, counts):
+    for name, count in counts.items():
+        totals[name] = totals.get(name, 0) + count
+
+
+def slowest(torch, values):
+    """Each value as the slowest rank's (the group's maximum)."""
+    import torch.distributed as dist
+    t = torch.tensor(values, dtype=torch.float64)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return t.tolist()
+
+
+def group_variants(torch, rank, world, device, kind, totals, only=None):
+    """11.1 on one rank: each variant of ``kind`` (or of ``only``) forced
+    through ``execute`` on the group, on §4's operands."""
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.linalg import ALGORITHMS
+    from repro_torch.tuner.dispatch import execute
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    ops = {op: operands(torch, op, N_VARIANTS, gen)
+           for op in ("matmul", "trsm", "cholesky")}
+    out = {}
+    for algo, variant in ALGORITHMS:
+        if variant.startswith("2.5d") != (kind == "2.5d"):
+            continue
+        if only is not None and (algo, variant) not in only:
+            continue
+        op = "matmul" if algo in ("cannon", "summa") else algo
+        plan = forced_plan(algo, variant, N_VARIANTS)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        got = execute(plan, *ops[op], devices=[device] * world,
+                      group=dist.group.WORLD)
+        torch.cuda.synchronize()
+        counts = kernels.launches()
+        add_counts(totals, counts)
+        entry = {"launches": counts}
+        if rank == 0:
+            want = library_result(torch, op, ops[op])
+            entry["lib_err"] = float((got - want).abs().max()
+                                     / want.abs().max())
+            entry["out"] = got.cpu().numpy()
+        out[(algo, variant)] = entry
+    del ops
+    torch.cuda.empty_cache()
+    return out
+
+
+def group_variant_report(torch, ranks, stacked, transport):
+    """11.1 / 11.4: each variant within 1e-4 of the library and 1e-6 of
+    §4's stacked run (Cannon 2D and 2D_ovlp, which sum nothing, bitwise),
+    its kernels launched in every rank."""
+    for kind, rs in ranks.items():
+        for (algo, variant), first in rs[0]["variants"].items():
+            op = "matmul" if algo in ("cannon", "summa") else algo
+            got = torch.from_numpy(first["out"])
+            want = stacked[(algo, variant)]
+            rel = float((got - want).abs().max() / want.abs().max())
+            bitwise = bool(torch.equal(got, want))
+            launches = [{k: v for k, v in r["variants"][(algo, variant)][
+                "launches"].items() if v} for r in rs]
+            emit({"group_variant": f"{algo} {variant}", "world": len(rs),
+                  "transport": transport, "n": N_VARIANTS,
+                  "lib_rel_err": first["lib_err"], "stacked_rel_err": rel,
+                  "bitwise": bitwise, "launches": launches})
+            what = f"§11 {algo} {variant} ({transport})"
+            check(first["lib_err"] < 1e-4,
+                  f"{what}: rel err {first['lib_err']:.3e} to the library")
+            check(rel < 1e-6, f"{what}: rel err {rel:.3e} to the stacked run")
+            if algo == "cannon" and variant in ("2d", "2d_ovlp"):
+                check(bitwise, f"{what}: not bitwise the stacked run")
+            for r, counts in zip(rs, launches):
+                for name in PATH_KERNELS[op]:
+                    check(counts.get(name, 0) > 0,
+                          f"{what}: {name} never launched in a rank")
+
+
+def group_calls(torch, rank, world, plan_dir, totals):
+    """11.2 on one rank: ``linalg.matmul / trsm / cholesky`` at n = 16384 on
+    the group, cold, then warm with ``observe=True`` (its phases)."""
+    import torch.distributed as dist
+    from repro_torch import kernels, linalg, telemetry
+    from repro_torch.tuner import PlanCache, Tuner
+    group = dist.group.WORLD
+    store = telemetry.RunStore(os.path.join(plan_dir, f"runs{rank}"))
+    tuner = Tuner(cache=PlanCache(os.path.join(plan_dir, f"plans{rank}")),
+                  store=store)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    out = {}
+    for op in ("matmul", "trsm", "cholesky"):
+        args = operands(torch, op, N_MAIN, gen)
+        walls = []
+        for observe in (False, True):
+            torch.cuda.synchronize()
+            dist.barrier()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            res = getattr(linalg, op)(*args, tuner=tuner, group=group,
+                                      observe=observe)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            add_counts(totals, kernels.launches())
+        entry = {"walls": slowest(torch, walls),
+                 "launches": {k: v for k, v in kernels.launches().items()
+                              if v}}
+        if rank == 0:
+            entry["residual"] = residual(torch, op, args, res)
+            plan = tuner.plan(op, N_MAIN, device_count=world,
+                              platform="cuda",
+                              device_kind=torch.cuda.get_device_name(0))
+            entry["plan"] = plan.to_dict()
+            rec = [r for r in store.load() if r.kind == "dispatch"][-1]
+            entry["phases"] = dict(rec.phases)
+            entry["meta"] = dict(rec.meta)
+        out[op] = entry
+        del args, res
+        torch.cuda.empty_cache()
+    return out
+
+
+def cannon_overlap(torch, rank, world, plan_dir):
+    """Cannon 2D against 2D_ovlp forced on the group at n = 16384, in turns
+    (2D, 2D_ovlp, 2D_ovlp, 2D, twice), each observed: the paper's
+    comparison with real communication."""
+    import torch.distributed as dist
+    from repro_torch import telemetry
+    from repro_torch.tuner.dispatch import execute
+    store = telemetry.RunStore(os.path.join(plan_dir, f"overlap{rank}"))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    a, b = operands(torch, "matmul", N_MAIN, gen)
+    runs = []
+    for variant in ("2d", "2d_ovlp", "2d_ovlp", "2d") * 2:
+        plan = forced_plan("cannon", variant, N_MAIN)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        got = execute(plan, a, b, devices=[torch.device("cuda", 0)] * world,
+                      group=dist.group.WORLD, observe=True, store=store)
+        torch.cuda.synchronize()
+        runs.append([variant, time.perf_counter() - t0])
+    walls = slowest(torch, [w for _v, w in runs])
+    out = {"runs": [[v, w] for (v, _w), w in zip(runs, walls)]}
+    if rank == 0:
+        want = torch.matmul(a, b)
+        out["rel_err"] = float((got - want).abs().max() / want.abs().max())
+        out["records"] = [{"variant": r.variant, "phases": dict(r.phases),
+                           "comm_s": r.meta.get("comm_s")}
+                          for r in store.load()]
+    del a, b, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def group_calls_report(torch, rs):
+    """11.2: the walls (the slowest rank's), the plan's prediction beside
+    them, the observed phases and communication, and the same plan stacked
+    on [cuda:0] * p; then Cannon 2D against 2D_ovlp."""
+    from repro_torch.tuner.dispatch import execute
+    from repro_torch.tuner.plan import ExecutionPlan
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    first = rs[0]["calls"]
+    for op in ("matmul", "trsm", "cholesky"):
+        args = operands(torch, op, N_MAIN, gen)
+        e = first[op]
+        plan = ExecutionPlan.from_dict(e["plan"])
+        stacked = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = execute(plan, *args,
+                          devices=[torch.device("cuda", 0)] * plan.p)
+            torch.cuda.synchronize()
+            stacked.append(time.perf_counter() - t0)
+        stacked_res = residual(torch, op, args, out)
+        emit({"group_call": op, "n": N_MAIN, "dtype": "float32",
+              "world": len(rs), "transport": STAGED,
+              "plan": plan_summary(plan),
+              "wall_s": {"cold": e["walls"][0], "warm": e["walls"][1]},
+              "predicted_over_warm": plan.predicted["total"] / e["walls"][1],
+              "phases_s": e["phases"], "comm_s": e["meta"].get("comm_s"),
+              "residual": e["residual"],
+              "stacked_wall_s": {"cold": stacked[0], "warm": stacked[1]},
+              "stacked_residual": stacked_res,
+              "launches": [r["calls"][op]["launches"] for r in rs]})
+        check(e["residual"] < 1e-4,
+              f"§11 {op}: residual {e['residual']:.3e}")
+        check(stacked_res < 1e-4,
+              f"§11 {op} stacked: residual {stacked_res:.3e}")
+        for r in rs:
+            for name in PATH_KERNELS[op]:
+                check(r["calls"][op]["launches"].get(name, 0) > 0,
+                      f"§11 {op}: {name} never launched in a rank")
+        del args, out
+        torch.cuda.empty_cache()
+    ov = rs[0]["overlap"]
+    emit({"cannon_overlap": ov["runs"], "n": N_MAIN, "world": len(rs),
+          "transport": STAGED, "records": ov["records"],
+          "rel_err": ov["rel_err"]})
+    check(ov["rel_err"] < 1e-4,
+          f"§11 cannon overlap: rel err {ov['rel_err']:.3e}")
+
+
+def link_report(ranks):
+    """11.3: the Fig. 2 ping on cuda:0 (staged) and on the host with its
+    fit, and each world's Figs. 3-4 contention factors (wall over
+    L + beta words, the staged fit), as the benchmarks' ``measure`` gave
+    them; every rank must hold the same."""
+    rs = ranks["2d"]
+    for dev, transport in (("cuda", STAGED), ("cpu", "gloo, cpu tensors")):
+        fig2 = rs[0]["fig2"][dev]
+        check(all(r["fig2"][dev] == fig2 for r in rs),
+              f"§11 ping ({dev}): ranks disagree")
+        check(all(0.0 < t < 10.0 for t in fig2["ping"].values()),
+              f"§11 ping ({dev}): {fig2['ping']}")
+        emit({"fig2_alpha_beta": dev, "transport": transport,
+              "world": len(rs), "word_bytes": 8, **fig2})
+    for rs in ranks.values():
+        fig34 = rs[0]["fig34"]
+        check(all(r["fig34"] == fig34 for r in rs),
+              f"§11 contention ({len(rs)} ranks): ranks disagree")
+        walls = {d: f * fig34["ideal_s"]
+                 for d, f in fig34["measured_factor_vs_distance"].items()}
+        check(all(0.0 < w < 10.0 for w in walls.values()),
+              f"§11 contention ({len(rs)} ranks): walls {walls}")
+        emit({"fig34_calibration": len(rs), "transport": STAGED, **fig34})
+
+
+def nccl_rank(rank, world, device):
+    """11.4 on one rank: 11.1's Cannon and SUMMA 2D rows over NCCL."""
+    import torch
+    from repro_torch.kernels import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.extension()
+    totals = {}
+    return {"variants": group_variants(
+        torch, rank, world, device, "2d", totals,
+        only={("cannon", "2d"), ("summa", "2d")})}
+
+
+def nccl_rows(torch, stacked):
+    """11.4: with a card for each of a 2x2 grid's ranks, 11.1's Cannon and
+    SUMMA 2D rows over NCCL (cuda:r a rank, no staging); else one line
+    saying it was not run."""
+    from repro_torch.distributed import card_per_rank, spawn
+    count = torch.cuda.device_count()
+    world = GROUP_WORLDS["2d"]
+    if count < world:
+        emit({"nccl": "not run", "device_count": count})
+        return
+    rs = spawn(nccl_rank, world, backend="nccl", device_of_rank=card_per_rank,
+               init_dir=os.path.join(HERE, "build", "smoke_group", "nccl"),
+               timeout_s=300)
+    group_variant_report(torch, {"2d": rs}, stacked, "nccl, cuda tensors")
 
 if __name__ == "__main__":
     try:

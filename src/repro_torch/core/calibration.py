@@ -12,9 +12,13 @@ Three benchmark families, mirroring the paper:
 3. ``bench_contention`` — the paper's contention micro-benchmark
    (Figs. 3-4).
 
-Ping and contention need two devices with a link between them; the port's
-ranks are stacked on one device and share its memory, so both raise until
-the multi-GPU backend slice of the port brings process groups.
+Ping and contention run over a ``torch.distributed`` group (``group=``),
+each process one rank (``repro_torch.distributed.spawn``), and return the
+same value on every rank.  What they measure is the group's transport: on
+a gloo group CUDA tensors are staged through pinned host memory
+(``distributed.process_group.stages``), and the staging is part of the
+time.  Without a group they refuse: stacked ranks share one device's
+memory and have no link between them.
 
 ``measured_compute_model`` turns a routine benchmark into a fitted
 ``ComputeModel`` (the peak re-measured as the best dgemm rate), and
@@ -256,16 +260,71 @@ def register_measured_profile(registry, model: ComputeModel,
 # 3. Contention calibration benchmark (paper Figs. 3-4)
 # ---------------------------------------------------------------------------
 
-_NEEDS_LINK = ("needs two devices with a link between them; the port's "
-               "ranks share one device's memory until the multi-GPU "
-               "backend slice of the port (torch.distributed over NCCL) "
-               "brings process groups")
+def _link_setup(name: str, group, device, word_bytes: int):
+    """The group, each rank's device and the word type of a link
+    benchmark; refuses to run without a group."""
+    import torch
+    if group is None:
+        raise ValueError(
+            f"{name} needs group=, a torch.distributed group with one "
+            "process a rank (repro_torch.distributed.spawn); stacked ranks "
+            "share one device's memory and have no link between them")
+    from ..devices import canonical, default_devices
+    dev = canonical(device) if device is not None else default_devices()[0]
+    dtype = torch.float64 if word_bytes == 8 else torch.float32
+    return dev, dtype
+
+
+def _same_on_every_rank(values: Sequence[float], group, dev) -> List[float]:
+    """Rank 0's ``values`` on every rank of ``group``."""
+    import torch
+    from ..distributed.process_group import broadcast, host_or_device
+    t = torch.tensor(list(values), dtype=torch.float64,
+                     device=host_or_device(group, dev))
+    return broadcast(t, 0, group).tolist()
+
+
+def _settled(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def bench_ping(sizes_words: Sequence[int] = (256, 1024, 4096, 16384, 65536, 262144),
-               word_bytes: int = 8, reps: int = 5) -> Dict[int, float]:
-    """Round-trip/2 time between two devices per message size (words)."""
-    raise NotImplementedError(f"bench_ping {_NEEDS_LINK}")
+               word_bytes: int = 8, reps: int = 5, *, group=None,
+               device=None) -> Dict[int, float]:
+    """Round-trip/2 time between ranks 0 and 1 of ``group`` per message
+    size (words): rank 0 sends, rank 1 receives into its device's memory
+    and sends back, rank 0's clock stops when the message is back in its
+    device's memory; one untimed round trip, then the best of ``reps``,
+    halved.  Other ranks wait.  ``device`` is this rank's (default: the
+    current CUDA device).  Every rank returns rank 0's result."""
+    import torch
+    import torch.distributed as dist
+    from ..distributed.process_group import recv, send
+    dev, dtype = _link_setup("bench_ping", group, device, word_bytes)
+    if dist.get_world_size(group) < 2:
+        raise ValueError("bench_ping needs a group of at least 2 ranks")
+    rank = dist.get_rank(group)
+    best = []
+    for w in sizes_words:
+        x = torch.ones(int(w), dtype=dtype, device=dev)
+        t_best = float("inf")
+        for rep in range(reps + 1):
+            if rank == 0:
+                _settled(dev)
+                t0 = time.perf_counter()
+                send(x, 1, group)
+                y = recv(x, 1, group)
+                _settled(dev)
+                if rep:
+                    t_best = min(t_best, time.perf_counter() - t0)
+            elif rank == 1:
+                y = recv(x, 0, group)
+                send(y, 0, group)
+        best.append(t_best / 2.0)
+    return dict(zip((int(w) for w in sizes_words),
+                    _same_on_every_rank(best, group, dev)))
 
 
 def fit_alpha_beta(ping: Dict[int, float]) -> tuple[float, float]:
@@ -278,10 +337,55 @@ def fit_alpha_beta(ping: Dict[int, float]) -> tuple[float, float]:
 
 
 def bench_contention(n_procs: int, distance: int, words: int = 1 << 20,
-                     word_bytes: int = 8, reps: int = 5) -> float:
-    """All n_procs devices shift by ``distance`` simultaneously; wall
-    seconds of the slowest."""
-    raise NotImplementedError(f"bench_contention {_NEEDS_LINK}")
+                     word_bytes: int = 8, reps: int = 5, *, group=None,
+                     device=None) -> float:
+    """Ranks 0 .. n_procs-1 of ``group`` shift ``words`` by ``distance``
+    at once (rank i sends to i + distance, receives from i - distance,
+    modulo n_procs) after a barrier; returns the wall seconds of the
+    slowest rank (``all_reduce`` of the maximum: the reference's single
+    SPMD completion time), best of ``reps`` after one untimed shift.
+    Every rank of the group takes part in the barrier and the maximum;
+    every rank returns the same value."""
+    import torch
+    import torch.distributed as dist
+    from ..distributed.process_group import (host_or_device, stages,
+                                             to_device, to_host)
+    dev, dtype = _link_setup("bench_contention", group, device, word_bytes)
+    world = dist.get_world_size(group)
+    if not 1 <= n_procs <= world:
+        raise ValueError(f"need {n_procs} ranks, the group has {world}")
+    rank = dist.get_rank(group)
+    x = torch.ones(int(words), dtype=dtype, device=dev)
+    staged = stages(group, x)
+    best = float("inf")
+    for rep in range(reps + 1):
+        dist.barrier(group)
+        t0 = time.perf_counter()
+        if rank < n_procs:
+            dst = (rank + distance) % n_procs
+            src = (rank - distance) % n_procs
+            if dst == rank:
+                y = x.clone()
+            else:
+                buf = to_host(x) if staged else x
+                y = torch.empty(buf.shape, dtype=dtype, device=buf.device,
+                                pin_memory=staged)
+                for work in dist.batch_isend_irecv([
+                        dist.P2POp(dist.isend, buf,
+                                   dist.get_global_rank(group, dst), group),
+                        dist.P2POp(dist.irecv, y,
+                                   dist.get_global_rank(group, src),
+                                   group)]):
+                    work.wait()
+                if staged:
+                    y = to_device(y, dev)
+            _settled(dev)
+        wall = torch.tensor([time.perf_counter() - t0], dtype=torch.float64,
+                            device=host_or_device(group, dev))
+        dist.all_reduce(wall, op=dist.ReduceOp.MAX, group=group)
+        if rep:
+            best = min(best, float(wall.item()))
+    return best
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,10 @@ Two API levels:
   tensors, consult ``repro_torch.tuner`` for the best (variant, c, grid,
   local kernel) on the given devices, and execute it (plans are cached
   persistently under ``artifacts/plans/``).
+
+Both levels run stacked (every rank in this process) or, with a
+``torch.distributed`` group (``group=`` / ``make_grid_mesh(...,
+group=)``), with each rank a process of the group (``collectives.py``).
 """
 
 from .grid import (BLOCK, ROWS_OVER_LAYERS, Grid, collect, distribute,
@@ -48,8 +52,9 @@ def matmul(A, B, **kwargs):
 
     Keyword args: ``devices`` (``torch.device`` per rank; default the
     current CUDA device, and no CPU fallback), ``tuner``, ``local_kernel``
-    ("pallas": the CUDA kernels / "jnp": torch.matmul and torch.linalg);
-    see ``repro_torch.tuner.dispatch.matmul``.
+    ("pallas": the CUDA kernels / "jnp": torch.matmul and torch.linalg),
+    ``group`` (ranks as processes of that group); see
+    ``repro_torch.tuner.dispatch.matmul``.
     """
     from ..tuner import dispatch
     return dispatch.matmul(A, B, **kwargs)

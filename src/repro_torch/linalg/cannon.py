@@ -3,16 +3,19 @@
 Executable counterparts of the paper's models (§V-A):
 
 * ``cannon_2d``        — p = g*g ranks, initial skew + g-step shift loop.
-* ``cannon_2d_ovlp``   — same, but the step-(i+1) shifts are issued before
-  the step-i product, so a backend with a communication stream can overlap
-  them (on one stream the work and its order are the same).
+* ``cannon_2d_ovlp``   — same, but the step-(i+1) shifts are started before
+  the step-i product and waited for after it: the group backend's ranks
+  overlap them with the product; the stacked backend computes them at once,
+  so the work and its order are the same.
 * ``cannon_25d``/``_ovlp`` — c replication layers; each layer executes a
   contiguous chunk of s = g/c of the g shift steps starting from its own
   skew offset, partial C combined with a sum over the layer axis (the
   model's ``T_reduce`` term).  Inputs arrive replicated over layers.
 
 The initial skew (block (i,j) -> (i, j-i)) is rank-dependent, but it is a
-fixed permutation of the flattened (lyr, row, col) grid: one index gather.
+fixed permutation of the flattened (lyr, row, col) grid: one index gather
+stacked, one exchange a rank on a group.  The collectives come from the
+grid's backend (``grid.comm``).
 
 All local products go through ``local_mm`` so the matmul kernel
 (repro_torch.kernels.matmul) can be swapped in for ``torch.matmul``.
@@ -25,7 +28,6 @@ from typing import Callable, Optional
 
 import torch
 
-from .collectives import barrier, permute_grid, psum, shift
 from .grid import Grid, grid_size, n_layers
 
 MatMul = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -54,30 +56,31 @@ def _skew_perm(g: int, axis_is_row: bool, offset_sign: int, extra: int = 0,
     return perm
 
 
-def _cannon_body(a, b, *, g: int, steps: int, layers: int, s: int,
+def _cannon_body(a, b, *, comm, g: int, steps: int, layers: int, s: int,
                  local_mm: MatMul, overlap: bool):
-    a = permute_grid(a, _skew_perm(g, True, 1, layers=layers, s=s))
-    b = permute_grid(b, _skew_perm(g, False, 1, layers=layers, s=s))
+    a = comm.permute_grid(a, _skew_perm(g, True, 1, layers=layers, s=s))
+    b = comm.permute_grid(b, _skew_perm(g, False, 1, layers=layers, s=s))
     c = None
     for step in range(steps):
         more = step + 1 < steps
         if overlap:
-            # comm for step+1 is issued before (and independent of) this
-            # step's product
+            # comm for step+1 is started before (and independent of) this
+            # step's product, and waited for after it
             if more:
-                a_nxt, b_nxt = shift(a, "col"), shift(b, "row")
+                a_nxt = comm.shift_start(a, "col")
+                b_nxt = comm.shift_start(b, "row")
             prod = local_mm(a, b)
             if more:
-                a, b = a_nxt, b_nxt
+                a, b = comm.wait(a_nxt), comm.wait(b_nxt)
         else:
             prod = local_mm(a, b)
             if more:
                 # serialized: the shifts wait for the product
-                a, b, prod = barrier(a, b, prod)
-                a, b = shift(a, "col"), shift(b, "row")
+                a, b, prod = comm.barrier(a, b, prod)
+                a, b = comm.shift(a, "col"), comm.shift(b, "row")
         c = prod if c is None else c + prod
     if layers > 1:
-        c = psum(c, "lyr")
+        c = comm.psum(c, "lyr")
     return c
 
 
@@ -87,14 +90,16 @@ def _make(grid: Grid, *, overlap: bool, local_mm: Optional[MatMul] = None):
     if c_layers > 1 and g % c_layers != 0:
         raise ValueError(f"layers c={c_layers} must divide grid g={g}")
     s = g // c_layers if c_layers > 1 else g
-    return functools.partial(_cannon_body, g=g, steps=s, layers=c_layers,
-                             s=s, local_mm=local_mm or _default_mm,
+    return functools.partial(_cannon_body, comm=grid.comm, g=g, steps=s,
+                             layers=c_layers, s=s,
+                             local_mm=local_mm or _default_mm,
                              overlap=overlap)
 
 
 def make(grid: Grid, variant: str, *, local_mm: Optional[MatMul] = None):
-    """Reusable executor: stacked (A, B) -> stacked C for the given variant
-    (the 2d/2.5d split is carried by the grid's layer axis)."""
+    """Reusable executor: distributed (A, B) -> distributed C for the
+    given variant (the 2d/2.5d split is carried by the grid's layer
+    axis)."""
     return _make(grid, overlap=variant.endswith("ovlp"), local_mm=local_mm)
 
 

@@ -1,4 +1,4 @@
-"""SUMMA on a stacked-rank grid (executable counterpart of §V models).
+"""SUMMA on a process grid (executable counterpart of §V models).
 
 Per step k: the owners of A's k-th block column broadcast their block along
 grid rows, the owners of B's k-th block row broadcast along grid columns,
@@ -8,8 +8,10 @@ select-and-reduce (mask the owner, sum over the axis).
 2.5D: c layers each execute the contiguous chunk of s = g/c of the g steps
 (offset l*s), partial C summed over the layer axis.
 
-The overlap variants fetch the panels for step k+1 before the product of
-step k; the serialized variants fetch them after it.
+The overlap variants start the broadcasts of step k+1's panels before the
+product of step k and wait for them after it; the serialized variants
+broadcast them after it.  The collectives come from the grid's backend
+(``grid.comm``).
 """
 
 from __future__ import annotations
@@ -19,7 +21,6 @@ from typing import Callable, Optional
 
 import torch
 
-from .collectives import axis_index, barrier, bcast_from, psum
 from .grid import Grid, grid_size, n_layers
 
 MatMul = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -29,34 +30,37 @@ def _default_mm(a, b):
     return torch.matmul(a, b)
 
 
-def _panels(a, b, k):
-    """Select-and-reduce broadcasts of A's block-col k / B's block-row k."""
-    return bcast_from(a, "col", k), bcast_from(b, "row", k)
+def _panels_start(comm, a, b, k):
+    """Start the select-and-reduce broadcasts of A's block-col k and B's
+    block-row k."""
+    return comm.bcast_start(a, "col", k), comm.bcast_start(b, "row", k)
 
 
-def _summa_body(a, b, *, steps: int, layers: int, s: int,
+def _summa_body(a, b, *, comm, steps: int, layers: int, s: int,
                 local_mm: MatMul, overlap: bool):
-    base = axis_index("lyr", a) * s if layers > 1 else 0
+    base = comm.axis_index("lyr", a) * s if layers > 1 else 0
     c = None
     if overlap:
-        ap, bp = _panels(a, b, base)
+        ha, hb = _panels_start(comm, a, b, base)
+        ap, bp = comm.wait(ha), comm.wait(hb)
         for k in range(steps):
             if k + 1 < steps:
                 # prefetch the panels for k+1 before this step's product
-                ap_nxt, bp_nxt = _panels(a, b, base + k + 1)
+                ha, hb = _panels_start(comm, a, b, base + k + 1)
             prod = local_mm(ap, bp)
             c = prod if c is None else c + prod
             if k + 1 < steps:
-                ap, bp = ap_nxt, bp_nxt
+                ap, bp = comm.wait(ha), comm.wait(hb)
     else:
         for k in range(steps):
             if c is not None:
-                (c,) = barrier(c)
-            ap, bp = _panels(a, b, base + k)
+                (c,) = comm.barrier(c)
+            ap = comm.bcast_from(a, "col", base + k)
+            bp = comm.bcast_from(b, "row", base + k)
             prod = local_mm(ap, bp)
             c = prod if c is None else c + prod
     if layers > 1:
-        c = psum(c, "lyr")
+        c = comm.psum(c, "lyr")
     return c
 
 
@@ -66,14 +70,16 @@ def _make(grid: Grid, *, overlap: bool, local_mm: Optional[MatMul] = None):
     if layers > 1 and g % layers != 0:
         raise ValueError(f"layers c={layers} must divide grid g={g}")
     s = g // layers if layers > 1 else g
-    return functools.partial(_summa_body, steps=s, layers=layers, s=s,
+    return functools.partial(_summa_body, comm=grid.comm, steps=s,
+                             layers=layers, s=s,
                              local_mm=local_mm or _default_mm,
                              overlap=overlap)
 
 
 def make(grid: Grid, variant: str, *, local_mm: Optional[MatMul] = None):
-    """Reusable executor: stacked (A, B) -> stacked C for the given variant
-    (the 2d/2.5d split is carried by the grid's layer axis)."""
+    """Reusable executor: distributed (A, B) -> distributed C for the
+    given variant (the 2d/2.5d split is carried by the grid's layer
+    axis)."""
     return _make(grid, overlap=variant.endswith("ovlp"), local_mm=local_mm)
 
 

@@ -15,9 +15,12 @@ the rows of X* among them — rows of X are independent, so each layer runs
 the 2D algorithm on its row slice with its own (row, col) sub-grid; B and X
 are partitioned over the flattened (lyr, row) axis.
 
-Overlap variants fetch the *next* U blocks before the trailing update (the
-paper's Pthread-dedicated-to-comm trick); the serialized variants fetch
-them after it.
+Overlap variants start the broadcast of the *next* U blocks before the
+trailing update and wait for it after (the paper's Pthread-dedicated-to-comm
+trick); the serialized variants broadcast them after it.  U_jj is the
+column-j block of the broadcast row panel U_j,:, so one row broadcast
+serves both.  The collectives come from the grid's backend
+(``grid.comm``).
 
 The executable versions use r=1 block-cyclic factor (one block per process
 per dimension); the performance models support general r.
@@ -30,7 +33,6 @@ from typing import Callable, Optional
 
 import torch
 
-from .collectives import axis_index, barrier, bcast_from, psum
 from .grid import Grid, grid_size
 
 MatMul = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -48,38 +50,34 @@ def _solve_xu(b, u):
     return torch.linalg.solve_triangular(u, b, upper=True, left=False)
 
 
-def _trsm_body(u, b, *, g: int, local_mm: MatMul, local_solve: SolveXU,
-               overlap: bool):
-    col = axis_index("col", b)
-
-    def diag_u(j):
-        # U_jj to everyone: broadcast along rows then columns
-        return bcast_from(bcast_from(u, "row", j), "col", j)
-
-    def u_panel(j):
-        # U_j,: (block row j) to all rows
-        return bcast_from(u, "row", j)
-
+def _trsm_body(u, b, *, comm, g: int, local_mm: MatMul,
+               local_solve: SolveXU, overlap: bool):
+    col = comm.axis_index("col", b)
     b_cur, x_acc = b, torch.zeros_like(b)
-    ujj, upan = diag_u(0), u_panel(0)
+    # U_j,: (block row j) to all rows, and U_jj, its column-j block, to
+    # everyone
+    upan = comm.bcast_from(u, "row", 0)
+    ujj = comm.bcast_from(upan, "col", 0)
     for j in range(g):
+        more = j + 1 < g
         # 2. local solve for the owners of column j
         xj = torch.where(col == j, local_solve(b_cur, ujj), 0)
         # 3. broadcast X_:j along rows
-        xj_b = psum(xj, "col")
-        nxt = min(j + 1, g - 1)
+        xj_b = comm.psum(xj, "col")
         if overlap:
-            # prefetch next iteration's U blocks during the update
-            ujj_nxt, upan_nxt = diag_u(nxt), u_panel(nxt)
+            # prefetch the next U panel during the update
+            if more:
+                upan_nxt = comm.bcast_start(u, "row", j + 1)
         else:
-            b_cur, x_acc, xj_b = barrier(b_cur, x_acc, xj_b)
+            b_cur, x_acc, xj_b = comm.barrier(b_cur, x_acc, xj_b)
         # 4. trailing update: B_:k -= X_:j @ U_jk for k > j
         upd = local_mm(xj_b, upan)
         b_cur = torch.where(col > j, b_cur - upd, b_cur)
         x_acc = torch.where(col == j, xj_b, x_acc)
-        if not overlap:
-            ujj_nxt, upan_nxt = diag_u(nxt), u_panel(nxt)
-        ujj, upan = ujj_nxt, upan_nxt
+        if more:
+            upan = (comm.wait(upan_nxt) if overlap
+                    else comm.bcast_from(u, "row", j + 1))
+            ujj = comm.bcast_from(upan, "col", j + 1)
     return x_acc
 
 
@@ -87,7 +85,7 @@ def _make_2d(grid: Grid, *, overlap: bool, local_mm: Optional[MatMul] = None,
              local_solve: Optional[SolveXU] = None):
     # 2.5D needs nothing more: U arrives replicated over the layers and B/X
     # rows scattered over (lyr, row), so each layer solves its own rows
-    return functools.partial(_trsm_body, g=grid_size(grid),
+    return functools.partial(_trsm_body, comm=grid.comm, g=grid_size(grid),
                              local_mm=local_mm or _default_mm,
                              local_solve=local_solve or _solve_xu,
                              overlap=overlap)
@@ -95,8 +93,9 @@ def _make_2d(grid: Grid, *, overlap: bool, local_mm: Optional[MatMul] = None,
 
 def make(grid: Grid, variant: str, *, local_mm: Optional[MatMul] = None,
          local_solve: Optional[SolveXU] = None):
-    """Reusable executor: stacked (U, B) -> stacked X for the given variant
-    (the 2d/2.5d split is carried by the grid's layer axis)."""
+    """Reusable executor: distributed (U, B) -> distributed X for the
+    given variant (the 2d/2.5d split is carried by the grid's layer
+    axis)."""
     return _make_2d(grid, overlap=variant.endswith("ovlp"),
                     local_mm=local_mm, local_solve=local_solve)
 

@@ -153,11 +153,13 @@ def test_bench_routines_needs_a_device_without_a_gpu(monkeypatch):
         cal.bench_routines((128,))
 
 
-@pytest.mark.parametrize("fn,args", [(cal.bench_ping, ()),
-                                     (cal.bench_contention, (4, 1))])
-def test_link_benchmarks_wait_for_the_multi_gpu_slice(fn, args):
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        fn(*args)
+def test_link_benchmarks_refuse_without_a_group():
+    """Stacked ranks have no link: ping and contention name ``group=``
+    (tests/test_torch_distributed.py runs them over one)."""
+    with pytest.raises(ValueError, match="group="):
+        cal.bench_ping()
+    with pytest.raises(ValueError, match="group="):
+        cal.bench_contention(4, 1)
 
 
 # -- the measured profile -----------------------------------------------------

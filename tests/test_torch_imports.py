@@ -85,16 +85,22 @@ TRAINING = ["repro_torch.training", "repro_torch.training.data",
             "repro_torch.training.compression",
             "repro_torch.training.checkpoint", "repro_torch.training.fault",
             "repro_torch.training.trainer", "repro_torch.launch.train"]
+# the group backend: ranks as processes, and the link benchmarks over it
+DISTRIBUTED = ["repro_torch.distributed",
+               "repro_torch.distributed.process_group",
+               "repro_torch.linalg.collectives",
+               "repro_torch.benchmarks.fig2_alpha_beta",
+               "repro_torch.benchmarks.fig34_calibration"]
 
 
 @pytest.mark.parametrize("module", MEASURING + SIMULATOR + MODELS + SERVING
-                         + TRAINING)
+                         + TRAINING + DISTRIBUTED)
 def test_measuring_modules_import_with_jax_and_the_reference_blocked(module):
     """Each module of the measuring half, of the simulator, of the models,
-    of serving and of training imports on its own in a process where
-    importing JAX or the reference package fails."""
-    assert set(MEASURING + SIMULATOR + MODELS + SERVING + TRAINING) <= \
-        set(_port_modules())
+    of serving, of training and of the group backend imports on its own in
+    a process where importing JAX or the reference package fails."""
+    assert set(MEASURING + SIMULATOR + MODELS + SERVING + TRAINING
+               + DISTRIBUTED) <= set(_port_modules())
     code = textwrap.dedent(f"""
         import importlib, sys
         sys.modules["jax"] = None
