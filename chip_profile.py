@@ -26,9 +26,12 @@ trailing-update width), and of the library call beside each (the
 profiler's device events only: at small shapes the CUDA-event times of
 chip_smoke.py are the wrappers' host time), and of one K5 call at
 hymba-1.5b's and xlstm-350m's shapes, split over its three launches, and
-of one K6 call at xlstm-350m's sLSTM shape.  One warm train step of
-starcoder2-3b (chip_smoke.py §10.2's) splits its device time into K4, the
-K4 sites' backward through the twin, the optimizer, the products and the
+of one K6 call at xlstm-350m's prefill and train shapes, split over its
+three launches, at chunks of 16 to 128 steps, and of one call of K6's
+backward at the train shape.  One warm train step each of starcoder2-3b
+and xlstm-350m (chip_smoke.py §10.2's) splits its device time into the
+port's kernels (K4; K5, K6 and K6's backward), the K4 and K5 sites'
+backward through their twins, the optimizer, the products and the
 rest.  Last, one warm n = 16384 matmul of chip_smoke.py §11.2 on a world
 of 4 processes on cuda:0 (gloo, blocks staged through pinned host memory),
 profiled in every rank: its wall, K1's device time (the products), the
@@ -58,6 +61,9 @@ N = 16384
 TOP = 8
 # K5's CUDA functions: chunk states, the state pass, the outputs
 K5_KERNEL = re.compile(r"ssm_(chunk_state|state_pass|output)_kernel")
+# K6's: chunk summaries, the carry, the outputs; and its backward
+K6_KERNEL = re.compile(r"slstm_(chunk|carry|output)_kernel")
+K6_BWD_KERNEL = re.compile("slstm_bwd_kernel")
 # the prefill calls, each with its kernels and their CUDA functions (K4's
 # bf16 body: flash_tc_kernel), and the layer count where the full depth does
 # not fit one card (arctic-480b: 35 layers of 26.8 GB of experts each)
@@ -65,7 +71,7 @@ K4_BF16 = re.compile("flash_tc_kernel")
 PREFILL = (("starcoder2-3b", {"K4": K4_BF16}, None),
            ("hymba-1.5b", {"K5": K5_KERNEL}, None),
            ("xlstm-350m", {"K5": K5_KERNEL,
-                           "K6": re.compile("slstm_scan_kernel")}, None),
+                           "K6": K6_KERNEL}, None),
            ("qwen2-moe-a2.7b", {"K4": K4_BF16}, None),
            ("llama-3.2-vision-11b", {"K4": K4_BF16}, None),
            ("whisper-tiny", {"K4": K4_BF16}, None),
@@ -164,8 +170,10 @@ def main() -> int:
         torch.cuda.empty_cache()
     if not decode_step_profile(torch, gen):
         return 1
-    if not train_step_profile(torch):
-        return 1
+    for arch, tokens, backward_ranges, kernel_functions in TRAIN_PROFILES:
+        if not train_step_profile(torch, arch, tokens, backward_ranges,
+                                  kernel_functions):
+            return 1
     kernel_device_times(torch, gen)
     k1_device_times(torch, gen)
     k5_device_times(torch, gen)
@@ -349,24 +357,79 @@ def decode_step_profile(torch, gen) -> bool:
     return record["device_ms"] > 0 and split["sdpa_ring"] > 0
 
 
+# K6's shapes: xlstm-350m's prefill (B 4, S 4096) and train (B 1, S 1024)
+K6_SHAPES = (("xlstm-350m prefill", 4, 4096, 1024),
+             ("xlstm-350m train", 1, 1024, 1024))
+K6_CHUNKS = (16, 32, 64, 128)
+
+
 def k6_device_times(torch, gen, reps: int = 10) -> None:
-    """Device time of one K6 call at xlstm-350m's sLSTM shape (B 4, S 4096,
-    W 1024, fp32, the inputs chip_smoke.py checks), with the device events
-    and the counted launches a call; one JSON line."""
-    from repro_torch.kernels import slstm_scan_cuda
-    z, i, f, o = (torch.randn(4, 4096, 1024, device="cuda", generator=gen)
-                  for _ in range(4))
-    i.mul_(5.0)
-    slstm_scan_cuda(z, i, f, o)
-    before = slstm_scan_cuda.launches
-    record = profiled(torch, lambda: [slstm_scan_cuda(z, i, f, o)
-                                      for _ in range(reps)])
-    print(json.dumps({
-        "kernel": "K6 slstm_scan", "shape": "xlstm-350m sLSTM", "b": 4,
-        "s": 4096, "w": 1024, "device_ms": record["device_ms"] / reps,
-        "device_events": len(record["events"]) / reps,
-        "counted_launches": (slstm_scan_cuda.launches - before) / reps}),
-        flush=True)
+    """Device time of one K6 call at xlstm-350m's prefill and train shapes
+    (fp32, the inputs chip_smoke.py checks: the input gate five times
+    wider), split over its three launches, at each chunk length of
+    K6_CHUNKS: the wrapper's (``ops.CHUNK``) through the wrapper, the
+    others through the binding; with the device events and the counted
+    launches a call.  Then one call of K6's backward at the train shape on
+    the forward's states.  One JSON line each."""
+    from repro_torch.kernels import (_build, slstm_scan_bwd_cuda,
+                                     slstm_scan_cuda)
+    from repro_torch.kernels.slstm.ops import CHUNK
+    ext = _build.extension()
+
+    def binding(z, i, f, o, chunk):
+        b, s, w = z.shape
+        none = torch.empty(0, device="cuda")
+        work = torch.empty(ext.slstm_scan_workspace(b, s, w, chunk),
+                           device="cuda")
+        ext.slstm_scan(z, i, f, o, torch.empty_like(z), none, none, none,
+                       work, chunk, torch.cuda.current_stream().cuda_stream)
+
+    for shape, b, s, w in K6_SHAPES:
+        z, i, f, o = (torch.randn(b, s, w, device="cuda", generator=gen)
+                      for _ in range(4))
+        i.mul_(5.0)
+        for chunk in K6_CHUNKS:
+            if chunk == CHUNK:
+                def call():
+                    slstm_scan_cuda(z, i, f, o)
+            else:
+                def call():
+                    binding(z, i, f, o, chunk)
+            call()
+            before = slstm_scan_cuda.launches
+            record = profiled(torch, lambda: [call() for _ in range(reps)])
+            by_launch = {}
+            for row in record["all"]:
+                m = K6_KERNEL.search(row["name"])
+                if m:
+                    by_launch[m.group(0)] = (by_launch.get(m.group(0), 0.0)
+                                             + row["ms"] / reps)
+            print(json.dumps({
+                "kernel": "K6 slstm_scan", "shape": shape, "b": b, "s": s,
+                "w": w, "chunk": chunk, "wrapper_chunk": chunk == CHUNK,
+                "device_ms": record["device_ms"] / reps,
+                "device_events": len(record["events"]) / reps,
+                "counted_launches": (slstm_scan_cuda.launches - before)
+                / reps, "by_launch_ms": by_launch}), flush=True)
+        if b == 1:
+            dy = torch.randn(b, s, w, device="cuda", generator=gen)
+            ins = (z, i, f, o, *slstm_scan_cuda(z, i, f, o, states=True)[1:],
+                   dy)
+            slstm_scan_bwd_cuda(*ins)
+            before = slstm_scan_bwd_cuda.launches
+            record = profiled(torch, lambda: [slstm_scan_bwd_cuda(*ins)
+                                              for _ in range(reps)])
+            print(json.dumps({
+                "kernel": "K6 slstm_scan_bwd", "shape": shape, "b": b,
+                "s": s, "w": w, "device_ms": record["device_ms"] / reps,
+                "kernel_ms": sum(r["ms"] for r in record["all"]
+                                 if K6_BWD_KERNEL.search(r["name"])) / reps,
+                "device_events": len(record["events"]) / reps,
+                "counted_launches": (slstm_scan_bwd_cuda.launches - before)
+                / reps}), flush=True)
+            del dy, ins
+        del z, i, f, o
+        torch.cuda.empty_cache()
 
 
 def k5_device_times(torch, gen, reps: int = 10) -> None:
@@ -566,57 +629,75 @@ def ptxas_report(build) -> None:
                 entry = None
 
 
-# the profiler ranges of one train step: the K4 sites' backward (the twin
-# _sdpa_chunked recomputed and differentiated) and the optimizer's update
-TRAIN_RANGES = ("k4_twin_backward", "optimizer")
-TRAIN_LEN = 4096
+# one warm train step each (chip_smoke.py §10.2's): (arch, tokens, the
+# profiler ranges around the twins' backward passes: label -> (module of
+# repro_torch.models, autograd Function), the port's kernels by their CUDA
+# functions).  K4's and K5's backward recompute and differentiate their
+# twins (_sdpa_chunked, decayed_linear_attention), whose ATen ops the
+# ranges hold; K6's backward is its kernel, launched from the binding
+# outside any ATen op (the profiler links it to no range), so it is found
+# by name
+TRAIN_PROFILES = (
+    ("starcoder2-3b", 4096,
+     {"k4_twin_backward": ("attention", "FlashAttention")}, {"K4": K4_BF16}),
+    ("xlstm-350m", 1024, {"k5_twin_backward": ("ssm", "SSMScan")},
+     {"K5": K5_KERNEL, "K6": K6_KERNEL, "K6 backward": K6_BWD_KERNEL}),
+)
 
 
-def train_step_profile(torch) -> bool:
-    """One warm train step of chip_smoke.py §10.2: starcoder2-3b at full
-    width and depth, bf16, remat, one prompt of 4096 tokens, AdamW with
-    fp32 moments, through ``Trainer``.  Prints the step's wall and device
-    time, the device-busy share, and the device time split into K4 (the
-    forward and its recompute under remat), the K4 sites' backward
-    through the twin (its products included), the optimizer, cuBLAS's
-    products elsewhere (the forward, its recompute and their backward),
-    and the rest.  False when the profile holds no device time."""
+def train_step_profile(torch, arch, tokens, backward_ranges,
+                       kernel_functions) -> bool:
+    """One warm train step of chip_smoke.py §10.2: ``arch`` at full width
+    and depth, its own type, remat, one prompt of ``tokens`` tokens, AdamW
+    with fp32 moments, through ``Trainer``.  Prints the step's wall and
+    device time, the device-busy share, and the device time split into the
+    port's kernels (the forward and its recompute under remat; K6's
+    backward), each twin's backward (its products included), the
+    optimizer, cuBLAS's products elsewhere (the forward, its recompute and
+    their backward), and the rest.  False when the profile holds no device
+    time, or none in a twin's backward or in one of the kernels."""
     from repro_torch import kernels
     from repro_torch.configs import get
-    from repro_torch.models import attention
+    from repro_torch.models import attention, ssm
     from repro_torch.training import (AdamWConfig, DataConfig, TrainConfig,
                                       Trainer, trainer)
-    cfg = get("starcoder2-3b")
+    modules = {"attention": attention, "ssm": ssm}
+    cfg = get(arch)
     tr = Trainer(TrainConfig(
         model=cfg, opt=AdamWConfig(lr=3e-4, warmup_steps=20,
                                    total_steps=100),
-        data=DataConfig(cfg.vocab_size, TRAIN_LEN, 1, seed=0), n_steps=2),
+        data=DataConfig(cfg.vocab_size, tokens, 1, seed=0), n_steps=2),
         seed=0)
     batch = tr.batch_at(0)
     tr.train_step(batch)                                  # warm-up
-    orig_backward = attention.FlashAttention.backward
+    labels = (*backward_ranges, "optimizer")
+    saved = []
+    for label, (module, name) in backward_ranges.items():
+        fn_cls = getattr(modules[module], name)
+        saved.append((fn_cls, fn_cls.backward))
+        fn_cls.backward = staticmethod(ranged(torch, label, fn_cls.backward))
     orig_update = trainer.apply_update
-    attention.FlashAttention.backward = staticmethod(
-        ranged(torch, "k4_twin_backward", orig_backward))
     trainer.apply_update = ranged(torch, "optimizer", orig_update)
     kernels.reset_launches()
     try:
         record = profiled(torch, lambda: tr.train_step(batch),
-                          keep_profile=True, ranges=TRAIN_RANGES)
+                          keep_profile=True, ranges=labels)
     finally:
-        attention.FlashAttention.backward = staticmethod(orig_backward)
+        for fn_cls, orig in saved:
+            fn_cls.backward = staticmethod(orig)
         trainer.apply_update = orig_update
     prof = record.pop("profile")
     events = list(prof.events())
     split = {label: sum(ms for _, ms in range_kernels(events, label))
-             for label in TRAIN_RANGES}
-    in_ranges = [name for label in TRAIN_RANGES
+             for label in labels}
+    in_ranges = [name for label in labels
                  for name, _ in range_kernels(events, label)]
-    ranged_products = sum(ms for label in TRAIN_RANGES
+    ranged_products = sum(ms for label in labels
                           for name, ms in range_kernels(events, label)
                           if PRODUCT.search(name))
-    split["K4"] = sum(r["ms"] for r in record["all"]
-                      if K4_BF16.search(r["name"]))
+    for name, function in kernel_functions.items():
+        split[name] = sum(r["ms"] for r in record["all"]
+                          if function.search(r["name"]))
     split["products elsewhere"] = sum(
         r["ms"] for r in record["all"]
         if PRODUCT.search(r["name"])) - ranged_products
@@ -624,14 +705,15 @@ def train_step_profile(torch) -> bool:
     device_events = len(record.pop("events"))
     del record["all"]
     print(json.dumps({
-        "train_step": "starcoder2-3b", "dtype": cfg.dtype,
-        "layers": cfg.n_layers, "remat": cfg.remat, "tokens": TRAIN_LEN,
+        "train_step": arch, "dtype": cfg.dtype, "layers": cfg.n_layers,
+        "remat": cfg.remat, "tokens": tokens,
         "device_events": device_events, "ranged_kernels": len(in_ranges),
         "counted_launches": kernels.launches(), "split_ms": split,
         **record}), flush=True)
     del tr
     torch.cuda.empty_cache()
-    return record["device_ms"] > 0 and split["k4_twin_backward"] > 0
+    return record["device_ms"] > 0 and all(
+        split[label] > 0 for label in (*backward_ranges, *kernel_functions))
 
 
 def profiled(torch, fn, keep_profile=False, ranges=()):

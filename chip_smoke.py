@@ -13,13 +13,17 @@
    taken per output row; K4 also at head dims 16, 80 and 160, which its
    wrapper pads, at 256, and at 320 (padded to 384) and 512 on its wide
    body, also at a ragged S of 300, causal and not, with B 2; K5 also at xlstm's 256 x 257 state and at small
-   ragged shapes; K6 at xlstm's sLSTM shape and a ragged one), and times
-   kernel, plain version and the nearest single PyTorch call with CUDA
-   events; K1's launcher must refuse arguments it does not take, K3's a
+   ragged shapes; K6 at xlstm's prefill and train shapes, with open
+   forget gates (f + 6, so that its chunk carries show), at a ragged shape
+   and at S below its chunk, its per-step states, and its backward kernel
+   at the train and the ragged shape against the plain reverse loop), and
+   times kernel, plain version and the nearest single PyTorch call with
+   CUDA events; K1's launcher must refuse arguments it does not take, K3's a
    block wider than one CTA holds, K4's a head dim whose tiles do not fit a
    block's shared memory (its wrapper stating the limit), K5's
-   a dk above the widest a tile holds, and K6's binding inputs that are not
-   fp32 or not contiguous.
+   a dk above the widest a tile holds, and K6's and its backward's binding
+   inputs that are not fp32, not contiguous or (the backward) of unlike
+   shapes.
 3. Drives the linalg path: ``repro_torch.linalg.matmul / trsm / cholesky``
    at n = 16384, fp32, on the default devices (one card, p = 1), with the
    kernels' launch counts set to 0 before each call and read after it, and
@@ -86,8 +90,9 @@
    at depth 2) through the scheduler's batch against each alone, token
    for token.
 10. Trains on the card (``repro_torch.training``; ``Model.loss`` through
-   the differentiable K4, K5 and K6 sites, whose backward recomputes
-   through the twins the reference differentiates).  10.1: the loss and
+   the differentiable K4, K5 and K6 sites: K4's and K5's backward
+   recompute through the twins the reference differentiates, K6's is its
+   backward kernel).  10.1: the loss and
    every parameter's gradient at full width, fp32, depth 2 (whisper-tiny
    at full depth, the VLM with a cross layer every 2 layers) on the card
    against the CPU with one state dict and one numpy batch, for
@@ -102,7 +107,8 @@
    tokens/s, loss, grad norm, lr, peak memory, K4 launches each step;
    the parameters move), one more step under the CPU-op guard (0
    operations), then xlstm-350m bf16 at full depth, 1024 tokens, two
-   steps (K5 and K6 launched; the twins' backward time).  10.3: the loss
+   steps (K5, K6 and K6's backward launched, K6's plain versions run on
+   no CUDA tensor; the sites' backward time).  10.3: the loss
    falls over five steps on one fixed batch (starcoder2-3b at depth 2,
    fp32).  10.4: ``Trainer.run`` checkpoints at step 2, a new Trainer
    restores it, and its step 3 matches the first's within 1e-5.
@@ -267,7 +273,7 @@ def compare(torch, name, got, want, tol, per_row):
 def kernel_entry(torch, name, wrapper, source, replaces, shape, got, want,
                  tol, kernel, plain, library, reps, ops, peak, nbytes, *,
                  plain_reps=None, library_note=None, per_row=False,
-                 layout="contiguous"):
+                 layout="contiguous", extra=None):
     """Check one kernel result against its plain version, time kernel,
     plain version and library call, and emit the entry of the kernels
     line (its launches are filled in from the path runs)."""
@@ -286,6 +292,7 @@ def kernel_entry(torch, name, wrapper, source, replaces, shape, got, want,
                         if library is not None else None)}
     if library_note:
         e["library_note"] = library_note
+    e.update(extra or {})
     emit({"kernel_check": e})
     return e
 
@@ -444,7 +451,7 @@ def lm_kernel_checks(torch):
     fit; K5 at hymba-1.5b's SSD shape, at xlstm-350m's 256 x 257 mLSTM
     state (v with the normaliser's ones column), at the widest state the
     reference tests and at small ragged shapes, and its launcher's refusal
-    of dk = 257.  The path's
+    of dk = 257; K6 and its backward (:func:`k6_checks`).  The path's
     shapes take the path's layouts: the heads as transposed views of the
     projections.  The error is taken per output row, relative to the row's
     largest value.  Both kernels' bf16 outputs are held to the plain
@@ -460,8 +467,8 @@ def lm_kernel_checks(torch):
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     out = []
 
-    def entry(*args, **kw):
-        out.append(kernel_entry(torch, *args, per_row=True, **kw))
+    def entry(*args, per_row=True, **kw):
+        out.append(kernel_entry(torch, *args, per_row=per_row, **kw))
 
     # K4: (B, H, KV, S, D, causal, dtype, path layout, reps)
     bf16, fp32 = torch.bfloat16, torch.float32
@@ -581,25 +588,71 @@ def lm_kernel_checks(torch):
 
     k5_refuses_dk(torch, ssm_scan_cuda)
 
-    # K6 at xlstm-350m's sLSTM shape (B 4, S 4096, W 1024) and at a small
-    # ragged one (a tail of 4 steps behind the 8 a thread loads ahead, a
-    # warp of 20 features).  The gates' pre-activations are what the
-    # projections of a normed input give, with the input gate five times
-    # wider, so that the stabiliser m matters.  fp32 on both sides; the
-    # kernel's expf / tanhf and fused multiply-adds against PyTorch's own,
-    # over a contractive recurrence: 1e-4 of each output row's largest
-    # value.  The bound counts 27 operations a step (each exp, log1p and
-    # tanh as one); the bytes (4 inputs read once, y written once) bound it.
-    from repro_torch.kernels import slstm_scan_cuda, slstm_scan_ref
-    for b, s, w, reps in ((4, 4096, 1024, 10), (1, 300, 20, 20)):
-        z, i, f, o = (torch.randn(b, s, w, device=dev, generator=gen)
+    k6_checks(torch, entry, gen)
+    return out
+
+
+# K6's forward: (B, S, W, scale of i, shift of f, reps).  xlstm-350m's
+# prefill shape (B 4, S 4096, W 1024) and its train shape (B 1, S 1024);
+# the train shape again with f + 6, where the forget gates stay open and
+# each chunk's start state carries far (with f standard-normal the gates
+# close within a chunk, so a wrong carry would not show); a ragged S 300
+# over 20 features (a tail chunk, a CTA of 20 threads) and S 50 < L (one
+# chunk).  The input gate is five times wider, so that the stabiliser m
+# matters.
+K6_SHAPES = ((4, 4096, 1024, 5.0, 0.0, 10), (1, 1024, 1024, 5.0, 0.0, 20),
+             (1, 1024, 1024, 5.0, 6.0, 20), (1, 300, 20, 5.0, 0.0, 20),
+             (2, 50, 40, 5.0, 0.0, 20))
+# K6's backward: the train shape (with f shifted and not) and the ragged one
+K6_BWD_SHAPES = ((1, 1024, 1024, 5.0, 0.0, 20), (1, 1024, 1024, 5.0, 6.0, 20),
+                 (1, 300, 20, 5.0, 0.0, 20))
+K6_REPLACES = ("none (port-side; the reference scans _slstm_step, "
+               "src/repro/models/ssm.py:210, over time in slstm_train :222)")
+K6_BWD_REPLACES = ("none (port-side; the reference's gradient is the "
+                   "reverse of its scan of _slstm_step, "
+                   "src/repro/models/ssm.py:210, in slstm_train :222)")
+
+
+def k6_checks(torch, entry, gen):
+    """K6 against its plain versions.  The forward: y within 1e-4 of each
+    output row's largest value (fp32 on both sides; the kernel's expf /
+    tanhf and fused multiply-adds against PyTorch's own, over a
+    contractive recurrence, and the chunk carry's exponentials, each <= 0);
+    at the train shape also the per-step states the backward reads.  The
+    bound counts 27 operations a step (each exp, log1p and tanh as one);
+    the bytes (4 inputs read once, y written once) bound it.
+
+    The backward, on the kernel forward's states: each gradient within
+    1e-5 of its largest entry.  Both sides evaluate the same expressions in
+    the same order on the same inputs; they differ in the elementary
+    functions' last bits and in fused multiply-adds, and the reverse chain
+    multiplies its carry by exp(a - m) <= 1, so those roundings do not
+    grow.  The error is taken per tensor, not per row: where the input
+    gate never wins after a step, the true df of that step is zero and
+    both sides keep only the residue of dfs fs - dfs fs, so a row can be
+    all residue.  The bound counts about 60 operations a step; the bytes
+    (z, i, f, o, c, n, m, dy read once, dz, di, df, do written once: 12 x 4
+    a step-feature) bound it."""
+    from repro_torch.kernels import (slstm_scan_bwd_cuda, slstm_scan_bwd_ref,
+                                     slstm_scan_cuda, slstm_scan_ref,
+                                     slstm_scan_states_ref)
+
+    def inputs(b, s, w, scale_i, shift_f):
+        z, i, f, o = (torch.randn(b, s, w, device="cuda", generator=gen)
                       for _ in range(4))
-        i.mul_(5.0)
-        entry(f"K6 slstm_scan B{b} S{s} W{w} f32", "slstm_scan_cuda",
-              "src/repro_torch/kernels/csrc/slstm.cu",
-              "none (port-side; the reference scans _slstm_step, "
-              "src/repro/models/ssm.py:222)", [b, s, w],
-              slstm_scan_cuda(z, i, f, o), slstm_scan_ref(z, i, f, o), 1e-4,
+        i.mul_(scale_i)
+        f.add_(shift_f)
+        return z, i, f, o
+
+    def label(b, s, w, shift_f):
+        return f"B{b} S{s} W{w} f32" + (f" f+{shift_f:g}" if shift_f else "")
+
+    for b, s, w, scale_i, shift_f, reps in K6_SHAPES:
+        z, i, f, o = inputs(b, s, w, scale_i, shift_f)
+        entry(f"K6 slstm_scan {label(b, s, w, shift_f)}", "slstm_scan_cuda",
+              "src/repro_torch/kernels/csrc/slstm.cu", K6_REPLACES,
+              [b, s, w], slstm_scan_cuda(z, i, f, o),
+              slstm_scan_ref(z, i, f, o), 1e-4,
               lambda z=z, i=i, f=f, o=o: slstm_scan_cuda(z, i, f, o),
               lambda z=z, i=i, f=f, o=o: slstm_scan_ref(z, i, f, o),
               None, reps, 27.0 * b * s * w, PEAK_FP32, 5 * b * s * w * 4,
@@ -607,18 +660,52 @@ def lm_kernel_checks(torch):
               "it", layout="contiguous")
         del z, i, f, o
         torch.cuda.empty_cache()
-    k6_refuses(torch, slstm_scan_cuda)
-    return out
+
+    for b, s, w, scale_i, shift_f, reps in K6_BWD_SHAPES:
+        z, i, f, o = inputs(b, s, w, scale_i, shift_f)
+        dy = torch.randn(b, s, w, device="cuda", generator=gen)
+        y, c, n, m = slstm_scan_cuda(z, i, f, o, states=True)
+        want_states = slstm_scan_states_ref(z, i, f, o)
+        errs = {}
+        for name, got, want in zip("ycnm", (y, c, n, m), want_states):
+            errs[name] = compare(torch, f"K6 states {name}", got, want, 1e-4,
+                                 True)[1]
+        emit({"k6_states": [b, s, w], "f_shift": shift_f,
+              "max_rel_err_per_row": errs, "tol": 1e-4})
+        ins = (z, i, f, o, c, n, m, dy)
+        got = slstm_scan_bwd_cuda(*ins)
+        want = slstm_scan_bwd_ref(*ins)
+        per_grad = {name: compare(torch, f"K6 backward d{name}", g, wt, 1e-5,
+                                  False)[1]
+                    for name, g, wt in zip("zifo", got, want)}
+        entry(f"K6 slstm_scan_bwd {label(b, s, w, shift_f)}",
+              "slstm_scan_bwd_cuda", "src/repro_torch/kernels/csrc/slstm.cu",
+              K6_BWD_REPLACES, [b, s, w], torch.stack(got),
+              torch.stack(want), 1e-5,
+              lambda ins=ins: slstm_scan_bwd_cuda(*ins),
+              lambda ins=ins: slstm_scan_bwd_ref(*ins),
+              None, reps, 60.0 * b * s * w, PEAK_FP32, 12 * b * s * w * 4,
+              plain_reps=1, library_note="no single PyTorch call computes "
+              "it", layout="contiguous", per_row=False,
+              extra={"max_rel_err_per_gradient": per_grad})
+        del z, i, f, o, dy, y, c, n, m, ins, got, want, want_states
+        torch.cuda.empty_cache()
+    k6_refuses(torch, slstm_scan_cuda, slstm_scan_bwd_cuda)
 
 
-def k6_refuses(torch, wrapper):
-    """K6 takes fp32, contiguous inputs only: given bf16 or a transposed
-    view, the binding raises with a plain message, nothing is converted or
-    copied and nothing counts."""
+def k6_refuses(torch, forward, backward):
+    """K6 and its backward take fp32, contiguous tensors of one shape only:
+    given bf16, a transposed view or (the backward) a dy of another shape,
+    the binding raises with a plain message, nothing is converted or copied
+    and nothing counts."""
     z = torch.zeros(1, 64, 32, device="cuda")
-    cases = {"fp32": (z.to(torch.bfloat16),) * 4,
-             "contiguous": (z.transpose(1, 2),) * 4}
-    for what, args in cases.items():
+    cases = (
+        (forward, "fp32", (z.to(torch.bfloat16),) * 4),
+        (forward, "contiguous", (z.transpose(1, 2),) * 4),
+        (backward, "fp32", (z.to(torch.bfloat16),) * 8),
+        (backward, "contiguous", (z.transpose(1, 2),) * 8),
+        (backward, "(batch, s, w) alike", (z,) * 7 + (z[:, :32],)))
+    for wrapper, what, args in cases:
         before = wrapper.launches
         try:
             wrapper(*args)
@@ -626,11 +713,12 @@ def k6_refuses(torch, wrapper):
         except RuntimeError as exc:
             refused = str(exc).splitlines()[0]
         counted = wrapper.launches - before
-        emit({"k6_refuses": what, "message": refused,
-              "launches_counted": counted})
-        check(f"must be {what}" in refused, f"K6 took inputs that are not "
-              f"{what}")
-        check(counted == 0, f"K6 counted a refused launch ({what})")
+        emit({"k6_refuses": what, "wrapper": wrapper.__name__,
+              "message": refused, "launches_counted": counted})
+        check(f"must be {what}" in refused, f"{wrapper.__name__} took inputs "
+              f"that are not {what}")
+        check(counted == 0, f"{wrapper.__name__} counted a refused launch "
+              f"({what})")
 
 
 def k5_refuses_dk(torch, wrapper):
@@ -1995,12 +2083,13 @@ def batch_against_single(torch):
 # decoder) and hymba-1.5b's windowed loop; K5 and K6 take any S >= 128.
 # Loss within 1e-4 relative, each parameter's gradient within 1e-3 of its
 # largest entry: only summation orders differ (fp32 products with IEEE
-# fp32, the kernels' forward, the twins' backward on both sides)
+# fp32, the kernels' forward, K4's and K5's twins' backward and K6's
+# backward kernel against its plain version)
 TRAIN_CHECKS = (
     ("starcoder2-3b", {"n_layers": 2}, 2304, {"flash_attention_cuda": 2}),
     ("hymba-1.5b", {"n_layers": 2}, 2304, {"ssm_scan_cuda": 2}),
     ("xlstm-350m", {"n_layers": 2}, 1024,
-     {"ssm_scan_cuda": 1, "slstm_scan_cuda": 1}),
+     {"ssm_scan_cuda": 1, "slstm_scan_cuda": 1, "slstm_scan_bwd_cuda": 1}),
     ("qwen2-moe-a2.7b", {"n_layers": 2}, 512, {}),
     ("whisper-tiny", {}, 2304, {"flash_attention_cuda": 4}),
     ("llama-3.2-vision-11b", {"n_layers": 2, "cross_attn_every": 2}, 512, {}),
@@ -2010,7 +2099,8 @@ TRAIN_GRAD_TOL = 1e-3
 # full width and depth through Trainer: (arch, tokens, steps, the kernels
 # each step must launch)
 TRAIN_FULL = (("starcoder2-3b", 4096, 4, ("flash_attention_cuda",)),
-              ("xlstm-350m", 1024, 2, ("ssm_scan_cuda", "slstm_scan_cuda")))
+              ("xlstm-350m", 1024, 2, ("ssm_scan_cuda", "slstm_scan_cuda",
+                                       "slstm_scan_bwd_cuda")))
 # the loss on one fixed batch, and the restart: starcoder2-3b, depth 2,
 # fp32, one prompt of 512 tokens
 SMALL_TRAIN = ("starcoder2-3b", {"n_layers": 2}, 512)
@@ -2182,7 +2272,8 @@ def remat_against_no_remat(torch, cfg, net, batch, loss, grads):
 
 class TwinTimer:
     """Adds up, while installed, the synchronized wall time of the K5 and
-    K6 sites' backward passes (the twins' recompute and its gradient)."""
+    K6 sites' backward passes: K5's through its twin (the recompute and
+    its gradient), K6's through its backward kernel."""
 
     def __enter__(self):
         import torch
@@ -2208,6 +2299,39 @@ class TwinTimer:
     def __exit__(self, *exc):
         for fn_cls, orig in self._saved:
             fn_cls.backward = staticmethod(orig)
+        return False
+
+
+class PlainK6Calls:
+    """Counts, while installed, the calls of K6's plain versions (the step,
+    the forward loops, the backward loop) on CUDA tensors, wherever a
+    module of the port holds them."""
+
+    NAMES = ("slstm_step", "slstm_scan_ref", "slstm_scan_states_ref",
+             "slstm_scan_bwd_ref")
+
+    def __enter__(self):
+        from repro_torch.kernels.slstm import ref
+        self.calls = dict.fromkeys(self.NAMES, 0)
+        self._saved = []
+        for name in self.NAMES:
+            orig = getattr(ref, name)
+
+            def counted(*args, _orig=orig, _name=name):
+                if args[0].is_cuda:
+                    self.calls[_name] += 1
+                return _orig(*args)
+
+            for mod in list(sys.modules.values()):
+                if (getattr(mod, "__name__", "").startswith("repro_torch")
+                        and getattr(mod, name, None) is orig):
+                    self._saved.append((mod, name, orig))
+                    setattr(mod, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, orig in self._saved:
+            setattr(mod, name, orig)
         return False
 
 
@@ -2245,7 +2369,7 @@ def train_full_width(torch):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             counts0 = kernels.launches()
-            with TwinTimer() as twins:
+            with TwinTimer() as twins, PlainK6Calls() as plain_k6:
                 t0 = time.perf_counter()
                 metrics = tr.train_step(batch)
                 torch.cuda.synchronize()
@@ -2257,12 +2381,18 @@ def train_full_width(torch):
                   "wall_s": wall, "tokens_per_s": seq / wall, **out,
                   "max_memory_allocated": torch.cuda.max_memory_allocated(),
                   "launches": counts,
-                  "twin_backward_s": {"K5 (SSMScan)": twins.s["SSMScan"],
-                                      "K6 (SLSTMScan)": twins.s["SLSTMScan"]},
-                  "twin_timer_note": "synchronized around each backward: "
-                                     "the wall above carries those syncs"})
+                  "site_backward_s": {
+                      "K5 (SSMScan: the twin)": twins.s["SSMScan"],
+                      "K6 (SLSTMScan: its backward kernel)":
+                          twins.s["SLSTMScan"]},
+                  "site_timer_note": "synchronized around each backward: "
+                                     "the wall above carries those syncs",
+                  "k6_plain_calls_on_cuda": plain_k6.calls})
             check(all(math.isfinite(v) for v in out.values()),
                   f"train {arch} step {step}: non-finite metrics {out}")
+            check(not any(plain_k6.calls.values()), f"train {arch} step "
+                  f"{step}: K6's plain versions ran on the card "
+                  f"{plain_k6.calls}")
             for wrapper in wrappers:
                 check(counts[wrapper] > 0, f"train {arch} step {step}: "
                       f"{wrapper} never launched")

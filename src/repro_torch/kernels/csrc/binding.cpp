@@ -132,28 +132,94 @@ void ssm_scan(i64 q, i64 k, i64 v, i64 log_a, i64 y, i64 work,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// Raises, having launched nothing, with the message of the first rule t
+// breaks: fp32, contiguous, on like's CUDA device, of like's (batch, s, w)
+// shape.  The messages are plain strings (ROADMAP.md, "How a slice
+// lands").
+void check_like(const torch::Tensor& t, const torch::Tensor& like,
+                const char* fp32, const char* contiguous, const char* device,
+                const char* shape) {
+  TORCH_CHECK(t.scalar_type() == torch::kFloat32, fp32);
+  TORCH_CHECK(t.is_contiguous(), contiguous);
+  TORCH_CHECK(t.is_cuda() && t.device() == like.device(), device);
+  TORCH_CHECK(t.dim() == 3 && t.sizes() == like.sizes(), shape);
+}
+
+i64 slstm_scan_workspace(i64 batch, i64 s, i64 w, i64 chunk) {
+  return repro_slstm_scan_workspace(static_cast<int>(batch),
+                                    static_cast<int>(s), static_cast<int>(w),
+                                    static_cast<int>(chunk));
+}
+
 // Raises, having launched nothing, unless z, i, f, o and y are fp32,
-// contiguous, (batch, s, w) alike and on one CUDA device, every size
-// positive.
+// contiguous, (batch, s, w) alike and on one CUDA device, c, n and m are
+// all empty or all like y, the workspace is fp32 on that device and holds
+// what slstm_scan_workspace asks, every size is positive and the chunks
+// number at most 65535.
 void slstm_scan(torch::Tensor z, torch::Tensor i, torch::Tensor f,
-                torch::Tensor o, torch::Tensor y, i64 stream) {
-  for (const torch::Tensor* t : {&z, &i, &f, &o, &y}) {
-    TORCH_CHECK(t->scalar_type() == torch::kFloat32,
-                "slstm_scan: z, i, f, o and y must be fp32");
-    TORCH_CHECK(t->is_contiguous(),
-                "slstm_scan: z, i, f, o and y must be contiguous");
-    TORCH_CHECK(t->is_cuda() && t->device() == z.device(),
-                "slstm_scan: z, i, f, o and y must share one CUDA device");
-    TORCH_CHECK(t->dim() == 3 && t->sizes() == z.sizes(),
-                "slstm_scan: z, i, f, o and y must be (batch, s, w) alike");
-  }
+                torch::Tensor o, torch::Tensor y, torch::Tensor c,
+                torch::Tensor n, torch::Tensor m, torch::Tensor work,
+                i64 chunk, i64 stream) {
+  for (const torch::Tensor* t : {&z, &i, &f, &o, &y})
+    check_like(*t, z, "slstm_scan: z, i, f, o and y must be fp32",
+               "slstm_scan: z, i, f, o and y must be contiguous",
+               "slstm_scan: z, i, f, o and y must share one CUDA device",
+               "slstm_scan: z, i, f, o and y must be (batch, s, w) alike");
+  const bool states = c.numel() > 0;
+  TORCH_CHECK(states == (n.numel() > 0) && states == (m.numel() > 0),
+              "slstm_scan: c, n and m must all be given or all be empty");
+  if (states)
+    for (const torch::Tensor* t : {&c, &n, &m})
+      check_like(*t, z, "slstm_scan: c, n and m must be fp32",
+                 "slstm_scan: c, n and m must be contiguous",
+                 "slstm_scan: c, n and m must share z's CUDA device",
+                 "slstm_scan: c, n and m must be (batch, s, w) like z");
+  TORCH_CHECK(work.scalar_type() == torch::kFloat32 && work.is_cuda() &&
+                  work.device() == z.device() && work.is_contiguous(),
+              "slstm_scan: the workspace must be fp32 and contiguous on "
+              "z's CUDA device");
   const cudaError_t err = repro_slstm_scan(
       z.data_ptr<float>(), i.data_ptr<float>(), f.data_ptr<float>(),
       o.data_ptr<float>(), y.data_ptr<float>(),
+      states ? c.data_ptr<float>() : nullptr,
+      states ? n.data_ptr<float>() : nullptr,
+      states ? m.data_ptr<float>() : nullptr, work.data_ptr<float>(),
+      work.numel(), static_cast<int>(z.size(0)), static_cast<int>(z.size(1)),
+      static_cast<int>(z.size(2)), static_cast<int>(chunk),
+      as_stream(stream));
+  TORCH_CHECK(err != cudaErrorInvalidValue,
+              "slstm_scan: every size must be positive and s / chunk at "
+              "most 65535");
+  TORCH_CHECK(err != cudaErrorInvalidDevicePointer,
+              "slstm_scan: the workspace is smaller than "
+              "slstm_scan_workspace asks");
+  TORCH_CHECK(err == cudaSuccess, cudaGetErrorString(err));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// Raises, having launched nothing, unless the twelve tensors are fp32,
+// contiguous, (batch, s, w) alike and on one CUDA device, every size
+// positive.
+void slstm_scan_bwd(torch::Tensor z, torch::Tensor i, torch::Tensor f,
+                    torch::Tensor o, torch::Tensor c, torch::Tensor n,
+                    torch::Tensor m, torch::Tensor dy, torch::Tensor dz,
+                    torch::Tensor di, torch::Tensor df, torch::Tensor d_o,
+                    i64 stream) {
+  for (const torch::Tensor* t :
+       {&z, &i, &f, &o, &c, &n, &m, &dy, &dz, &di, &df, &d_o})
+    check_like(*t, z, "slstm_scan_bwd: every tensor must be fp32",
+               "slstm_scan_bwd: every tensor must be contiguous",
+               "slstm_scan_bwd: every tensor must share one CUDA device",
+               "slstm_scan_bwd: every tensor must be (batch, s, w) alike");
+  const cudaError_t err = repro_slstm_scan_bwd(
+      z.data_ptr<float>(), i.data_ptr<float>(), f.data_ptr<float>(),
+      o.data_ptr<float>(), c.data_ptr<float>(), n.data_ptr<float>(),
+      m.data_ptr<float>(), dy.data_ptr<float>(), dz.data_ptr<float>(),
+      di.data_ptr<float>(), df.data_ptr<float>(), d_o.data_ptr<float>(),
       static_cast<int>(z.size(0)), static_cast<int>(z.size(1)),
       static_cast<int>(z.size(2)), as_stream(stream));
   TORCH_CHECK(err != cudaErrorInvalidValue,
-              "slstm_scan: every size must be positive");
+              "slstm_scan_bwd: every size must be positive");
   TORCH_CHECK(err == cudaSuccess, cudaGetErrorString(err));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
@@ -172,5 +238,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("ssm_scan_workspace", &ssm_scan_workspace,
         "K5: fp32 workspace floats a call needs");
   m.def("ssm_scan", &ssm_scan, "K5: chunked decayed linear attention");
-  m.def("slstm_scan", &slstm_scan, "K6: the sLSTM recurrence over time");
+  m.def("slstm_scan_workspace", &slstm_scan_workspace,
+        "K6: fp32 workspace floats a call needs");
+  m.def("slstm_scan", &slstm_scan,
+        "K6: the sLSTM recurrence over time, a scan over chunks");
+  m.def("slstm_scan_bwd", &slstm_scan_bwd,
+        "K6's backward: one reverse-time chain a feature");
 }

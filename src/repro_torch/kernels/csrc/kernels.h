@@ -97,11 +97,30 @@ cudaError_t repro_ssm_scan(const void* q, const void* k, const void* v,
 
 // K6: the sLSTM recurrence, per feature of z, i, f, o (batch, s, w), fp32
 // and contiguous, into y of the same shape (a port-side kernel; the
-// reference runs it as a scan over time). Returns cudaErrorInvalidValue, and
-// launches nothing, unless every size is positive.
+// reference runs it as a scan over time), as a scan over chunks of `chunk`
+// steps: three launches (chunk summaries, the carry, the outputs) through
+// `work`, an fp32 workspace of repro_slstm_scan_workspace() floats that the
+// caller allocates on the device.  c, n and m, all null or all of y's
+// shape, take the state after every step (for the backward).  Returns
+// cudaErrorInvalidValue, and launches nothing, unless every size is
+// positive, the chunks number at most 65535 and c, n, m are all given or
+// all null; cudaErrorInvalidDevicePointer for a workspace of fewer floats.
+long long repro_slstm_scan_workspace(int batch, int s, int w, int chunk);
 cudaError_t repro_slstm_scan(const float* z, const float* i, const float* f,
-                             const float* o, float* y, int batch, int s,
-                             int w, cudaStream_t stream);
+                             const float* o, float* y, float* c, float* n,
+                             float* m, float* work, long long work_floats,
+                             int batch, int s, int w, int chunk,
+                             cudaStream_t stream);
+// K6's backward: from the inputs, the per-step state c, n, m of the
+// forward and dy, all (batch, s, w) fp32 and contiguous, the gradients dz,
+// di, df, d_o of the same shape.  Returns cudaErrorInvalidValue, and
+// launches nothing, unless every size is positive.
+cudaError_t repro_slstm_scan_bwd(const float* z, const float* i,
+                                 const float* f, const float* o,
+                                 const float* c, const float* n,
+                                 const float* m, const float* dy, float* dz,
+                                 float* di, float* df, float* d_o, int batch,
+                                 int s, int w, cudaStream_t stream);
 
 #ifdef __cplusplus
 }

@@ -14,12 +14,14 @@ recurrence with a scalar memory per feature; the kernel K6
 (``kernels/slstm``) runs its time loop on the device, where the reference
 scans ``_slstm_step`` over time.
 
-K5 and K6 have no backward.  Where a graph is built (training), their
-sites go through ``SSMScan`` and ``SLSTMScan``: the kernel's forward, and a
-backward that recomputes the output through the twin the reference's
-gradient goes through (``decayed_linear_attention``, the chunked form, in
-chunks of ``cfg.ssm.chunk``; the step loop of
-``kernels/slstm/ref.py::slstm_scan_ref``) and differentiates it.
+Where a graph is built (training), their sites go through ``SSMScan`` and
+``SLSTMScan``.  K5 has no backward: ``SSMScan`` runs the kernel's forward
+and a backward that recomputes the output through the twin the
+reference's gradient goes through (``decayed_linear_attention``, the
+chunked form, in chunks of ``cfg.ssm.chunk``) and differentiates it.  K6
+has one: ``SLSTMScan``'s forward keeps the state after every step, and its
+backward is K6's backward kernel (``kernels/slstm``), the reverse of the
+reference's scan of ``_slstm_step``.
 
 Decode runs one step of each recurrence in plain tensor code, as the
 reference's does: ``decayed_linear_attention_step`` (the SSD head),
@@ -36,9 +38,10 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.autograd.function import once_differentiable
 
-from ..kernels.slstm import slstm_scan
-from ..kernels.slstm.ref import slstm_scan_ref, slstm_step
+from ..kernels.slstm import slstm_scan, slstm_scan_bwd_cuda, slstm_scan_cuda
+from ..kernels.slstm.ref import slstm_step
 from ..kernels.ssm_scan import ssm_scan
 from .layers import Linear, dtype_of
 
@@ -142,22 +145,22 @@ class SSMScan(torch.autograd.Function):
 
 
 class SLSTMScan(torch.autograd.Function):
-    """K6 with a gradient: the kernel's forward; a backward that recomputes
-    the output through the step loop of ``slstm_scan_ref`` (the reference
-    scans the same step) and differentiates it.  Only the inputs are
-    saved."""
+    """K6 with a gradient: the kernel's forward, which also keeps the state
+    (c, n, m) after every step, and K6's backward kernel on those states.
+    CPU tensors take the plain versions of both
+    (``slstm_scan_states_ref``, ``slstm_scan_bwd_ref``); neither device
+    differentiates a loop."""
 
     @staticmethod
     def forward(ctx, z, i, f, o):
-        ctx.save_for_backward(z, i, f, o)
-        return slstm_scan(z, i, f, o)
+        y, c, n, m = slstm_scan_cuda(z, i, f, o, states=True)
+        ctx.save_for_backward(z, i, f, o, c, n, m)
+        return y
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, grad_y):
-        ins = tuple(t.detach().requires_grad_() for t in ctx.saved_tensors)
-        with torch.enable_grad():
-            y = slstm_scan_ref(*ins)
-            return torch.autograd.grad(y, ins, grad_y)
+        return slstm_scan_bwd_cuda(*ctx.saved_tensors, grad_y.contiguous())
 
 
 def _builds_graph(*ts: torch.Tensor) -> bool:

@@ -11,9 +11,10 @@ layers stacked again) and compared leaf by leaf.
 Tolerances, fp32: the loss within 1e-5 relative; each leaf's gradient
 within 1e-4 of its largest entry.  Only summation orders differ: the
 forward runs the kernels' plain versions (sequential scans, the full
-softmax) where the reference runs its chunked twins, and the backward of
-the K5 and K6 sites goes through the same twins as the reference's
-gradient.  The three differentiable kernel sites are held on CPU tensors
+softmax) where the reference runs its chunked twins; the backward of
+the K5 site goes through the same twin as the reference's gradient, and
+K6's through the plain version of its backward kernel (the reverse of the
+reference's scan).  The three differentiable kernel sites are held on CPU tensors
 to autograd straight through the kernels' plain versions (1e-5 of the
 largest entry).
 """
@@ -283,8 +284,10 @@ def test_ssm_scan_function_against_plain(dk, dv):
 
 
 def test_slstm_scan_function_against_plain():
-    """K6's site: the backward recomputes through the step loop of
-    ``slstm_scan_ref``; here both sides are that loop."""
+    """K6's site: the forward keeps the per-step states and the backward
+    is K6's backward kernel, here its plain version
+    (``slstm_scan_bwd_ref``, the reverse loop), against autograd through
+    the step loop of ``slstm_scan_ref``."""
     ins = _inputs([(2, 40, 24)] * 4, 5)
     _against_plain(ssm.SLSTMScan.apply, slstm_scan_ref, ins, 6)
 
