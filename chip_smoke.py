@@ -134,6 +134,23 @@
    over NCCL (cuda:r a rank); else one line saying it was not run.  A
    rank that fails fails the run; the kernels line adds every rank's
    launches of 11.1 and 11.2.
+12. Runs the benchmark harness (``repro_torch.benchmarks.run``) on the
+   card at its ``CARD_SIZES``: ``fig5to8`` (Figs. 5-8: the 8 2D variants
+   on 4 gloo ranks on cuda:0 at n = 8192 through K1-K3, measured against
+   est_Cal and est_NoCal from the parameters the ranks measure),
+   ``tuner`` (8 ranks stacked on cuda:0, n = 4096), ``serving`` (Phase A
+   on qwen1.5-4b bf16 at full width and depth; Phases B and C on the
+   host) and ``obs``, writing their JSONs under ``artifacts/bench_torch/``;
+   then ``--check-regressions`` once, on an empty history in a temporary
+   directory (warn-only, exit 0).  Gated: every bench returns and its
+   ``_meta`` names the card and its power limit as ``nvidia-smi`` does;
+   fig5to8's residuals < 1e-4 and each variant's kernels launched in every
+   rank; at least 200 model-evaluation scenarios (the tuner bench itself
+   raises if its disk hit evaluates a model); serving's records, Phase
+   B's gates and the re-key; obs's flow events.  Reported: fig5to8's
+   table, the tuner's overheads, serving's post-refit error, obs's
+   overhead.  The kernels line adds §12's launches, every fig5to8 rank's
+   included, its routine benchmark's as well as its variants'.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero, as do
@@ -220,6 +237,7 @@ def main() -> int:
     serving_counts = serving(torch)
     training_counts = training(torch)
     group_counts = process_groups(torch, stacked_variants)
+    harness_counts = harness(torch, smi.stdout.strip().splitlines()[0])
 
     for entry in kernels:
         entry["launches"] = (main_counts[entry["wrapper"]]
@@ -228,7 +246,8 @@ def main() -> int:
                              + simulator_counts[entry["wrapper"]]
                              + serving_counts[entry["wrapper"]]
                              + training_counts[entry["wrapper"]]
-                             + group_counts[entry["wrapper"]])
+                             + group_counts[entry["wrapper"]]
+                             + harness_counts[entry["wrapper"]])
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -2762,6 +2781,7 @@ def link_report(ranks):
     fit, and each world's Figs. 3-4 contention factors (wall over
     L + beta words, the staged fit), as the benchmarks' ``measure`` gave
     them; every rank must hold the same."""
+    from repro_torch.benchmarks.common import WORD_BYTES
     rs = ranks["2d"]
     for dev, transport in (("cuda", STAGED), ("cpu", "gloo, cpu tensors")):
         fig2 = rs[0]["fig2"][dev]
@@ -2770,7 +2790,7 @@ def link_report(ranks):
         check(all(0.0 < t < 10.0 for t in fig2["ping"].values()),
               f"§11 ping ({dev}): {fig2['ping']}")
         emit({"fig2_alpha_beta": dev, "transport": transport,
-              "world": len(rs), "word_bytes": 8, **fig2})
+              "world": len(rs), "word_bytes": WORD_BYTES, **fig2})
     for rs in ranks.values():
         fig34 = rs[0]["fig34"]
         check(all(r["fig34"] == fig34 for r in rs),
@@ -2809,6 +2829,128 @@ def nccl_rows(torch, stacked):
                init_dir=os.path.join(HERE, "build", "smoke_group", "nccl"),
                timeout_s=300)
     group_variant_report(torch, {"2d": rs}, stacked, "nccl, cuda tensors")
+
+
+# -- 12. the benchmark harness on the card -----------------------------------
+
+#: the benches of ``repro_torch.benchmarks.run`` that §12 runs on the card,
+#: at ``run.CARD_SIZES``
+HARNESS_BENCHES = ("fig5to8", "tuner", "serving", "obs")
+#: the kernels a fig5to8 variant must launch in every rank
+FIG5TO8_KERNELS = {"cannon": ("matmul_cuda",), "summa": ("matmul_cuda",),
+                   "trsm": PATH_KERNELS["trsm"],
+                   "cholesky": PATH_KERNELS["cholesky"]}
+
+
+def harness(torch, smi_line):
+    """§12; returns the launch counts of its benches: this process's
+    (tuner, serving, obs) and every fig5to8 rank's, summed."""
+    import tempfile
+    from repro_torch import kernels
+    from repro_torch.benchmarks import run
+    name, limit = smi_line.rsplit(",", 1)
+    card = {"device": name.strip(),
+            "power_limit_w": float(limit.strip().split()[0])}
+    t0 = time.perf_counter()
+    totals = {k: 0 for k in kernels.launches()}
+    results = {}
+    for bench in HARNESS_BENCHES:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t = time.perf_counter()
+        results[bench] = run.run_bench(bench, "cuda")
+        torch.cuda.synchronize()
+        add_counts(totals, kernels.launches())
+        emit({"harness": bench, "wall_s": time.perf_counter() - t,
+              "sizes": run.CARD_SIZES.get(bench, {})})
+        meta = results[bench].get("_meta", {})
+        check({k: meta.get(k) for k in card} == card,
+              f"§12 {bench}: _meta names {meta.get('device')!r}, "
+              f"{meta.get('power_limit_w')!r}, not {card}")
+    fig = results["fig5to8"]
+    for r in fig5to8_report(fig):
+        add_counts(totals, r)
+    tuner_report(results["tuner"])
+    serving_report(results["serving"])
+    obs_report(results["obs"])
+    with tempfile.TemporaryDirectory() as hist:
+        env = dict(os.environ, REPRO_BENCH_HISTORY_DIR=hist,
+                   PYTHONPATH=os.path.join(HERE, "src"))
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.benchmarks.run",
+             "--check-regressions"], cwd=HERE, env=env, capture_output=True,
+            text=True, timeout=300)
+    emit({"check_regressions_rc": out.returncode,
+          "tail": out.stdout.strip().splitlines()[-1:]})
+    check(out.returncode == 0, "§12 --check-regressions on an empty history "
+          f"exited {out.returncode}: {out.stderr[-2000:]}")
+    emit({"harness_s": time.perf_counter() - t0, "launches": totals})
+    return totals
+
+
+def fig5to8_report(fig):
+    """§12's Figs. 5-8 table; every residual < 1e-4, each variant's
+    kernels launched in every rank.  Returns each rank's launches, summed
+    over the routine benchmark and the variants."""
+    ranks = [dict(counts) for counts in fig["calibration_launches"]]
+    emit({"fig5to8": "routine benchmark",
+          "launches": fig["calibration_launches"]})
+    for key, row in fig["results"].items():
+        algo = key.split("_", 1)[0]
+        emit({"fig5to8": key, "n": fig["n"], "p": fig["p"],
+              "transport": fig["transport"],
+              **{k: row[k] for k in ("measured_s", "est_cal_s",
+                                     "est_nocal_s", "cal_rel_err",
+                                     "nocal_rel_err", "rel_residual")},
+              "launches": row["launches"]})
+        check(row["rel_residual"] < 1e-4,
+              f"§12 fig5to8 {key}: rel residual {row['rel_residual']:.3e}")
+        for r, counts in enumerate(row["launches"]):
+            add_counts(ranks[r], counts)
+            for kernel in FIG5TO8_KERNELS[algo]:
+                check(counts.get(kernel, 0) > 0,
+                      f"§12 fig5to8 {key}: {kernel} never launched in "
+                      f"rank {r}")
+    emit({"fig5to8": "summary", "geomean_rel_err_cal":
+          fig["geomean_rel_err_cal"], "geomean_rel_err_nocal":
+          fig["geomean_rel_err_nocal"], "latency_s": fig["latency_s"],
+          "beta": fig["beta"], "machine_peak_per_unit":
+          fig["machine_peak_per_unit"], "measured_factors":
+          fig["measured_factors"], "compute_curves": fig["compute_curves"],
+          "launches_by_rank": ranks})
+    return ranks
+
+
+def tuner_report(res):
+    """The tuner bench returns only when its disk hit made no model
+    evaluation; its overheads are reported."""
+    emit({"tuner": {k: v for k, v in res.items()
+                    if k not in ("model_eval", "_meta")},
+          "model_eval": {k: res["model_eval"][k]
+                         for k in ("scenarios", "min_speedup",
+                                   "geomean_speedup")}})
+    check(res["model_eval"]["scenarios"] >= 200,
+          "§12 tuner: fewer than 200 scenarios")
+
+
+def serving_report(res):
+    """Phase A's records and post-refit error (reported), Phase B's gates
+    and the re-key (gated)."""
+    cal, gates = res["calibration"], res["gates"]
+    emit({"serving": {k: v for k, v in cal.items() if k != "refit"},
+          "gates": gates, "replay": {k: v for k, v in res["replay"].items()
+                                     if not isinstance(v, dict)}})
+    check(cal["serve_step_records"] > 0, "§12 serving: no serve_step record")
+    for gate in ("model_goodput_ge_fifo", "model_beats_fifo_p95_ttft",
+                 "rekey_ok"):
+        check(gates[gate], f"§12 serving: {gate} fails")
+
+
+def obs_report(res):
+    emit({"obs": {k: v for k, v in res.items() if k != "_meta"}})
+    check(res["serving_trace_flow_events"] > 0,
+          "§12 obs: no flow event in the paired serving trace")
+
 
 if __name__ == "__main__":
     try:

@@ -20,7 +20,8 @@ from __future__ import annotations
 
 import argparse
 import json
-import tempfile
+
+from .common import WORD_BYTES
 
 WORDS = 1 << 20
 
@@ -31,14 +32,14 @@ def measure(rank: int, world: int, device) -> dict:
     from ..core.calibration import (bench_contention, bench_ping,
                                     fit_alpha_beta)
     group = dist.group.WORLD
-    ping = bench_ping(sizes_words=(1 << 18, 1 << 21), group=group,
-                      device=device)
+    ping = bench_ping(sizes_words=(1 << 18, 1 << 21), word_bytes=WORD_BYTES,
+                      group=group, device=device)
     L, beta = fit_alpha_beta(ping)
     ideal = L + beta * WORDS
     measured = {}
     for d in dict.fromkeys((1, 2, world // 2)):
-        wall = bench_contention(world, d, words=WORDS, group=group,
-                                device=device)
+        wall = bench_contention(world, d, words=WORDS, word_bytes=WORD_BYTES,
+                                group=group, device=device)
         measured[str(d)] = wall / ideal
     return {"measured_factor_vs_distance": measured, "ideal_s": ideal}
 
@@ -60,14 +61,13 @@ def simulated() -> dict:
 
 def main(world: int = 4, device: str = "cuda",
          backend: str = "gloo") -> dict:
-    from ..distributed import devices_for, spawn, transport
     from ..devices import device_kind_of
-    place = devices_for(device, backend)
-    with tempfile.TemporaryDirectory() as init_dir:
-        out = spawn(measure, world, backend=backend, device_of_rank=place,
-                    init_dir=init_dir)[0]
+    from ..distributed import devices_for, transport
+    from .common import run_group_bench
+    out = run_group_bench(measure, world, device, backend)
     out.update(simulated=simulated(), transport=transport(backend, device),
-               world=world, device=device_kind_of(place(0)))
+               world=world,
+               device=device_kind_of(devices_for(device, backend)(0)))
     return out
 
 

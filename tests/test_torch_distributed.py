@@ -384,7 +384,7 @@ def test_link_benchmark_entry_point_on_the_cpu(tmp_path, monkeypatch,
         assert all(0.0 < t < 10.0 for t in out["ping"].values())
         assert out["latency_s"] > 0.0 and out["beta_s_per_word"] > 0.0
         assert out["bandwidth_GBps"] == pytest.approx(
-            8.0 / out["beta_s_per_word"] / 1e9)
+            bench.WORD_BYTES / out["beta_s_per_word"] / 1e9)
     else:
         assert set(out["measured_factor_vs_distance"]) == {"1", "2"}
         assert all(f > 0.0 and np.isfinite(f)

@@ -91,16 +91,29 @@ DISTRIBUTED = ["repro_torch.distributed",
                "repro_torch.linalg.collectives",
                "repro_torch.benchmarks.fig2_alpha_beta",
                "repro_torch.benchmarks.fig34_calibration"]
+# the benchmark harness: run.py, its plumbing and the emitters
+BENCHMARKS = ["repro_torch.benchmarks.common",
+              "repro_torch.benchmarks.fig5to8_validation",
+              "repro_torch.benchmarks.tables_2to5_predictions",
+              "repro_torch.benchmarks.run",
+              "repro_torch.benchmarks.bench_tuner",
+              "repro_torch.benchmarks.bench_serving",
+              "repro_torch.benchmarks.bench_obs",
+              "repro_torch.benchmarks.bench_sim",
+              "repro_torch.benchmarks.bench_sim_scale",
+              "repro_torch.benchmarks.bench_telemetry",
+              "repro_torch.benchmarks.bench_faults"]
 
 
 @pytest.mark.parametrize("module", MEASURING + SIMULATOR + MODELS + SERVING
-                         + TRAINING + DISTRIBUTED)
+                         + TRAINING + DISTRIBUTED + BENCHMARKS)
 def test_measuring_modules_import_with_jax_and_the_reference_blocked(module):
     """Each module of the measuring half, of the simulator, of the models,
-    of serving, of training and of the group backend imports on its own in
-    a process where importing JAX or the reference package fails."""
+    of serving, of training, of the group backend and of the benchmark
+    harness imports on its own in a process where importing JAX or the
+    reference package fails."""
     assert set(MEASURING + SIMULATOR + MODELS + SERVING + TRAINING
-               + DISTRIBUTED) <= set(_port_modules())
+               + DISTRIBUTED + BENCHMARKS) <= set(_port_modules())
     code = textwrap.dedent(f"""
         import importlib, sys
         sys.modules["jax"] = None

@@ -559,14 +559,10 @@ def test_launch_serve_from_a_checkpoint_of_the_reference(tmp_path, capsys):
 # -- obs/watch --------------------------------------------------------------------
 
 WATCH_TESTS = os.path.join(ROOT, "tests", "test_watch.py")
-#: drives the reference's benchmark CLI (benchmarks/run.py), which the port
-#: does not have: the benchmark folder is not ported
-NOT_PORTED = {"TestHistory::test_check_regressions_cli"}
 
 
 def _watch_cases():
-    """The reference's obs/watch test cases, as ``Class::test`` ids, but
-    those of :data:`NOT_PORTED`."""
+    """The reference's obs/watch test cases, as ``Class::test`` ids."""
     cases, cls = [], None
     with open(WATCH_TESTS) as f:
         for line in f:
@@ -576,17 +572,21 @@ def _watch_cases():
             m = re.match(r"    def (test_\w+)", line)
             if m and cls:
                 cases.append(f"{cls}::{m.group(1)}")
-    return [c for c in cases if c not in NOT_PORTED]
+    return cases
 
 
 @pytest.fixture(scope="module")
 def watch_results(tmp_path_factory):
     """tests/test_watch.py with every import of the reference turned into
-    the port's, run in one pytest process: the outcome of each case."""
+    the port's, its benchmark CLI (``benchmarks.run``) into the port's
+    (``repro_torch.benchmarks.run``), run in one pytest process: the
+    outcome of each case."""
     d = tmp_path_factory.mktemp("watch")
     with open(WATCH_TESTS) as f:
         src = f.read()
     src = re.sub(r"\brepro\b(?=[ .])", "repro_torch", src)
+    src = src.replace("import benchmarks.run",
+                      "import repro_torch.benchmarks.run")
     assert "from repro " not in src and "repro." not in src
     path = d / "test_watch_on_the_port.py"
     path.write_text(src)
