@@ -151,6 +151,29 @@
    table, the tuner's overheads, serving's post-refit error, obs's
    overhead.  The kernels line adds §12's launches, every fig5to8 rank's
    included, its routine benchmark's as well as its variants'.
+13. Trains sharded (``repro_torch.distributed.sharding``,
+   ``launch/mesh.py``): ranks as processes of a gloo group, every rank on
+   cuda:0, staged through pinned host memory, a mesh (pods, data, model)
+   laid over them.  The unsharded runs go first, in this process; then
+   one world of 4 ranks runs 13.1 to 13.3, each on a mesh of its own.
+   13.1: starcoder2-3b at full width, fp32, depth 2, S 2304, global
+   batch 2, two AdamW steps from one seed on one numpy batch, on
+   (1, 2, 2) (tensor-parallel attention and MLP, KV 2 -> 1 a rank) and
+   (1, 1, 4) (the KV leaves gathered), each against the unsharded
+   ``Trainer`` on the card: loss < 1e-5 relative, every rank's block of
+   every parameter < 1e-4 of the whole parameter's largest entry.
+   13.2: starcoder2-3b bf16 at full width on (1, 2, 2), S 2304, global
+   batch 2, remat, AdamW (ZeRO-1 moments), at the most layers four
+   ranks' estimated bytes fit on the card (``rank_bytes``): a cold and a
+   warm step, the slowest rank's wall, each rank's peak memory (below the
+   unsharded run's), the staged bytes and host seconds in the group
+   collectives a step.  In 13.1 and 13.2 K4 is launched in every rank
+   and its plain version runs on no CUDA tensor.  13.3:
+   ``compress_pod_mean`` over (2, 1, 2) against the CPU on the same
+   inputs (the quantizer bitwise on every pod's input, the mean over the
+   gathered payloads and the new error within 1e-6).  13.4:
+   ``launch/train.py --smoke --mesh 1,2,2 --steps 3`` as a subprocess.
+   The kernels line adds every rank's launches of 13.1 and 13.2.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero, as do
@@ -164,6 +187,7 @@ Usage, from the root of a checkout on a machine with a CUDA GPU:
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -238,6 +262,7 @@ def main() -> int:
     training_counts = training(torch)
     group_counts = process_groups(torch, stacked_variants)
     harness_counts = harness(torch, smi.stdout.strip().splitlines()[0])
+    sharded_counts = sharded_training(torch)
 
     for entry in kernels:
         entry["launches"] = (main_counts[entry["wrapper"]]
@@ -247,7 +272,8 @@ def main() -> int:
                              + serving_counts[entry["wrapper"]]
                              + training_counts[entry["wrapper"]]
                              + group_counts[entry["wrapper"]]
-                             + harness_counts[entry["wrapper"]])
+                             + harness_counts[entry["wrapper"]]
+                             + sharded_counts[entry["wrapper"]])
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -2951,6 +2977,492 @@ def obs_report(res):
     check(res["serving_trace_flow_events"] > 0,
           "§12 obs: no flow event in the paired serving trace")
 
+
+
+# -- 13. sharded training: a mesh of gloo ranks on cuda:0 ---------------------
+
+SHARD_ARCH = "starcoder2-3b"
+#: 13.1's meshes: the tensor-parallel path (KV 2 -> 1 a rank), then the
+#: gather path for the KV leaves (2 KV heads over model = 4)
+SHARD_EXACT = ((1, 2, 2), (1, 1, 4))
+#: 13.1's and 13.2's sequence (above the 2048 at which attention takes
+#: K4) and global batch
+SHARD_SEQ, SHARD_BATCH = 2304, 2
+#: AdamW's eps in 13.1: at step 1 Adam moves a parameter by about
+#: lr * g / (|g| + eps); with 1e-8 a gradient within 1e-8 of zero, where the
+#: ranks' sums add in another order, would move it by anything up to lr
+SHARD_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10, eps=1e-3)
+SHARD_LOSS_TOL, SHARD_PARAM_TOL = 1e-5, 1e-4
+#: 13.2: bf16 at full width on (1, 2, 2), remat, AdamW
+SHARD_PATH_MESH = (1, 2, 2)
+SHARD_PATH_OPT = dict(lr=3e-4, warmup_steps=20, total_steps=100)
+#: 13.3's mesh
+SHARD_POD_MESH = (2, 1, 2)
+#: 13.1 to 13.3 run in one world of this many ranks
+SHARD_WORLD = 4
+#: the card's memory, and what 13.2's depth leaves aside for the main
+#: process and the allocators' slack
+CARD_BYTES, CARD_RESERVE = 80e9, 10e9
+
+
+class PlainK4Calls:
+    """Counts, while installed, the calls of K4's plain version on CUDA
+    tensors, wherever a module of the port holds it."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ref
+        orig, self.calls, self._saved = ref.flash_attention_ref, 0, []
+
+        def counted(q, *args, **kw):
+            if q.is_cuda:
+                self.calls += 1
+            return orig(q, *args, **kw)
+
+        for mod in list(sys.modules.values()):
+            if (getattr(mod, "__name__", "").startswith("repro_torch")
+                    and getattr(mod, "flash_attention_ref", None) is orig):
+                self._saved.append(mod)
+                mod.flash_attention_ref = counted
+        self._orig = orig
+        return self
+
+    def __exit__(self, *exc):
+        for mod in self._saved:
+            mod.flash_attention_ref = self._orig
+        return False
+
+
+def shard_config(dtype, layers, remat=None):
+    """SHARD_ARCH at full width in ``dtype`` with ``layers`` layers (and
+    ``remat`` where given)."""
+    changes = {"n_layers": layers}
+    if remat is not None:
+        changes["remat"] = remat
+    return check_config(SHARD_ARCH, dtype, changes)
+
+
+def shard_batch(cfg, seq):
+    """SHARD_BATCH rows of tokens and next-token labels, drawn with numpy."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 13)
+    tok = rng.integers(0, cfg.vocab_size,
+                       (SHARD_BATCH, seq + 1)).astype(np.int32)
+    return {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+
+
+def shard_trainer(cfg, seq, opt, mesh=None, device="cuda"):
+    from repro_torch.training import (AdamWConfig, DataConfig, TrainConfig,
+                                      Trainer)
+    return Trainer(TrainConfig(
+        model=cfg, opt=AdamWConfig(**opt),
+        data=DataConfig(cfg.vocab_size, seq, SHARD_BATCH, seed=SEED),
+        n_steps=2), mesh=mesh, seed=SEED, device=device)
+
+
+def rank_bytes(cfg, mesh_shape, seq):
+    """The bytes one rank of a ``mesh_shape`` world holds at its peak in
+    a bf16 AdamW step (fp32 moments) of ``cfg`` at ``seq``: its blocks of
+    the parameters and gradients (2 bytes) and its ZeRO-1 slices of the
+    two moments (8 bytes), which live through the step, then the larger
+    of what the backward and the update add (the update runs after the
+    activations are freed): the activations of remat (each unit's input,
+    one unit's intermediates, one logits chunk and the gathered
+    vocabulary leaves), or the optimizer's stacked copies of its largest
+    leaf (parameter and gradient) with its fp32 temporaries and the
+    gradient average's fp32 bucket; 1 GB for the context and workspaces.
+    Computed from the leaves' specs on a network built on the meta
+    device."""
+    from repro_torch.distributed.sharding import (Mesh, block_shape,
+                                                  leaf_spec, leaf_zero_spec)
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.convert import reference_leaves
+    pods, data, model = mesh_shape
+    shape = ({"pod": pods, "data": data, "model": model} if pods > 1
+             else {"data": data, "model": model})
+    mesh = Mesh(shape)
+    net = tf.Decoder(cfg, device="meta")
+    params = dict(net.named_parameters())
+    p_el = z_el = biggest = 0
+    for path, leaf in reference_leaves(net).items():
+        full = ((len(leaf.names),) if leaf.stacked else ()) + tuple(
+            params[leaf.names[0]].shape)
+        blk = math.prod(block_shape(full, leaf_spec(path, full, mesh), mesh))
+        p_el += blk
+        z_el += math.prod(block_shape(full, leaf_zero_spec(path, full, mesh),
+                                      mesh))
+        biggest = max(biggest, blk)
+    rows = SHARD_BATCH // (pods * data)
+    d, v = cfg.d_model, cfg.vocab_size
+    act = (cfg.n_layers * rows * seq * d * 2
+           + 24 * rows * seq * max(d, cfg.d_ff // model) * 4
+           + 3 * rows * min(cfg.logits_chunk or seq, seq) * v * 4
+           + 2 * v * d * 2)
+    opt = 2 * biggest * 2 + 6 * (1 << 26) * 4 + 2 * (1 << 26) * 4
+    return {"params": 2 * p_el, "grads": 2 * p_el, "moments": 8 * z_el,
+            "optimizer": opt, "activations": act, "context": int(1e9),
+            "total": 4 * p_el + 8 * z_el + max(opt, act) + int(1e9)}
+
+
+def shard_path_depth(seq):
+    """13.2's depth: the most layers (up to the config's) at which four
+    ranks' ``rank_bytes`` fit the card beside CARD_RESERVE."""
+    from repro_torch.configs import get
+    full = get(SHARD_ARCH).n_layers
+    world = math.prod(SHARD_PATH_MESH)
+    for layers in range(full, 0, -1):
+        est = rank_bytes(shard_config("bfloat16", layers), SHARD_PATH_MESH,
+                         seq)
+        if world * est["total"] + CARD_RESERVE <= CARD_BYTES:
+            return layers, est
+    raise SmokeFailure("§13.2: not one layer fits four ranks on the card")
+
+
+def sharded_training(torch):
+    """§13; returns the launch counts of its path runs (every rank of
+    13.1 and 13.2), summed."""
+    from repro_torch import kernels
+    from repro_torch.distributed import on_first_card, spawn
+    from repro_torch.kernels import _build
+    so = os.path.join(_build.BUILD_DIR, "repro_torch_kernels.so")
+    built = os.stat(so).st_mtime_ns
+    root = os.path.join(HERE, "build", "smoke_shard")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t_start = time.perf_counter()
+    layers, est, whole_walls, whole_peak = path_unsharded(torch)
+    want_losses, want_file = exact_unsharded(torch, root)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    emit({"shard_parent_before_world": {
+        "memory_allocated": torch.cuda.memory_allocated(),
+        "memory_reserved": torch.cuda.memory_reserved()}})
+    t0 = time.perf_counter()
+    # the ranks' allocators grow their segments in place: four ranks fill
+    # the card, and with fixed segments 13.2 left 5.25 GB a rank reserved
+    # but unallocated (H100 80GB)
+    saved = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        rs = spawn(shard_rank, SHARD_WORLD, device_of_rank=on_first_card,
+                   init_dir=os.path.join(root, "world"), timeout_s=600,
+                   args=(want_file, layers))
+    finally:
+        if saved is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
+    world_s = time.perf_counter() - t0
+    totals = {name: 0 for name in kernels.launches()}
+    add_counts(totals, path_report([r["path"] for r in rs], layers, est,
+                                   whole_walls, whole_peak))
+    for shape in SHARD_EXACT:
+        add_counts(totals, exact_report(
+            [r["exact"][shape] for r in rs], shape, want_losses))
+    pods_report([r["pods"] for r in rs])
+    shard_launcher(torch)
+    check(os.stat(so).st_mtime_ns == built,
+          "§13: a rank rebuilt the extension in build/torch_ext/")
+    emit({"sharded_s": time.perf_counter() - t_start, "world_s": world_s,
+          "launches": totals})
+    return totals
+
+
+def exact_unsharded(torch, root):
+    """13.1's reference: two unsharded fp32 steps on the card.  Returns
+    the losses and the file that holds the whole parameters after them
+    (``{"params": {leaf path: fp32 tensor}, "scale": {leaf path: its
+    largest magnitude}}``), which each rank reads in place."""
+    cfg = shard_config("float32", 2)
+    batch = shard_batch(cfg, SHARD_SEQ)
+    tr = shard_trainer(cfg, SHARD_SEQ, SHARD_OPT)
+    losses = []
+    for _ in range(2):
+        m = tr.train_step({k: torch.from_numpy(v).cuda()
+                           for k, v in batch.items()})
+        losses.append(float(m["loss"]))
+    want = {p: torch.from_numpy(v.copy())
+            for p, v in tr._whole_leaves()[0].items()}
+    del tr
+    path = os.path.join(root, "exact_want.pt")
+    torch.save({"params": want,
+                "scale": {p: float(w.abs().max()) for p, w in want.items()}},
+               path)
+    return losses, path
+
+
+def path_unsharded(torch):
+    """13.2's reference: the unsharded bf16 run on the card at 13.2's
+    depth (``shard_path_depth``), a cold and a warm step.  Returns (the
+    depth, the per-rank estimate, the step walls, the peak memory)."""
+    layers, est = shard_path_depth(SHARD_SEQ)
+    tr = shard_trainer(shard_config("bfloat16", layers, remat=True),
+                       SHARD_SEQ, SHARD_PATH_OPT)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for step in range(2):
+        batch = tr.batch_at(step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train_step(batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    del tr, batch
+    emit({"shard_path_unsharded": SHARD_ARCH, "layers": layers,
+          "seq": SHARD_SEQ, "batch": SHARD_BATCH, "step_wall_s": walls,
+          "max_memory_allocated": peak})
+    return layers, est, walls, peak
+
+
+def check_k4(rs, tag):
+    """K4 launched in every rank of ``rs``, its plain version on no CUDA
+    tensor; returns the ranks' launches summed."""
+    totals = {}
+    for rank, r in enumerate(rs):
+        check(r["on_card"], f"{tag}: a rank's tensors left the card")
+        check(r["launches"]["flash_attention_cuda"] > 0,
+              f"{tag}: K4 never launched in rank {rank}")
+        check(r["k4_plain"] == 0, f"{tag}: K4's plain version ran on the "
+              f"card in rank {rank}")
+        add_counts(totals, r["launches"])
+    return totals
+
+
+def exact_report(rs, shape, want_losses):
+    """13.1's gates on one mesh's ranks: loss within SHARD_LOSS_TOL
+    relative, every rank's block of every parameter within
+    SHARD_PARAM_TOL of the whole parameter's largest entry, K4."""
+    tag = "x".join(map(str, shape))
+    errs = {}
+    for r in rs:
+        for p, e in r["errs"].items():
+            errs[p] = max(errs.get(p, 0.0), e)
+    worst = max(errs, key=errs.get)
+    loss_err = max(abs(l - w) / abs(w) for r in rs
+                   for l, w in zip(r["losses"], want_losses))
+    emit({"shard_exact": tag, "world": len(rs), "losses": rs[0]["losses"],
+          "unsharded_losses": want_losses, "loss_rel_err": loss_err,
+          "param_rel_err_max": errs[worst], "param_worst": worst,
+          "k4_launches_by_rank": [r["launches"]["flash_attention_cuda"]
+                                  for r in rs],
+          "k4_plain_on_cuda_by_rank": [r["k4_plain"] for r in rs],
+          "tp_modules": rs[0]["tp"], "init_s": rs[0]["init_s"],
+          "step_wall_s_slowest": [max(r["step_wall_s"][i] for r in rs)
+                                  for i in range(2)],
+          "collectives_rank0": rs[0]["collectives"],
+          "compare_s": rs[0]["compare_s"]})
+    check(loss_err < SHARD_LOSS_TOL,
+          f"§13.1 {tag}: loss rel err {loss_err:.3e}")
+    check(errs[worst] < SHARD_PARAM_TOL,
+          f"§13.1 {tag}: {worst} rel err {errs[worst]:.3e}")
+    check(all(r["leaves_match"] for r in rs), f"§13.1 {tag}: leaves differ")
+    return check_k4(rs, f"§13.1 {tag}")
+
+
+def path_report(rs, layers, est, whole_walls, whole_peak):
+    """13.2's report (step walls, peaks, collectives) and gates: finite
+    losses, K4, each rank's peak below the unsharded run's."""
+    peaks = [r["peak"] for r in rs]
+    emit({"shard_path": SHARD_ARCH, "mesh": SHARD_PATH_MESH,
+          "layers": layers, "seq": SHARD_SEQ, "batch": SHARD_BATCH,
+          "estimate_per_rank": est,
+          "step_wall_s_slowest": [max(r["walls"][i] for r in rs)
+                                  for i in range(len(rs[0]["walls"]))],
+          "step_wall_s_by_rank": [r["walls"] for r in rs],
+          "unsharded_step_wall_s": whole_walls,
+          "peak_by_rank": peaks, "unsharded_peak": whole_peak,
+          "peak_reserved_by_rank": [r["peak_reserved"] for r in rs],
+          "collectives_by_step_rank0": rs[0]["stats"],
+          "k4_launches_by_rank": [r["launches"]["flash_attention_cuda"]
+                                  for r in rs],
+          "k4_plain_on_cuda_by_rank": [r["k4_plain"] for r in rs],
+          "losses": rs[0]["losses"], "init_s": [r["init_s"] for r in rs]})
+    for r in rs:
+        check(all(math.isfinite(x) for x in r["losses"]),
+              f"§13.2: non-finite loss {r['losses']}")
+    check(max(peaks) < whole_peak, f"§13.2: a rank's peak {max(peaks)} is "
+          f"not below the unsharded run's {whole_peak}")
+    return check_k4(rs, "§13.2")
+
+
+def pods_report(rs):
+    """13.3's gates: ``compress_pod_mean`` over SHARD_POD_MESH on the
+    card, each pod with a gradient of its own, against the CPU on the
+    same inputs: the quantizer bitwise on every pod's input, the mean
+    over the gathered payloads and the new error within 1e-6."""
+    r = rs[0]
+    emit({"shard_pods": SHARD_POD_MESH,
+          "quantizer_bitwise": r["quantizer_bitwise"],
+          "mean_err": max(x["mean_err"] for x in rs),
+          "err_err": max(x["err_err"] for x in rs)})
+    check(all(x["quantizer_bitwise"] for x in rs), "§13.3: the card's int8 "
+          "quantization differs from the CPU's")
+    check(max(x["mean_err"] for x in rs) <= 1e-6,
+          f"§13.3: mean err {r['mean_err']:.3e}")
+    check(max(x["err_err"] for x in rs) <= 1e-6,
+          f"§13.3: new error err {r['err_err']:.3e}")
+
+
+def shard_launcher(torch):
+    """13.4: ``launch/train.py --smoke --mesh 1,2,2 --steps 3`` as a
+    subprocess on the card (4 gloo ranks on cuda:0): exit 0 and
+    ``steps=3 restarts=0``."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(HERE, "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "qwen1.5-4b", "--smoke", "--mesh", "1,2,2", "--steps", "3"],
+        cwd=HERE, env=env, capture_output=True, text=True, timeout=300)
+    lines = out.stdout.strip().splitlines()
+    emit({"shard_launcher": "qwen1.5-4b --smoke --mesh 1,2,2 --steps 3",
+          "returncode": out.returncode, "last": lines[-2:],
+          "wall_s": time.perf_counter() - t0})
+    check(out.returncode == 0 and lines and lines[-1] == "steps=3 restarts=0",
+          f"§13.4: the launcher failed: {out.stderr[-2000:]}")
+
+
+def shard_rank(rank, world, device, want_file, layers):
+    """One rank of §13's world: 13.2 (first, on a fresh allocator: it
+    fills the card), 13.1 on each SHARD_EXACT mesh, then 13.3, each on a
+    mesh of its own over the world."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.extension()
+    out = {"path": shard_rank_path(torch, make_mesh(*SHARD_PATH_MESH),
+                                   layers), "exact": {}}
+    gc.collect()
+    torch.cuda.empty_cache()
+    for shape in SHARD_EXACT:
+        out["exact"][shape] = shard_rank_exact(torch, make_mesh(*shape),
+                                               want_file)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["pods"] = shard_rank_pods(torch, make_mesh(*SHARD_POD_MESH))
+    return out
+
+
+def on_card(tr) -> bool:
+    """Every parameter and moment of the trainer on the card."""
+    ts = list(tr.net.parameters())
+    for tree in (tr.opt_state.mu, tr.opt_state.nu):
+        ts += list((tree or {}).values())
+    return all(t.is_cuda for t in ts)
+
+
+def block_errors(torch, tr, want_file):
+    """Each leaf's error in this rank's block of it against the same
+    block of the unsharded run's (read in place from ``want_file``),
+    relative to the whole leaf's largest magnitude; and whether the leaf
+    paths match."""
+    from repro_torch.distributed.sharding import shard_of
+    from repro_torch.models.convert import reference_leaves
+    want = torch.load(want_file, mmap=True)
+    named = dict(tr.net.named_parameters())
+    errs = {}
+    for path, leaf in reference_leaves(tr.net).items():
+        rows = [named[n].detach() for n in leaf.names]
+        got = torch.stack(rows) if leaf.stacked else rows[0]
+        w = shard_of(want["params"][path], tr.layout.specs[path], tr.mesh)
+        errs[path] = (float((got - w.to(got.device)).abs().max())
+                      / max(want["scale"][path], 1e-30))
+    return errs, set(errs) == set(want["params"])
+
+
+def shard_rank_exact(torch, mesh, want_file):
+    from repro_torch import kernels
+    from repro_torch.distributed import (collective_stats,
+                                         reset_collective_stats)
+    cfg = shard_config("float32", 2)
+    batch = shard_batch(cfg, SHARD_SEQ)
+    t0 = time.perf_counter()
+    tr = shard_trainer(cfg, SHARD_SEQ, SHARD_OPT, mesh=mesh)
+    rows = {k: torch.from_numpy(v).cuda() for k, v in tr.rows(batch).items()}
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    kernels.reset_launches()
+    reset_collective_stats()
+    losses, walls = [], []
+    with PlainK4Calls() as plain:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            losses.append(float(tr.train_step(rows)["loss"]))
+            walls.append(time.perf_counter() - t0)
+    counts = kernels.launches()
+    stats = collective_stats()
+    t0 = time.perf_counter()
+    errs, leaves_match = block_errors(torch, tr, want_file)
+    return {"losses": losses, "launches": counts, "k4_plain": plain.calls,
+            "on_card": on_card(tr), "init_s": init_s, "step_wall_s": walls,
+            "collectives": stats, "errs": errs, "leaves_match": leaves_match,
+            "compare_s": time.perf_counter() - t0,
+            "tp": sorted(n for n, m in tr.net.named_modules()
+                         if getattr(m, "tp", None) is not None)}
+
+
+def shard_rank_path(torch, mesh, layers):
+    from repro_torch import kernels
+    from repro_torch.distributed import (collective_stats,
+                                         reset_collective_stats)
+    cfg = shard_config("bfloat16", layers, remat=True)
+    t0 = time.perf_counter()
+    tr = shard_trainer(cfg, SHARD_SEQ, SHARD_PATH_OPT, mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    walls, stats, losses = [], [], []
+    with PlainK4Calls() as plain:
+        for step in range(2):
+            batch = tr.batch_at(step)
+            torch.cuda.synchronize()
+            reset_collective_stats()
+            t0 = time.perf_counter()
+            m = tr.train_step(batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            stats.append(collective_stats())
+            losses.append(float(m["loss"]))
+    return {"walls": walls, "stats": stats, "losses": losses,
+            "peak": torch.cuda.max_memory_allocated(),
+            "peak_reserved": torch.cuda.max_memory_reserved(),
+            "init_s": init_s,
+            "launches": kernels.launches(), "k4_plain": plain.calls,
+            "on_card": on_card(tr)}
+
+
+def shard_rank_pods(torch, mesh):
+    import numpy as np
+    from repro_torch.training import compression
+    rng = np.random.default_rng(SEED + 17)
+    g = rng.standard_normal((3072, 1024)).astype(np.float32)
+    e = (rng.standard_normal(g.shape) * 1e-3).astype(np.float32)
+    pod = mesh.coords["pod"]
+    mine = g * (1 + pod)
+    mg, ne = compression.compress_pod_mean(
+        {"w": torch.from_numpy(mine).cuda()}, {"w": torch.from_numpy(e).cuda()},
+        mesh)
+    want, bitwise = 0.0, True
+    for p in range(mesh.shape["pod"]):
+        x = torch.from_numpy(g * (1 + p) + e)
+        q, s = compression._quantize(x)
+        qc, _ = compression._quantize(x.cuda())
+        bitwise = bitwise and torch.equal(qc.cpu(), q)
+        want = want + compression._dequantize(q, s)
+        if p == pod:
+            want_err = x - compression._dequantize(q, s)
+    want = want / mesh.shape["pod"]
+    return {"quantizer_bitwise": bool(bitwise),
+            "mean_err": float((mg["w"].cpu() - want).abs().max()),
+            "err_err": float((ne["w"].cpu() - want_err).abs().max())}
 
 if __name__ == "__main__":
     try:

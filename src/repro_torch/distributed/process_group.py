@@ -18,9 +18,10 @@ backend runs them as P processes, each owning its own blocks.
   tensors only, so a gloo group given CUDA tensors stages every operation
   the same way, through pinned host memory (:func:`to_host`,
   :func:`to_device`).  NCCL and CPU tensors do not stage.
-
-``sharding.py`` (the models' multi-device sharding) comes in a later slice,
-in this package.
+* The collectives the models' sharding takes (``sharding.py``), on any
+  group or subgroup, staged by the same rule: :func:`all_reduce` (sum or
+  mean), :func:`all_gather` along a dimension and :func:`reduce_scatter`.
+  Each returns a new tensor and leaves its input as it was.
 """
 
 from __future__ import annotations
@@ -85,7 +86,9 @@ def to_host(x: torch.Tensor) -> torch.Tensor:
     copy runs on a side stream after the work already queued on the
     current stream."""
     side = _side_stream(x.device)
-    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    # on the host by name: a caller's default device may be the card
+    host = torch.empty(x.shape, dtype=x.dtype, device="cpu",
+                       pin_memory=True)
     with torch.profiler.record_function("stage_d2h"):
         side.wait_stream(torch.cuda.current_stream(x.device))
         with torch.cuda.stream(side):
@@ -149,6 +152,92 @@ def recv(like: torch.Tensor, src: int, group=None) -> torch.Tensor:
                       device="cpu" if staged else like.device)
     dist.recv(buf, dist.get_global_rank(group, src), group=group)
     return to_device(buf, like.device) if staged else buf
+
+
+def _group_size(group) -> int:
+    return dist.get_world_size(group)
+
+
+#: what this process's :func:`all_reduce`, :func:`all_gather` and
+#: :func:`reduce_scatter` have done since :func:`reset_collective_stats`:
+#: calls, bytes staged through pinned host memory (both ways) and host
+#: seconds spent in them (staging copies and waits included)
+_STATS = {"calls": 0, "staged_bytes": 0, "host_s": 0.0}
+
+
+def collective_stats() -> dict:
+    return dict(_STATS)
+
+
+def reset_collective_stats() -> None:
+    _STATS.update(calls=0, staged_bytes=0, host_s=0.0)
+
+
+def _count(t0: float, staged_bytes: int) -> None:
+    _STATS["calls"] += 1
+    _STATS["staged_bytes"] += staged_bytes
+    _STATS["host_s"] += time.perf_counter() - t0
+
+
+def all_reduce(x: torch.Tensor, group=None, *, op: str = "sum"
+               ) -> torch.Tensor:
+    """The sum (``op="sum"``) or the mean (``op="mean"``) of ``x`` over the
+    ranks of ``group``, on every rank, in ``x``'s type and on its device.
+    On a gloo group a 2-byte float is reduced in fp32 and rounded once
+    (gloo's half-precision sums are not taken); the mean divides the sum
+    by the group's size."""
+    group = group or dist.group.WORLD
+    if op not in ("sum", "mean"):
+        raise ValueError(f"op must be 'sum' or 'mean', got {op!r}")
+    t0, n = time.perf_counter(), _group_size(group)
+    narrow = (x.dtype in (torch.bfloat16, torch.float16)
+              and dist.get_backend(group) == "gloo")
+    buf = x.to(torch.float32) if narrow else x
+    staged = stages(group, buf)
+    if staged:
+        host = to_host(buf)
+        dist.all_reduce(host, group=group)
+        out = to_device(host, x.device)
+    else:
+        out = buf.clone()
+        dist.all_reduce(out, group=group)
+    if op == "mean" and n > 1:
+        out = out / n
+    out = out.to(x.dtype) if narrow else out
+    _count(t0, 2 * buf.numel() * buf.element_size() if staged else 0)
+    return out
+
+
+def all_gather(x: torch.Tensor, group=None, *, dim: int = 0
+               ) -> torch.Tensor:
+    """Every rank's ``x`` (one shape on every rank) concatenated along
+    ``dim`` in the group's rank order, on every rank."""
+    group = group or dist.group.WORLD
+    t0, n = time.perf_counter(), _group_size(group)
+    staged = stages(group, x)
+    src = to_host(x) if staged else x.contiguous()
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    out = torch.cat(parts, dim=dim)
+    out = to_device(out, x.device) if staged else out
+    _count(t0, (n + 1) * x.numel() * x.element_size() if staged else 0)
+    return out
+
+
+def reduce_scatter(x: torch.Tensor, group=None, *, dim: int = 0
+                   ) -> torch.Tensor:
+    """This rank's block along ``dim`` (the group's size divides it) of
+    the sum of ``x`` over the group.  Gloo has no reduce-scatter: this is
+    :func:`all_reduce` followed by this rank's block, which moves the
+    whole tensor where a reduce-scatter moves one block of it."""
+    group = group or dist.group.WORLD
+    n = _group_size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} "
+                         f"does not split over {n} ranks")
+    size = x.shape[dim] // n
+    return all_reduce(x, group).narrow(dim, dist.get_rank(group) * size,
+                                       size).contiguous()
 
 
 # -- spawning a world ---------------------------------------------------------

@@ -18,6 +18,15 @@ through ``FlashAttention``: its forward launches K4, its backward recomputes
 the output through ``_sdpa_chunked`` (window 0), the twin that the
 reference's gradient goes through, and differentiates that.
 
+Under a mesh whose ``model`` axis cuts the projections on whole query
+heads, ``attention_train`` runs tensor-parallel (Megatron-style): the rank
+holds the columns of ``wq`` (and of ``wk`` / ``wv`` where the KV heads
+divide too) and the rows of ``wo`` of its own heads, runs the attention
+(K4 included) on them, and the ``model`` ranks sum ``wo``'s partial
+outputs.  KV leaves cut within a head are gathered whole
+(``sharding.placed``); each rank then takes the KV heads its query heads
+read.
+
 Decode (``attention_decode``) runs ``_sdpa`` over the whole KV ring buffer,
 as the reference's does: no kernel.  The reference keeps one cache a request
 and maps its step over the requests, each with a scalar length; here a cache
@@ -34,6 +43,7 @@ from typing import NamedTuple, Sequence
 import torch
 from torch import nn
 
+from ..distributed.sharding import tp_enter, tp_exit
 from ..kernels.flash_attention import flash_attention
 from .layers import Linear, apply_rope, dtype_of
 
@@ -48,7 +58,12 @@ KV_CHUNK = 1024
 
 class Attention(nn.Module):
     """The projections wq, wk, wv (optional bias) and wo, of a self- or a
-    cross-attention block alike."""
+    cross-attention block alike.  ``tp`` (a ``sharding.TP``) is set where
+    the self-attention runs tensor-parallel; ``kv_tp`` when ``wk`` / ``wv``
+    are cut on whole KV heads too."""
+
+    tp = None
+    kv_tp = False
 
     def __init__(self, cfg, *, device=None, generator=None):
         super().__init__()
@@ -168,13 +183,41 @@ def causal_mask(sq: int, skv: int, window: int = 0, offset: int = 0,
     return m[None]
 
 
+def _rank_kv(k, v, tp, h: int, kv: int):
+    """The KV heads (of all ``kv``) that this rank's ``h // tp.size`` query
+    heads read: a slice where they are whole groups (or one head), else one
+    KV head per query head."""
+    g, hl = h // kv, h // tp.size
+    q0 = tp.index * hl
+    kv0, kv1 = q0 // g, (q0 + hl - 1) // g + 1
+    if kv1 - kv0 == 1 or (q0 % g == 0 and hl % g == 0):
+        return k[:, kv0:kv1], v[:, kv0:kv1]
+    sel = torch.arange(q0, q0 + hl, device=k.device) // g
+    return k[:, sel], v[:, sel]
+
+
 def attention_train(p: Attention, cfg, x, positions, *, causal: bool = True,
                     window: int = 0):
-    """Full-sequence attention (train / prefill)."""
+    """Full-sequence attention (train / prefill); tensor-parallel when
+    ``p.tp`` is set."""
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = _split_heads(p.wq(x), h, hd)
-    k = _split_heads(p.wk(x), kv, hd)
-    v = _split_heads(p.wv(x), kv, hd)
+    tp = p.tp
+    if tp is None:
+        q = _split_heads(p.wq(x), h, hd)
+        k = _split_heads(p.wk(x), kv, hd)
+        v = _split_heads(p.wv(x), kv, hd)
+    else:
+        xt = tp_enter(x, tp)
+        q = _split_heads(p.wq(xt), h // tp.size, hd)
+        if p.kv_tp:
+            k = _split_heads(p.wk(xt), kv // tp.size, hd)
+            v = _split_heads(p.wv(xt), kv // tp.size, hd)
+        else:
+            # whole KV, computed alike on every model rank; each rank's
+            # heads feed only part of their gradient, summed by tp_enter
+            k = _split_heads(tp_enter(p.wk(x), tp), kv, hd)
+            v = _split_heads(tp_enter(p.wv(x), tp), kv, hd)
+            k, v = _rank_kv(k, v, tp, h, kv)
     if cfg.positions == "rope":
         q = apply_rope(q.transpose(1, 2), positions,
                        cfg.rope_theta).transpose(1, 2)
@@ -189,7 +232,8 @@ def attention_train(p: Attention, cfg, x, positions, *, causal: bool = True,
     else:
         mask = causal_mask(sq, sq, window, device=x.device) if causal else None
         o = _sdpa(q, k, v, mask, hd ** -0.5)
-    return p.wo(_merge_heads(o))
+    o = p.wo(_merge_heads(o))
+    return o if tp is None else tp_exit(o, tp)
 
 
 def cross_attention(p: Attention, cfg, x, memory):

@@ -9,6 +9,11 @@ biases, unit norm scales, normal(0, 0.02) embeddings); given none it leaves
 them uninitialised, for a state dict to be loaded.  Parameters are
 trainable (``requires_grad``, PyTorch's default); the paths that must build
 no graph (prefill, serving, decode) run under ``torch.inference_mode()``.
+
+Under a mesh (``distributed/sharding.py``) a parameter may hold only this
+rank's block: ``Linear`` and ``Embedding`` gather a ``"gather"`` block where
+they use it, and an ``MLP`` whose ``tp`` is set runs tensor-parallel, its
+``up`` / ``gate`` cut by columns and ``down`` by rows.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..distributed.sharding import placed, tp_enter, tp_exit
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -62,14 +69,18 @@ class Linear(nn.Module):
                   if bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.w
-        if x.dtype != w.dtype:
-            dt = torch.promote_types(x.dtype, w.dtype)
-            x, w = x.to(dt), w.to(dt)
-        y = torch.matmul(x, w)
+        y = promoted_matmul(x, placed(self.w))
         if self.b is not None:
-            y = y + self.b
+            y = y + placed(self.b)
         return y
+
+
+def promoted_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w, operands of two types promoted to the wider one."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return torch.matmul(x, w)
 
 
 class RMSNorm(nn.Module):
@@ -96,7 +107,7 @@ class Embedding(nn.Module):
         self.w = _param((vocab, d), dtype, device, generator, 0.02)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.w[tokens.long()]
+        return placed(self.w)[tokens.long()]
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -107,7 +118,12 @@ ACTIVATIONS = {"silu": F.silu, "gelu": gelu, "relu": F.relu}
 
 
 class MLP(nn.Module):
-    """down(act(gate(x)) * up(x)) when gated, else down(act(up(x)))."""
+    """down(act(gate(x)) * up(x)) when gated, else down(act(up(x))).  With
+    ``tp`` (a ``sharding.TP``) the rank holds the columns of ``up`` /
+    ``gate`` and the rows of ``down`` of its share of ``d_ff``, and the
+    partial outputs are summed over the ``model`` ranks."""
+
+    tp = None
 
     def __init__(self, d: int, d_ff: int, dtype, gated: bool,
                  activation: str = "silu", *, device=None, generator=None):
@@ -119,12 +135,15 @@ class MLP(nn.Module):
         self.gate = Linear(d, d_ff, dtype, **kw) if gated else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            x = tp_enter(x, self.tp)
         h = self.up(x)
         if self.gate is not None:
             h = h * self.act(self.gate(x))
         else:
             h = self.act(h)
-        return self.down(h)
+        y = self.down(h)
+        return y if self.tp is None else tp_exit(y, self.tp)
 
 
 # ---------------------------------------------------------------------------

@@ -21,27 +21,35 @@ each chunk's (B, chunk, V) logits recomputed in the backward, so the whole
 logits tensor is never held.  Without ``device=`` the module and the caches
 go on the current GPU, and without a GPU ``init`` and ``init_cache`` raise:
 the caller names the CPU to run the plain versions.
+
+Under a mesh, ``Model.shard(net, mesh)`` cuts the network's parameters to
+this rank's blocks (``distributed/sharding.py``) and sets the dense blocks'
+tensor parallelism; ``loss`` then gives the rank's mean over its own rows
+of the batch, which the trainer averages over the batch ranks.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Optional, Union
+from typing import Dict, Mapping, Optional, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..devices import canonical, default_devices
+from ..distributed.sharding import P, TP, Placement, dims_over, leaf_spec
 from . import encdec as ed
 from . import transformer as tf
-from .layers import REMAT
+from .attention import Attention
+from .convert import reference_leaves
+from .layers import MLP, REMAT
 
 
-def _ce_chunk(net, cfg, h, y):
-    """(sum of the token losses, count of valid labels) of one chunk;
-    labels < 0 are ignored."""
-    logits = tf.lm_logits(net, cfg, h).to(torch.float32)
+def _ce_chunk(net, cfg, h, y, w):
+    """(sum of the token losses, count of valid labels) of one chunk, with
+    ``w`` the LM head's weight; labels < 0 are ignored."""
+    logits = tf.lm_logits(net, cfg, h, w).to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     valid = y >= 0
     gold = torch.gather(logits, -1,
@@ -53,19 +61,22 @@ def _ce_chunk(net, cfg, h, y):
 def _chunked_ce(net, cfg, hidden, labels, chunk: int):
     """Mean cross-entropy over the valid tokens, chunk by chunk along the
     sequence: the chunk is ``chunk or S``, at most S, halved until it
-    divides S; each chunk's body is recomputed in the backward."""
+    divides S; each chunk's body is recomputed in the backward.  The LM
+    head's weight is taken once for every chunk (under a mesh, one gather
+    a loss: the recomputed chunks reuse it)."""
     s = hidden.shape[1]
     chunk = min(chunk or s, s)
     while s % chunk != 0:
         chunk //= 2
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    w = tf.lm_head_weight(net, cfg)
     for c0 in range(0, s, chunk):
         h, y = hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk].long()
         if torch.is_grad_enabled():
-            t, n = checkpoint(_ce_chunk, net, cfg, h, y, **REMAT)
+            t, n = checkpoint(_ce_chunk, net, cfg, h, y, w, **REMAT)
         else:
-            t, n = _ce_chunk(net, cfg, h, y)
+            t, n = _ce_chunk(net, cfg, h, y, w)
         total, count = total + t, count + n
     return total / torch.clamp(count, min=1.0)
 
@@ -84,6 +95,61 @@ class Model:
         if self.cfg.block_pattern == "encdec":
             return ed.EncDec(self.cfg, device=device, generator=gen)
         return tf.Decoder(self.cfg, device=device, generator=gen)
+
+    def shard(self, net, mesh) -> Dict[str, P]:
+        """Cut ``net``'s parameters in place to this rank's blocks under
+        ``mesh`` and return ``{reference leaf path: spec}``.
+
+        A leaf's spec is :func:`sharding.leaf_spec` of the reference's
+        stacked leaf.  The self-attention blocks (``attn``) whose ``wq`` /
+        ``wo`` are cut on whole query heads run tensor-parallel, with
+        ``wk`` / ``wv`` too where the KV heads divide; the MLPs whose
+        ``up`` / ``gate`` / ``down`` are cut on ``d_ff`` run
+        tensor-parallel; every other leaf cut over ``model`` is gathered
+        where it is used.  Each cut parameter carries its ``placement``."""
+        m = mesh.shape.get("model", 1)
+        params = dict(net.named_parameters())
+        specs, cut = {}, {}
+        for path, leaf in reference_leaves(net).items():
+            p0 = params[leaf.names[0]]
+            shape = (len(leaf.names),) * leaf.stacked + tuple(p0.shape)
+            specs[path] = spec = leaf_spec(path, shape, mesh)
+            dims = dims_over(spec, "model")
+            for name in leaf.names:
+                cut[name] = dims[0] - leaf.stacked if dims else None
+        if m == 1:
+            return specs
+        tp = TP(mesh.group("model"), m, mesh.axis_index("model"))
+        mode = {}
+        for mname, mod in net.named_modules():
+            pre = f"{mname}." if mname else ""
+            if isinstance(mod, Attention) and mname.endswith("attn"):
+                q_whole = (cut[pre + "wq.w"] == 1 and cut[pre + "wo.w"] == 0
+                           and self.cfg.n_heads % m == 0)
+                if not q_whole:
+                    continue
+                mod.tp = tp
+                mod.kv_tp = (cut[pre + "wk.w"] == 1
+                             and self.cfg.n_kv_heads % m == 0)
+                names = ["wq", "wo"] + (["wk", "wv"] if mod.kv_tp else [])
+                mode.update((f"{pre}{n}.{w}", "tp") for n in names
+                            for w in ("w", "b"))
+            elif isinstance(mod, MLP):
+                lins = ["up", "down"] + (["gate"] if mod.gate is not None
+                                         else [])
+                want = {"up": 1, "gate": 1, "down": 0}
+                if all(cut[f"{pre}{n}.w"] == want[n] for n in lins):
+                    mod.tp = tp
+                    mode.update((f"{pre}{n}.w", "tp") for n in lins)
+        with torch.no_grad():
+            for name, p in params.items():
+                dim = cut[name]
+                if dim is None:
+                    continue
+                size = p.shape[dim] // m
+                p.data = p.data.narrow(dim, tp.index * size, size).clone()
+                p.placement = Placement(dim, mode.get(name, "gather"), mesh)
+        return specs
 
     def loss(self, net, batch: Mapping[str, torch.Tensor]):
         """(loss, {"ce", "aux"}): the mean cross-entropy of

@@ -12,9 +12,16 @@ not grow with the sequence.  The routing keeps the reference's order of
 operations (softmax, top-k, renormalisation, the running count over the
 ``(s, k)``-flattened one-hots), so the same tokens are dropped.  The
 products are ``torch.einsum`` contractions, which the reference leaves to
-XLA outside any Pallas kernel.  The reference's sharding constraints have
-no effect on one device and are dropped.  Returns the Switch-style
+XLA outside any Pallas kernel.  Returns the Switch-style
 load-balance loss beside the output.
+
+Under a mesh (``distributed/sharding.py``) the expert banks are gathered
+over ``model`` where they are used, and the load-balance statistics (the
+routed share and the mean router probability of each expert) are averaged
+over the batch ranks, so that the loss is the reference's over the whole
+batch.  The reference's expert-parallel test (experts divide the
+``model`` axis: :func:`ep_works`) is kept as a reported fact; the dispatch
+itself is not expert-parallel.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed.sharding import active, batch_mean, placed
 from .layers import ACTIVATIONS, MLP, Linear, _param, dtype_of
 
 #: tokens per routing group: fixes the dispatch tensors' size per token
@@ -99,6 +107,17 @@ def route(p: MoE, cfg, x: torch.Tensor) -> Routing:
     return Routing(probs, gate_idx, gate_vals * keep, keep, onehot, pos)
 
 
+def ep_works(cfg) -> bool:
+    """The reference's test of the active mesh: the experts divide the mesh
+    axis of the ``experts`` rule (True without a mesh)."""
+    ctx = active()
+    if ctx is None:
+        return True
+    mesh, rules = ctx
+    ax = rules.get("experts")
+    return bool(ax) and ax in mesh.shape and cfg.moe.n_experts % mesh.shape[ax] == 0
+
+
 def moe_block(p: MoE, cfg, x: torch.Tensor):
     """x: (B, S, D) -> (out (B, S, D), aux_loss fp32 scalar)."""
     m = cfg.moe
@@ -119,12 +138,12 @@ def moe_block(p: MoE, cfg, x: torch.Tensor):
                            r.onehot * r.gate_vals[..., None], pos_oh)
 
     xe = torch.einsum("bsec,bsd->becd", dispatch.to(x.dtype), x)  # (G,E,C,D)
-    h = torch.einsum("becd,edf->becf", xe, p.w_up)
+    h = torch.einsum("becd,edf->becf", xe, placed(p.w_up))
     if p.w_gate is not None:
-        h = h * act(torch.einsum("becd,edf->becf", xe, p.w_gate))
+        h = h * act(torch.einsum("becd,edf->becf", xe, placed(p.w_gate)))
     else:
         h = act(h)
-    ye = torch.einsum("becf,efd->becd", h, p.w_down)               # (G,E,C,D)
+    ye = torch.einsum("becf,efd->becd", h, placed(p.w_down))       # (G,E,C,D)
     y = torch.einsum("bsec,becd->bsd", combine.to(x.dtype), ye)
 
     if p.shared is not None:
@@ -133,7 +152,7 @@ def moe_block(p: MoE, cfg, x: torch.Tensor):
         y = y + p.dense(x)
 
     # Switch-style load-balance loss: E * sum_e f_e * P_e
-    f = torch.mean(r.onehot.sum(2), dim=(0, 1))                 # routed share
-    pmean = torch.mean(r.probs, dim=(0, 1))
+    f = batch_mean(torch.mean(r.onehot.sum(2), dim=(0, 1)))     # routed share
+    pmean = batch_mean(torch.mean(r.probs, dim=(0, 1)))
     aux = m.n_experts * torch.sum(f * pmean) * m.router_aux_weight
     return y.reshape(bsz, seq, d), aux

@@ -19,6 +19,12 @@ runs under ``torch.utils.checkpoint`` and is recomputed in the backward, as
 the reference checkpoints each unit.  The decode caches are a list with one
 dict a layer, in the same order (``init_decode_cache``), where the
 reference stacks them per layer group.
+
+Under a mesh (``distributed/sharding.py``, ``Model.shard``) the dense
+blocks' attention and MLP run tensor-parallel where their leaves are cut on
+whole heads or on ``d_ff`` columns; every other leaf cut over ``model`` is
+gathered where it is used, inside the remat unit, so the recompute gathers
+it again.
 """
 
 from __future__ import annotations
@@ -29,9 +35,11 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.sharding import placed
 from .attention import (Attention, attention_decode, attention_train,
                         cross_attention, init_kv_cache)
-from .layers import REMAT, MLP, Embedding, Linear, RMSNorm, _param, dtype_of
+from .layers import (REMAT, MLP, Embedding, Linear, RMSNorm, _param,
+                     dtype_of, promoted_matmul)
 from .moe import MoE, moe_block
 from .ssm import (MLSTM, SLSTM, SSD, init_slstm_state, init_ssm_state,
                   mlstm_decode, mlstm_train, slstm_decode, slstm_train,
@@ -242,10 +250,20 @@ def _unit_train(unit, cfg, kinds, x, positions, memory):
     return x, aux
 
 
-def lm_logits(net: Decoder, cfg, x: torch.Tensor) -> torch.Tensor:
+def lm_head_weight(net: Decoder, cfg) -> torch.Tensor:
+    """The weight the logits take: the tied embeddings (V, D) or the LM
+    head's (D, V), whole (gathered over ``model`` under a mesh)."""
+    return placed(net.embed.w if cfg.tie_embeddings else net.lm_head.w)
+
+
+def lm_logits(net: Decoder, cfg, x: torch.Tensor, weight=None
+              ) -> torch.Tensor:
+    """The logits of ``x``; ``weight`` is :func:`lm_head_weight`'s, taken
+    once for several calls (the loss's chunks)."""
+    w = lm_head_weight(net, cfg) if weight is None else weight
     if cfg.tie_embeddings:
-        return torch.einsum("bsd,vd->bsv", x, net.embed.w)
-    return net.lm_head(x)
+        return torch.einsum("bsd,vd->bsv", x, w)
+    return promoted_matmul(x, w)
 
 
 # ---------------------------------------------------------------------------

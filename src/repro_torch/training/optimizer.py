@@ -14,17 +14,29 @@ them and writes the rows back).
 The update runs in place on the tensors given (the reference donates its
 buffers) and returns them.  AdamW's elementwise math runs a block of rows
 of a leaf at a time, which rounds as the whole leaf would and bounds its
-fp32 temporaries.  ZeRO-1's sharding constraint (the reference's
-``_zero_constrain``) has no effect on one device and is not ported.
+fp32 temporaries.
+
+ZeRO-1 under a mesh (the reference's ``_zero_constrain``): AdamW's moments
+are kept per ``zero_spec`` of the stacked leaf's spec, the ``data`` axis
+added on one replicated dimension, so each rank holds its ``data`` slice of
+its ``model`` block (:func:`zero_slice`); the update runs on that slice and
+the updated parameter slices are all-gathered over ``data``
+(:func:`zero_unslice`).  Adafactor's statistics are not reached by the
+reference's constraint and stay whole on every rank.
+:func:`sharded_global_norm` counts each leaf's distinct blocks once.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Iterable, Mapping, NamedTuple, Union
+from typing import (Any, Iterable, Mapping, NamedTuple, Optional, Tuple,
+                    Union)
 
 import torch
+
+from ..distributed import process_group as pg
+from ..distributed.sharding import dims_over
 
 _STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 #: elements of a leaf that AdamW's math takes at once (whole rows)
@@ -99,6 +111,56 @@ def global_norm(tensors: Union[Mapping[str, torch.Tensor],
         tensors = tensors.values()
     return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
                           for x in tensors))
+
+
+def sharded_global_norm(blocks: Iterable[Tuple[torch.Tensor, bool]],
+                        mesh) -> torch.Tensor:
+    """The global norm of a model held in blocks: ``blocks`` yields (a
+    gradient block, whether its leaf is cut over ``model``).  The squares
+    of a leaf replicated over ``model`` are counted on the first
+    ``model`` rank only, then the sum is all-reduced over ``model`` (the
+    ``data`` ranks hold the same averaged gradients)."""
+    first = mesh.coords.get("model", 0) == 0
+    total = None
+    for g, cut in blocks:
+        if not (cut or first):
+            continue
+        sq = torch.sum(torch.square(g.to(torch.float32)))
+        total = sq if total is None else total + sq
+    if total is None:
+        raise ValueError("no gradient blocks")
+    group = mesh.group("model")
+    if group is not None:
+        total = pg.all_reduce(total, group)
+    return torch.sqrt(total)
+
+
+def zero_dim(zspec) -> Optional[int]:
+    """The dimension a ZeRO-1 spec cuts over ``data``, or None."""
+    dims = dims_over(zspec, "data")
+    return dims[0] if dims else None
+
+
+def zero_slice(x: torch.Tensor, zspec, mesh) -> torch.Tensor:
+    """This rank's ``data`` slice of ``x`` (its ``model`` block of a
+    stacked leaf) under the ZeRO-1 spec ``zspec``: a view, ``x`` itself
+    where the spec does not cut over ``data``."""
+    dim = zero_dim(zspec)
+    if dim is None:
+        return x
+    n = mesh.shape["data"]
+    size = x.shape[dim] // n
+    return x.narrow(dim, mesh.coords["data"] * size, size)
+
+
+def zero_unslice(part: torch.Tensor, zspec, mesh) -> torch.Tensor:
+    """The ``model`` block from every ``data`` rank's slice: the inverse
+    of :func:`zero_slice`, an all-gather over ``data``."""
+    dim = zero_dim(zspec)
+    group = mesh.group("data") if dim is not None else None
+    if group is None:
+        return part
+    return pg.all_gather(part, group, dim=dim)
 
 
 class AdamStep(NamedTuple):

@@ -88,6 +88,8 @@ TRAINING = ["repro_torch.training", "repro_torch.training.data",
 # the group backend: ranks as processes, and the link benchmarks over it
 DISTRIBUTED = ["repro_torch.distributed",
                "repro_torch.distributed.process_group",
+               "repro_torch.distributed.sharding",
+               "repro_torch.launch.mesh",
                "repro_torch.linalg.collectives",
                "repro_torch.benchmarks.fig2_alpha_beta",
                "repro_torch.benchmarks.fig34_calibration"]

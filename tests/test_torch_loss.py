@@ -188,9 +188,9 @@ def test_logits_chunk_halves_until_it_divides(chunk, n_chunks, monkeypatch):
     seen = []
     orig = model_mod._ce_chunk
 
-    def counted(net_, cfg_, h, y):
+    def counted(net_, cfg_, h, y, w):
         seen.append(h.shape[1])
-        return orig(net_, cfg_, h, y)
+        return orig(net_, cfg_, h, y, w)
 
     monkeypatch.setattr(model_mod, "_ce_chunk", counted)
     want, _, want_g = _ref_loss(ref_cfg, params, batch)

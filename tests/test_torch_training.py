@@ -488,11 +488,14 @@ def test_checkpoint_reads_bf16_written_by_the_reference(tmp_path):
 
 
 def test_compression_one_pod_is_the_identity():
+    """Without a mesh, or on a mesh of one pod, the inputs come back; the
+    two-pod mean is held to the reference's in test_torch_sharding.py."""
+    from repro_torch.distributed.sharding import Mesh
     g = {"w": torch.randn(4, 4)}
     err = compression.init_error_buffers(g)
     assert compression.compress_pod_mean(g, err) == (g, err)
-    with pytest.raises(NotImplementedError, match="pods"):
-        compression.compress_pod_mean(g, err, pods=2)
+    for shape in ({"data": 2, "model": 2}, {"pod": 1, "data": 4}):
+        assert compression.compress_pod_mean(g, err, Mesh(shape)) == (g, err)
     q, scale = compression._quantize(g["w"])
     assert q.dtype == torch.int8
     back = compression._dequantize(q, scale)
@@ -509,7 +512,18 @@ def test_launch_train_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("flag", [["--mesh", "1,1,1"], ["--multi-pod"]])
-def test_launch_train_refuses_a_mesh(flag):
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        launch_train.main(["--arch", ARCH, "--smoke", "--device", "cpu",
-                           *flag])
+def test_launch_train_refuses_a_mesh(flag, capsys):
+    """The launcher no longer refuses these flags: ``--mesh 1,1,1`` trains
+    on a world of one rank, and ``--multi-pod`` outside a world of 256
+    ranks trains unsharded, as the reference does; either run is the
+    unsharded run.  A mesh the ranks cannot fill is still refused."""
+    argv = ["--arch", ARCH, "--smoke", "--device", "cpu", "--steps", "1",
+            "--batch", "2", "--seq", "16"]
+    report = launch_train.main(argv + flag)
+    assert capsys.readouterr().out.strip().splitlines()[-1] == \
+        "steps=1 restarts=0"
+    want = launch_train.main(argv)
+    assert report["logged"][0]["loss"] == pytest.approx(
+        want["logged"][0]["loss"], rel=1e-6)
+    with pytest.raises(ValueError, match=">= 1"):
+        launch_train.main(argv + ["--mesh", "1,0,1"])
