@@ -174,6 +174,21 @@
    gathered payloads and the new error within 1e-6).  13.4:
    ``launch/train.py --smoke --mesh 1,2,2 --steps 3`` as a subprocess.
    The kernels line adds every rank's launches of 13.1 and 13.2.
+14. The dry run (``repro_torch.launch.dryrun``, ``launch/specs.py``,
+   ``core/roofline.py``): rank 0 of the (16, 16) ``data, model`` mesh,
+   its collectives counted and not sent (``counting_mesh``).  14.1: the
+   meta-device count of starcoder2-3b@train_4k (16 rows of 4096 tokens)
+   and @prefill_32k (2 rows of 32768): the three terms on the H100's
+   spec-sheet constants, the dominant one, the predicted peak a rank,
+   whether it fits.  14.2: the same rank's steps on the card, the prefill
+   at full depth (K4 at S 32768), the train step at full width and the
+   most layers whose predicted peak stays under 60 GB (at least 2; the
+   meta count repeated at that depth): the card's count of FLOPs by type,
+   bytes and collective calls and bytes by kind equal to the meta count
+   within 1e-9 relative, the measured peak within 30 % of the predicted
+   one, K4 launched in both and its plain version on no CUDA tensor;
+   reported, the cold (counted) and warm wall against the bound of the
+   compute and memory terms.  The kernels line adds §14's launches.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero, as do
@@ -263,6 +278,7 @@ def main() -> int:
     group_counts = process_groups(torch, stacked_variants)
     harness_counts = harness(torch, smi.stdout.strip().splitlines()[0])
     sharded_counts = sharded_training(torch)
+    dryrun_counts = dry_run(torch)
 
     for entry in kernels:
         entry["launches"] = (main_counts[entry["wrapper"]]
@@ -273,7 +289,8 @@ def main() -> int:
                              + training_counts[entry["wrapper"]]
                              + group_counts[entry["wrapper"]]
                              + harness_counts[entry["wrapper"]]
-                             + sharded_counts[entry["wrapper"]])
+                             + sharded_counts[entry["wrapper"]]
+                             + dryrun_counts[entry["wrapper"]])
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -505,9 +522,10 @@ def lm_kernel_checks(torch):
     2^-8 (3.9e-3); K4's rounding of P to bf16 before P V adds about 1e-3.
     fp32 within the summation order."""
     import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention_cuda, ssm_scan_cuda
+    from repro_torch.kernels import _build, flash_attention_cuda, ssm_scan_cuda
     from repro_torch.kernels.flash_attention.ops import _ref4 as flash_ref
     from repro_torch.kernels.ssm_scan.ops import _ref4 as scan_ref
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan_workspace
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     out = []
@@ -615,6 +633,9 @@ def lm_kernel_checks(torch):
             v = torch.randn(b, h, s, dv, device=dev, generator=gen).to(dt)
             la = -torch.rand(b, h, s, device=dev, generator=gen) * 0.1
         isz = q.element_size()
+        workspace_agrees("ssm_scan", ssm_scan_workspace(b, h, s, dk, dv),
+                         _build.extension().ssm_scan_workspace(b, h, s, dk,
+                                                               dv))
         entry(
             f"K5 ssm_scan BH{b * h} S{s} DK{dk} DV{dv} {str(dt)[6:]}",
             "ssm_scan_cuda", "src/repro_torch/kernels/csrc/ssm_scan.cu",
@@ -678,9 +699,10 @@ def k6_checks(torch, entry, gen):
     all residue.  The bound counts about 60 operations a step; the bytes
     (z, i, f, o, c, n, m, dy read once, dz, di, df, do written once: 12 x 4
     a step-feature) bound it."""
-    from repro_torch.kernels import (slstm_scan_bwd_cuda, slstm_scan_bwd_ref,
-                                     slstm_scan_cuda, slstm_scan_ref,
-                                     slstm_scan_states_ref)
+    from repro_torch.kernels import (_build, slstm_scan_bwd_cuda,
+                                     slstm_scan_bwd_ref, slstm_scan_cuda,
+                                     slstm_scan_ref, slstm_scan_states_ref)
+    from repro_torch.kernels.slstm.ops import CHUNK, slstm_scan_workspace
 
     def inputs(b, s, w, scale_i, shift_f):
         z, i, f, o = (torch.randn(b, s, w, device="cuda", generator=gen)
@@ -693,6 +715,9 @@ def k6_checks(torch, entry, gen):
         return f"B{b} S{s} W{w} f32" + (f" f+{shift_f:g}" if shift_f else "")
 
     for b, s, w, scale_i, shift_f, reps in K6_SHAPES:
+        workspace_agrees("slstm_scan", slstm_scan_workspace(b, s, w),
+                         _build.extension().slstm_scan_workspace(b, s, w,
+                                                                 CHUNK))
         z, i, f, o = inputs(b, s, w, scale_i, shift_f)
         entry(f"K6 slstm_scan {label(b, s, w, shift_f)}", "slstm_scan_cuda",
               "src/repro_torch/kernels/csrc/slstm.cu", K6_REPLACES,
@@ -736,6 +761,15 @@ def k6_checks(torch, entry, gen):
         del z, i, f, o, dy, y, c, n, m, ins, got, want, want_states
         torch.cuda.empty_cache()
     k6_refuses(torch, slstm_scan_cuda, slstm_scan_bwd_cuda)
+
+
+def workspace_agrees(name, wrapper_floats, launcher_floats):
+    """K5's and K6's wrappers allocate the fp32 workspace before their
+    operators (so that a count sees it on meta and on the card alike), from
+    a copy of the launcher's formula: the two sizes must be one."""
+    check(wrapper_floats == launcher_floats,
+          f"{name}: the wrapper's workspace of {wrapper_floats} floats is "
+          f"not the {launcher_floats} its launcher asks")
 
 
 def k6_refuses(torch, forward, backward):
@@ -3463,6 +3497,134 @@ def shard_rank_pods(torch, mesh):
     return {"quantizer_bitwise": bool(bitwise),
             "mean_err": float((mg["w"].cpu() - want).abs().max()),
             "err_err": float((ne["w"].cpu() - want_err).abs().max())}
+
+# -- 14. the dry run ------------------------------------------------------------
+
+DRY_ARCH = "starcoder2-3b"
+DRY_MESH = (16, 16)
+#: the predicted peak a rank under which 14.2's train depth stays
+DRY_TRAIN_BYTES = 60e9
+DRY_COUNT_TOL = 1e-9
+DRY_PEAK_TOL = 0.30
+
+
+def dry_run(torch):
+    """§14; returns the launch counts of 14.2's card runs."""
+    from repro_torch import kernels
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.mesh import counting_mesh
+    t_start = time.perf_counter()
+    out_dir = os.path.join(HERE, "build", "smoke_dryrun")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    mesh = counting_mesh(DRY_MESH, 0)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    def cell(shape, device, layers=None):
+        tag = f"{device}-{layers or 'full'}"
+        return run_cell(DRY_ARCH, shape, mesh, "pod",
+                        os.path.join(out_dir, tag), force=True,
+                        verbose=False, device=device, layers=layers)
+
+    meta = {shape: cell(shape, "meta") for shape in ("train_4k",
+                                                     "prefill_32k")}
+    for r in meta.values():
+        emit({"dryrun_meta": dry_terms(r)})
+    layers, train_meta = dry_train_depth(cell, meta["train_4k"])
+    totals = {name: 0 for name in kernels.launches()}
+    # the train step's predicted peak is 72 of the card's 79 GiB: after
+    # §1-§13 fixed segments left 12.9 GiB reserved but unallocated in it
+    # (a run out of memory), so §14 grows its segments in place
+    emit({"dryrun_before_card": {
+        "memory_allocated": torch.cuda.memory_allocated(),
+        "memory_reserved": torch.cuda.memory_reserved()}})
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        for shape, want, depth in (("prefill_32k", meta["prefill_32k"],
+                                    None),
+                                   ("train_4k", train_meta, layers)):
+            kernels.reset_launches()
+            with PlainK4Calls() as plain:
+                got = cell(shape, "cuda", depth)
+            counts = kernels.launches()
+            add_counts(totals, counts)
+            gc.collect()
+            torch.cuda.empty_cache()
+            dry_report(got, want, counts, plain.calls)
+    finally:
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    emit({"dryrun_s": time.perf_counter() - t_start, "launches": totals})
+    return totals
+
+
+def dry_train_depth(cell, full):
+    """14.2's train depth: the most layers whose predicted peak stays
+    under DRY_TRAIN_BYTES, at least 2, from the peak at depth 2 and at
+    full depth (it grows by one layer's stash and blocks a layer), with
+    the meta count at that depth."""
+    two = cell("train_4k", "meta", 2)
+    p2 = two["memory_analysis"]["total_bytes"]
+    pf = full["memory_analysis"]["total_bytes"]
+    n = full["layers"]
+    per_layer = max((pf - p2) / (n - 2), 1.0)
+    layers = int(max(2, min(n, 2 + (DRY_TRAIN_BYTES - p2) // per_layer)))
+    at = two if layers == 2 else cell("train_4k", "meta", layers)
+    emit({"dryrun_train_depth": layers, "predicted_peak_at_2": p2,
+          "predicted_peak_full": pf, "predicted_peak": at[
+              "memory_analysis"]["total_bytes"], "limit": DRY_TRAIN_BYTES,
+          "note": "at least 2 layers: the limit is not met at any depth"
+          if at["memory_analysis"]["total_bytes"] > DRY_TRAIN_BYTES
+          else "under the limit"})
+    return layers, at
+
+
+def dry_terms(r):
+    keys = ("arch", "shape", "layers", "batch_rows", "compute_term",
+            "memory_term", "collective_term", "dominant", "bound_time",
+            "roofline_fraction", "useful_flops_fraction", "flops_by_type",
+            "memory_bytes", "collective_breakdown", "collective_counts",
+            "fits_hbm", "fsdp", "microbatches", "compile_s", "notes")
+    out = {k: r.get(k) for k in keys}
+    out["peak_bytes"] = r["memory_analysis"]["total_bytes"]
+    return out
+
+
+def dry_report(got, want, counts, plain_calls):
+    """14.2's gates on one card run against its meta count."""
+    tag = f"§14 {got['shape']}"
+    pairs = {"memory_bytes": (got["memory_bytes"], want["memory_bytes"])}
+    for key in ("flops_by_type", "collective_breakdown", "collective_counts"):
+        check(set(got[key]) == set(want[key]),
+              f"{tag}: {key} kinds differ: {got[key]} vs {want[key]}")
+        pairs.update({f"{key}/{k}": (got[key][k], want[key][k])
+                      for k in want[key]})
+    worst = max(abs(a - b) / max(abs(b), 1e-30) for a, b in pairs.values())
+    m = got["measured"]
+    peak, predicted = m["max_memory_allocated"], \
+        want["memory_analysis"]["total_bytes"]
+    gap = (peak - predicted) / predicted
+    bound = max(want["compute_term"], want["memory_term"])
+    emit({"dryrun_card": dry_terms(got), "layers": got["layers"],
+          "count_rel_err": worst, "tol": DRY_COUNT_TOL,
+          "max_memory_allocated": peak, "predicted_peak": predicted,
+          "peak_gap": gap, "peak_tol": DRY_PEAK_TOL,
+          "allocated_before": m["allocated_before"],
+          "cold_s": m["cold_s"], "warm_s": m["warm_s"],
+          "cold_note": "the counted run: its wall carries the count's "
+                       "host work",
+          "bound_compute_memory_s": bound,
+          "warm_over_bound": m["warm_s"] / bound if bound else None,
+          "launches": counts, "k4_plain_on_cuda": plain_calls,
+          "card": m["card"]})
+    for name, (a, b) in pairs.items():
+        check(abs(a - b) <= DRY_COUNT_TOL * max(abs(b), 1e-30),
+              f"{tag}: the card's {name} {a} is not the meta count {b}")
+    check(abs(gap) <= DRY_PEAK_TOL, f"{tag}: measured peak {peak:.4g} B is "
+          f"{gap:+.1%} off the predicted {predicted:.4g} B")
+    check(counts["flash_attention_cuda"] > 0, f"{tag}: K4 never launched")
+    check(plain_calls == 0, f"{tag}: K4's plain version ran on the card")
+
 
 if __name__ == "__main__":
     try:

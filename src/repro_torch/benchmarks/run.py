@@ -14,8 +14,11 @@ Results are written to ``ART/bench_torch/*.json``, each stamped with
 ``_meta`` (``common.run_meta``).  ``tables`` fits the Hopper surface once
 (about two minutes) and caches it under ``ART``.
 
+``roofline`` reads the dry run's records (``launch/dryrun.py``, under
+``ART/dryrun_torch/``) and emits their three terms; run the dry run first.
+
 Not here, and why: ``kernels`` (a tile sweep of K1, which sets nothing from
-its tiles yet) and ``roofline`` (compiler dry-run artifacts).
+its tiles yet).
 """
 
 from __future__ import annotations
@@ -250,6 +253,26 @@ def bench_faults():
     return res
 
 
+def bench_roofline():
+    t0 = time.perf_counter()
+    from .roofline_table import load_cells, main as roof
+    res = roof()
+    meshes = list(res)
+    _save("roofline", res)
+    for mesh in meshes:
+        agg = res[mesh]
+        emit(f"roofline_{mesh}", (time.perf_counter() - t0) * 1e6,
+             f"cells={agg['n_cells']} dominant={agg['dominant_counts']} "
+             f"worst={agg['worst_fraction']}")
+    for c in load_cells("pod"):
+        if c["kind"] == "train":
+            emit(f"roofline_cell_{c['arch']}@{c['shape']}", 0.0,
+                 f"compute={c['compute_term']:.3g}s "
+                 f"collective={c['collective_term']:.3g}s "
+                 f"frac={c['roofline_fraction']:.3f}")
+    return res
+
+
 BENCHES = {
     "fig1": bench_fig1,
     "fig2": bench_fig2,
@@ -264,6 +287,7 @@ BENCHES = {
     "serving": bench_serving,
     "obs": bench_obs,
     "faults": bench_faults,
+    "roofline": bench_roofline,
 }
 #: the benches that take the device
 ON_DEVICE = ("fig1", "fig2", "fig34", "fig5to8", "tuner", "serving", "obs")

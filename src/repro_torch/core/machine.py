@@ -102,6 +102,21 @@ class Machine:
     def peak_flops(self, units: int) -> float:
         return units * self.peak_flops_per_unit
 
+    def peak_for(self, dtype: str) -> float:
+        """One unit's dense peak for operands of ``dtype`` (a torch type's
+        name, ``"bfloat16"``): the profile's own by type where
+        :data:`TYPE_PEAKS` lists it, else ``peak_flops_per_unit``, the one
+        peak the other profiles model.  A profile listed there raises for a
+        type it does not list, rather than price it at another type's
+        peak."""
+        peaks = TYPE_PEAKS.get(self.name)
+        if peaks is None:
+            return self.peak_flops_per_unit
+        if dtype not in peaks:
+            raise KeyError(f"{self.name} has no peak for {dtype} operands "
+                           f"(it lists {sorted(peaks)})")
+        return peaks[dtype]
+
     def contention_free_bandwidth(self) -> float:
         """Bytes/s implied by beta (large-message plateau)."""
         return self.word_bytes / self.inv_bandwidth
@@ -215,5 +230,15 @@ H100_SXM = Machine(
     notes="NVIDIA H100 SXM 80GB; spec-sheet seeds (data sheet peaks), "
           "not measured.",
 )
+
+#: dense peaks of one unit by operand type, for the profiles whose data
+#: sheets give more than one (a table beside the profiles rather than a
+#: field of :class:`Machine`, whose fields and fingerprint are the
+#: reference's): the H100's tensor cores for bf16 and fp16, 67 TFLOP/s
+#: IEEE fp32 on the CUDA cores (no TF32, as the port computes fp32)
+TYPE_PEAKS = {
+    H100_SXM.name: {"bfloat16": 989e12, "float16": 989e12,
+                    "float32": 67e12},
+}
 
 MACHINES = {m.name: m for m in (HOPPER, TPU_V5E, CPU_HOST, H100_SXM)}

@@ -5,15 +5,15 @@ the models' logical-axis sharding over a mesh of those ranks
 gather steps).  The linalg path's group backend is
 ``linalg.collectives.GroupComm``."""
 
-from .process_group import (all_gather, all_reduce, broadcast, card_per_rank,
-                            collective_stats, devices_for, host_or_device,
+from .process_group import (CountingGroup, all_gather, all_reduce,
+                            broadcast, card_per_rank, collective_stats, devices_for, host_or_device,
                             on_cpu, on_first_card, recv, reduce_scatter,
                             reset_collective_stats, send, spawn, stages,
                             to_device, to_host, transport)
 from .sharding import (P, Mesh, constrain, gather, param_spec, shard_of,
                        tree_param_specs, use_mesh, valid_spec, zero_spec)
 
-__all__ = ["P", "Mesh", "all_gather", "all_reduce", "broadcast",
+__all__ = ["CountingGroup", "P", "Mesh", "all_gather", "all_reduce", "broadcast",
            "card_per_rank", "collective_stats", "constrain", "devices_for", "gather",
            "host_or_device", "on_cpu", "on_first_card", "param_spec", "recv",
            "reduce_scatter", "reset_collective_stats", "send", "shard_of", "spawn", "stages",

@@ -20,8 +20,15 @@ backend runs them as P processes, each owning its own blocks.
   :func:`to_device`).  NCCL and CPU tensors do not stage.
 * The collectives the models' sharding takes (``sharding.py``), on any
   group or subgroup, staged by the same rule: :func:`all_reduce` (sum or
-  mean), :func:`all_gather` along a dimension and :func:`reduce_scatter`.
-  Each returns a new tensor and leaves its input as it was.
+  mean), :func:`all_gather` along a dimension, :func:`reduce_scatter` and
+  :func:`broadcast`.  Each returns a new tensor and leaves its input as it
+  was.
+* A :class:`CountingGroup` stands in for a group in a counted run (the dry
+  run, ``launch/dryrun.py``): the same collectives record the call and its
+  operand bytes and return zeros of the result's shape on the input's
+  device; nothing is sent and no ``torch.distributed`` group is formed.
+  :func:`collective_stats` counts calls and operand bytes by kind on real
+  and stand-in groups alike.
 """
 
 from __future__ import annotations
@@ -122,18 +129,43 @@ def host_or_device(group, device: torch.device) -> torch.device:
     return torch.device("cpu")
 
 
+class CountingGroup:
+    """A stand-in for a group of ``size`` ranks in which this process is
+    rank ``rank``.  :func:`all_reduce`, :func:`all_gather`,
+    :func:`reduce_scatter` and :func:`broadcast` given it record the call
+    and its operand bytes (:func:`collective_stats`) and return zeros of
+    the result's shape and type on the input's device."""
+
+    def __init__(self, size: int, rank: int = 0):
+        if not 0 <= rank < size:
+            raise ValueError(f"rank {rank} is not in a group of {size}")
+        self.size, self.rank = size, rank
+
+    def __repr__(self) -> str:
+        return f"CountingGroup(size={self.size}, rank={self.rank})"
+
+
+def _counted(group) -> bool:
+    return isinstance(group, CountingGroup)
+
+
 def broadcast(x: torch.Tensor, src: int, group=None) -> torch.Tensor:
     """``x`` of rank ``src`` on every rank of ``group``: each rank passes a
     tensor of the same shape and type (its own values are overwritten),
     staged by the rule above."""
     group = group or dist.group.WORLD
-    if stages(group, x):
+    t0 = time.perf_counter()
+    if _counted(group):
+        out, staged = torch.zeros_like(x), 0
+    elif stages(group, x):
         host = to_host(x)
         dist.broadcast(host, dist.get_global_rank(group, src), group=group)
-        return to_device(host, x.device)
-    x = x.clone()
-    dist.broadcast(x, dist.get_global_rank(group, src), group=group)
-    return x
+        out, staged = to_device(host, x.device), 2 * _nbytes(x)
+    else:
+        out, staged = x.clone(), 0
+        dist.broadcast(out, dist.get_global_rank(group, src), group=group)
+    _count(t0, "broadcast", _nbytes(x), staged)
+    return out
 
 
 def send(x: torch.Tensor, dst: int, group=None) -> None:
@@ -155,28 +187,52 @@ def recv(like: torch.Tensor, src: int, group=None) -> torch.Tensor:
 
 
 def _group_size(group) -> int:
+    if _counted(group):
+        return group.size
     return dist.get_world_size(group)
 
 
-#: what this process's :func:`all_reduce`, :func:`all_gather` and
-#: :func:`reduce_scatter` have done since :func:`reset_collective_stats`:
-#: calls, bytes staged through pinned host memory (both ways) and host
-#: seconds spent in them (staging copies and waits included)
-_STATS = {"calls": 0, "staged_bytes": 0, "host_s": 0.0}
+def _group_rank(group) -> int:
+    if _counted(group):
+        return group.rank
+    return dist.get_rank(group)
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+#: what this process's :func:`all_reduce`, :func:`all_gather`,
+#: :func:`reduce_scatter` and :func:`broadcast` have done since
+#: :func:`reset_collective_stats`: calls, bytes staged through pinned host
+#: memory (both ways), host seconds spent in them (staging copies and waits
+#: included), and by kind ("all-reduce", "all-gather", "reduce-scatter",
+#: "broadcast") the calls and the operand bytes, the bytes of the tensor
+#: each call is given (the reference's "summed operand sizes",
+#: ``core/roofline.py``), on real and counting groups alike
+_STATS = {"calls": 0, "staged_bytes": 0, "host_s": 0.0,
+          "calls_by_kind": {}, "bytes_by_kind": {}}
 
 
 def collective_stats() -> dict:
-    return dict(_STATS)
+    out = dict(_STATS)
+    out["calls_by_kind"] = dict(_STATS["calls_by_kind"])
+    out["bytes_by_kind"] = dict(_STATS["bytes_by_kind"])
+    return out
 
 
 def reset_collective_stats() -> None:
-    _STATS.update(calls=0, staged_bytes=0, host_s=0.0)
+    _STATS.update(calls=0, staged_bytes=0, host_s=0.0, calls_by_kind={},
+                  bytes_by_kind={})
 
 
-def _count(t0: float, staged_bytes: int) -> None:
+def _count(t0: float, kind: str, operand_bytes: int,
+           staged_bytes: int) -> None:
     _STATS["calls"] += 1
     _STATS["staged_bytes"] += staged_bytes
     _STATS["host_s"] += time.perf_counter() - t0
+    for key, add in (("calls_by_kind", 1), ("bytes_by_kind", operand_bytes)):
+        _STATS[key][kind] = _STATS[key].get(kind, 0) + add
 
 
 def all_reduce(x: torch.Tensor, group=None, *, op: str = "sum"
@@ -189,7 +245,17 @@ def all_reduce(x: torch.Tensor, group=None, *, op: str = "sum"
     group = group or dist.group.WORLD
     if op not in ("sum", "mean"):
         raise ValueError(f"op must be 'sum' or 'mean', got {op!r}")
-    t0, n = time.perf_counter(), _group_size(group)
+    t0 = time.perf_counter()
+    out, staged = _all_reduce(x, group, op)
+    _count(t0, "all-reduce", _nbytes(x), staged)
+    return out
+
+
+def _all_reduce(x: torch.Tensor, group, op: str):
+    """(the reduction, the bytes staged), uncounted."""
+    if _counted(group):
+        return torch.zeros_like(x), 0
+    n = _group_size(group)
     narrow = (x.dtype in (torch.bfloat16, torch.float16)
               and dist.get_backend(group) == "gloo")
     buf = x.to(torch.float32) if narrow else x
@@ -204,8 +270,7 @@ def all_reduce(x: torch.Tensor, group=None, *, op: str = "sum"
     if op == "mean" and n > 1:
         out = out / n
     out = out.to(x.dtype) if narrow else out
-    _count(t0, 2 * buf.numel() * buf.element_size() if staged else 0)
-    return out
+    return out, 2 * _nbytes(buf) if staged else 0
 
 
 def all_gather(x: torch.Tensor, group=None, *, dim: int = 0
@@ -214,13 +279,19 @@ def all_gather(x: torch.Tensor, group=None, *, dim: int = 0
     ``dim`` in the group's rank order, on every rank."""
     group = group or dist.group.WORLD
     t0, n = time.perf_counter(), _group_size(group)
+    if _counted(group):
+        shape = list(x.shape)
+        shape[dim] *= n
+        _count(t0, "all-gather", _nbytes(x), 0)
+        return x.new_zeros(shape)
     staged = stages(group, x)
     src = to_host(x) if staged else x.contiguous()
     parts = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=group)
     out = torch.cat(parts, dim=dim)
     out = to_device(out, x.device) if staged else out
-    _count(t0, (n + 1) * x.numel() * x.element_size() if staged else 0)
+    _count(t0, "all-gather", _nbytes(x), (n + 1) * _nbytes(x) if staged
+           else 0)
     return out
 
 
@@ -231,13 +302,21 @@ def reduce_scatter(x: torch.Tensor, group=None, *, dim: int = 0
     :func:`all_reduce` followed by this rank's block, which moves the
     whole tensor where a reduce-scatter moves one block of it."""
     group = group or dist.group.WORLD
-    n = _group_size(group)
+    t0, n = time.perf_counter(), _group_size(group)
     if x.shape[dim] % n:
         raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} "
                          f"does not split over {n} ranks")
     size = x.shape[dim] // n
-    return all_reduce(x, group).narrow(dim, dist.get_rank(group) * size,
-                                       size).contiguous()
+    if _counted(group):
+        shape = list(x.shape)
+        shape[dim] = size
+        out, staged = x.new_zeros(shape), 0
+    else:
+        whole, staged = _all_reduce(x, group, "sum")
+        out = whole.narrow(dim, _group_rank(group) * size,
+                           size).contiguous()
+    _count(t0, "reduce-scatter", _nbytes(x), staged)
+    return out
 
 
 # -- spawning a world ---------------------------------------------------------

@@ -28,6 +28,15 @@ cuts a network's parameters to their blocks and marks how each is used:
   of the full gradient, which the ``model`` ranks compute replicated on
   the same rows.
 
+With FSDP (the reference's ``zero_data_axes`` parameter shardings: a
+leaf's spec with the ``data`` axis added by :func:`zero_spec`), a
+parameter holds this rank's ``data`` block of the above too.
+:func:`placed` all-gathers it over ``data`` where it is used, before any
+``"gather"`` over ``model``; its gradient comes back as this rank's block
+of the mean over the batch ranks (a reduce-scatter over ``data``, a sum
+over ``pod``), which the trainer does not average again.  This is what
+the reference's partitioner computes for those specs.
+
 ``constrain`` is the identity: the port has no partitioner to hint.
 """
 
@@ -445,11 +454,49 @@ def gather(block: torch.Tensor, spec: P, mesh) -> torch.Tensor:
 
 class Placement(NamedTuple):
     """How a per-layer parameter of the port is held under a mesh: its
-    dimension cut over ``model``, its use (``"tp"``: the block is used as
-    it is; ``"gather"``: gathered where used) and the mesh."""
-    dim: int
-    mode: str
+    dimension cut over ``model`` (None: whole over ``model``), its use
+    (``"tp"``: the block is used as it is; ``"gather"``: gathered where
+    used; None), the mesh, and its dimension cut over ``data`` under FSDP
+    (None: whole over ``data``)."""
+    dim: Optional[int]
+    mode: Optional[str]
     mesh: Mesh
+    fsdp: Optional[int] = None
+
+
+def fsdp_spec(path: str, shape: Sequence[int], mesh, stacked: bool) -> P:
+    """The FSDP spec of the leaf ``path``: :func:`leaf_zero_spec`, the
+    ``data`` axis added to the leaf's spec.  The port keeps one module a
+    layer, so where that spec cuts the layer axis of a stacked leaf (an
+    (L, X) norm scale or bias with L a multiple of ``data``) the ``data``
+    axis goes on the per-layer leaf's own first free dimension instead:
+    the same bytes a rank."""
+    spec = leaf_zero_spec(path, shape, mesh)
+    if not (stacked and 0 in dims_over(spec, "data")):
+        return spec
+    rest = zero_spec(P(*spec[1:]), tuple(shape[1:]), mesh,
+                     data_axes=("data",))
+    return P(None, *rest)
+
+
+class _GatherData(torch.autograd.Function):
+    """An FSDP parameter's ``data`` block gathered along ``dim``; the
+    gradient is this rank's block of its mean over the batch ranks."""
+
+    @staticmethod
+    def forward(ctx, block, dim, mesh):
+        ctx.dim, ctx.mesh = dim, mesh
+        return pg.all_gather(block, mesh.group("data"), dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh = ctx.mesh
+        g = pg.reduce_scatter(grad.contiguous(), mesh.group("data"),
+                              dim=ctx.dim)
+        pods = mesh.group("pod")
+        if pods is not None:
+            g = pg.all_reduce(g, pods)
+        return g / mesh.axis_size(mesh.batch_axes), None, None
 
 
 class _GatherParam(torch.autograd.Function):
@@ -469,12 +516,23 @@ class _GatherParam(torch.autograd.Function):
 
 
 def placed(p: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-    """``p`` as the forward uses it: a ``"gather"`` parameter's whole
-    tensor, gathered over ``model``; anything else as it is."""
+    """``p`` as the forward uses it: an FSDP parameter gathered over
+    ``data``; a ``"gather"`` parameter's whole tensor, gathered over
+    ``model``; anything else as it is."""
     where = getattr(p, "placement", None)
-    if where is None or where.mode != "gather":
+    if where is None:
         return p
-    return _GatherParam.apply(p, where.dim, where.mesh)
+    if where.fsdp is not None:
+        p = _GatherData.apply(p, where.fsdp, where.mesh)
+    if where.mode == "gather":
+        p = _GatherParam.apply(p, where.dim, where.mesh)
+    return p
+
+
+def is_fsdp(p) -> bool:
+    """True for a parameter that holds an FSDP block."""
+    where = getattr(p, "placement", None)
+    return where is not None and where.fsdp is not None
 
 
 class _Enter(torch.autograd.Function):

@@ -13,6 +13,7 @@ from typing import Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import is_in_torch_dispatch_mode
 
 from ..perf.kernel import (MIN_TILE, TilePlan, VMEM_BUDGET,
                            heuristic_matmul_blocks, heuristic_plan)
@@ -20,7 +21,7 @@ from ..perf.kernel import (MIN_TILE, TilePlan, VMEM_BUDGET,
 __all__ = [
     "MIN_TILE", "TilePlan", "VMEM_BUDGET", "heuristic_matmul_blocks",
     "heuristic_plan", "pad_axes", "round_up", "tile_block", "as_batched",
-    "check_cuda", "stream_of",
+    "check_cuda", "stream_of", "launch_directly",
 ]
 
 
@@ -61,12 +62,14 @@ def tile_block(tiles: Optional[TilePlan], kernel: str, dim: str,
 
 
 def check_cuda(name: str, dtypes: Sequence[torch.dtype],
-               *tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is on one CUDA device in a type the kernel
-    takes."""
+               *tensors: torch.Tensor, meta: bool = False) -> None:
+    """Raise unless every tensor is on one CUDA device (or, with ``meta``,
+    every one on the ``meta`` device: a counted run's stand-in for the
+    card) in a type the kernel takes."""
     dev = tensors[0].device
+    kinds = ("cuda", "meta") if meta else ("cuda",)
     for t in tensors:
-        if t.device != dev or t.device.type != "cuda":
+        if t.device != dev or t.device.type not in kinds:
             raise ValueError(f"{name}: operands must share one CUDA device, "
                              f"got {[str(x.device) for x in tensors]}")
         if t.dtype not in dtypes:
@@ -87,3 +90,12 @@ def stream_of(x: torch.Tensor) -> int:
     """The current CUDA stream of ``x``'s device, as the integer the C
     launchers take."""
     return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def launch_directly(x: torch.Tensor) -> bool:
+    """Whether a wrapper calls its kernel's launch function itself rather
+    than through its ``torch.library`` operator: on CUDA operands with no
+    dispatch mode active.  A counting mode (``core/roofline.py``), a flop
+    counter or a fake-tensor trace sees only the operator, and pays its
+    dispatch; a plain run on the card does not."""
+    return x.is_cuda and not is_in_torch_dispatch_mode()

@@ -2,7 +2,17 @@
 with k, v of shape (B, KV, S, D), D zero-padded to a head dim the kernel
 has a body for (up to 256) or to a multiple of 128 (above, as the reference
 pads), scale = D^-0.5 of the true head dim, the plain version for tiny or
-cross-length causal shapes, the tile plan's family checked."""
+cross-length causal shapes, the tile plan's family checked.
+
+The launch is the operator ``torch.ops.repro_torch.flash_attention``: on
+CUDA tensors it launches K4; on ``meta`` tensors (a counted run, see
+``core/roofline.py``) it gives the output's shape and type; and a flop
+counter reads its work from :func:`flash_attention_flops`, on either
+device, since it cannot see inside the launch.  With no dispatch mode
+active, CUDA operands skip the operator and launch K4 straight
+(``common.launch_directly``).  The padding and the
+operand copies happen before the operator, decided from shapes and strides
+alone, so a counted run on ``meta`` sees the copies the card makes."""
 
 from __future__ import annotations
 
@@ -11,8 +21,11 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from torch.utils.flop_counter import register_flop_formula
+
 from .. import _build
-from ..common import TilePlan, check_cuda, stream_of, tile_block
+from ..common import (TilePlan, check_cuda, launch_directly, stream_of,
+                      tile_block)
 from .ref import flash_attention_ref
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -58,8 +71,53 @@ def loadable(t: torch.Tensor) -> bool:
         return False
     if t.dtype != torch.bfloat16:
         return True
-    return t.data_ptr() % 16 == 0 and all(
+    # the start's alignment from the storage offset: the allocator aligns
+    # every storage's base, and a meta tensor has no address to read
+    return (t.storage_offset() * t.element_size()) % 16 == 0 and all(
         st % 8 == 0 for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1)
+
+
+def flash_attention_flops(b: int, h: int, sq: int, skv: int, d: int,
+                          causal: bool) -> float:
+    """K4's operations: 4 D a kept (query, key) pair, the causal square's
+    upper triangle skipped (the bound of ``chip_smoke.py`` and PERF.md)."""
+    pairs = sq * (sq + 1) // 2 if causal else sq * skv
+    return 4.0 * b * h * d * pairs
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, d: int,
+            causal: bool) -> torch.Tensor:
+    """K4 on operands the wrapper padded to a head dim it has a body for
+    and made loadable: (B, H, Sq, Dp) out, scaled by the true ``d``."""
+    check_cuda("flash_attention", tuple(_CODES), q, k, v)
+    b, h, sq, dp = q.shape
+    kv, skv = k.shape[1], k.shape[2]
+    out = torch.empty((b, h, sq, dp), dtype=q.dtype, device=q.device)
+    if out.numel():
+        strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+        with torch.cuda.device(q.device):
+            _build.extension().flash_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                _CODES[q.dtype], b, h, kv, sq, skv, dp, strides, d ** -0.5,
+                bool(causal), stream_of(q))
+        flash_attention_cuda.launches += 1
+    return out
+
+
+_op = torch.library.custom_op("repro_torch::flash_attention", _launch,
+                              mutates_args=())
+
+
+@_op.register_fake
+def _(q, k, v, d, causal):
+    return q.new_empty(q.shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _(q_shape, k_shape, v_shape, d, causal, *args, out_shape=None,
+      **kwargs) -> int:
+    b, h, sq, _ = q_shape
+    return flash_attention_flops(b, h, sq, k_shape[2], d, causal)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -71,14 +129,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`loadable`) are copied first.  CPU tensors take the plain
     version; CUDA tensors launch the kernel (up to D = 256, fp32: the FFMA
     body, bf16: the tensor-core body; above, the wide body in either type)
-    or raise, also (from the launcher, with the limit in the message) for a
-    padded D above the widest whose tiles fit the device's shared memory of
-    a block."""
+    and meta tensors take its shape (a counted run), or they raise, also
+    (from the launcher, with the limit in the message) for a padded D
+    above the widest whose tiles fit the device's shared memory of a
+    block."""
     b, h, sq, d = q.shape
     _, kv, skv, _ = k.shape
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return _ref4(q, k, v, causal)
-    check_cuda("flash_attention", tuple(_CODES), q, k, v)
+    check_cuda("flash_attention", tuple(_CODES), q, k, v, meta=True)
     if not q.dtype == k.dtype == v.dtype:
         raise TypeError(f"flash_attention: dtypes differ ({q.dtype}, "
                         f"{k.dtype}, {v.dtype})")
@@ -92,15 +151,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dp = q.shape[-1]
     q, k, v = (t if loadable(t) else t.clone(
         memory_format=torch.contiguous_format) for t in (q, k, v))
-    out = torch.empty((b, h, sq, dp), dtype=q.dtype, device=q.device)
-    if out.numel():
-        strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-        with torch.cuda.device(q.device):
-            _build.extension().flash_attention(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                _CODES[q.dtype], b, h, kv, sq, skv, dp, strides, d ** -0.5,
-                bool(causal), stream_of(q))
-        flash_attention_cuda.launches += 1
+    launch = _launch if launch_directly(q) else _op
+    out = launch(q, k, v, d, bool(causal))
     return out if dp == d else out[..., :d]
 
 

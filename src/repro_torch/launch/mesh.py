@@ -8,7 +8,10 @@ fastest), in the order the reference's mesh lists its devices.  Shapes:
     multi-pod:   (2, 16, 16)   axes ("pod", "data", "model")   = 512 ranks
 
 ``make_mesh(pods, data, model)`` drops the ``pod`` axis for one pod, as the
-reference does.  Every rank of the group must call these functions in the
+reference does.  ``counting_mesh(shape, rank)`` is one rank of such a mesh
+with no group at all: its subgroups are ``process_group.CountingGroup``
+stand-ins, so a step run on it records its collectives and sends nothing
+(the dry run, ``launch/dryrun.py``).  Every rank of the group must call these functions in the
 same order: each builds the mesh's subgroups (one for each axis, one for
 ``("pod", "data")``), and ``torch.distributed.new_group`` is collective.
 A group whose size is not the product of the axes raises ``ValueError``.
@@ -21,8 +24,16 @@ from typing import Dict, Sequence
 
 import torch.distributed as dist
 
-from ..distributed.process_group import GROUP_TIMEOUT_S
+from ..distributed.process_group import GROUP_TIMEOUT_S, CountingGroup
 from ..distributed.sharding import Mesh
+
+
+def _subgroup_keys(axes: Sequence[str]) -> list:
+    """The mesh's subgroups: one for each axis, one for the batch axes."""
+    keys = list(axes)
+    if "pod" in axes:
+        keys.append(("pod", "data"))
+    return keys
 
 
 def _mesh_over_group(shape: Sequence[int], axes: Sequence[str]) -> Mesh:
@@ -39,10 +50,7 @@ def _mesh_over_group(shape: Sequence[int], axes: Sequence[str]) -> Mesh:
     mesh = Mesh(dict(zip(axes, shape)), rank)
     groups: Dict = {}
     timeout = datetime.timedelta(seconds=GROUP_TIMEOUT_S)
-    keys = list(axes)
-    if "pod" in axes:
-        keys.append(("pod", "data"))
-    for key in keys:
+    for key in _subgroup_keys(axes):
         if mesh.axis_size(key) == 1:
             continue
         for ranks in mesh.subgroup_ranks(key).values():
@@ -67,6 +75,26 @@ def make_mesh(pods: int, data: int, model: int) -> Mesh:
     if pods > 1:
         return _mesh_over_group((pods, data, model), ("pod", "data", "model"))
     return _mesh_over_group((data, model), ("data", "model"))
+
+
+def counting_mesh(shape, rank: int = 0) -> Mesh:
+    """Rank ``rank`` of a mesh of ``shape`` whose subgroups record their
+    collectives and send nothing: ``shape`` is ``{axis: size}``, or the
+    sizes of ``(data, model)`` or ``(pod, data, model)``."""
+    if not isinstance(shape, dict):
+        shape = tuple(shape)
+        if len(shape) not in (2, 3):
+            raise ValueError(f"a mesh shape is (data, model) or (pod, data, "
+                             f"model), got {shape}")
+        names = ("data", "model") if len(shape) == 2 else \
+            ("pod", "data", "model")
+        shape = dict(zip(names, shape))
+    mesh = Mesh(shape, rank)
+    mesh.groups = {key: CountingGroup(mesh.axis_size(key),
+                                      mesh.axis_index(key))
+                   for key in _subgroup_keys(list(shape))
+                   if mesh.axis_size(key) > 1}
+    return mesh
 
 
 def mesh_chips(mesh) -> int:

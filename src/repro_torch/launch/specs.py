@@ -1,0 +1,200 @@
+"""One rank's step of every (arch x shape) dry-run cell, and its arguments.
+
+``step_and_specs(arch, shape, mesh)`` returns, as the reference's does:
+
+    step_fn     -- the function to run: ``step_fn(*args)``
+    args        -- this rank's arguments, tensors on ``device`` (``meta`` by
+                   default: shapes and types, no memory): its parameter
+                   blocks, its optimizer state (ZeRO-1 AdamW moments or
+                   Adafactor's statistics) and its batch rows
+    model_flops -- 6*N_active*D for train, 2*N_active*D for inference cells
+    meta        -- notes (precision policy, FSDP, microbatches, ...)
+
+The rank's network and optimizer state are built by the code the
+``Trainer`` builds them with (``training/trainer.py::rank_state``), with no
+weights drawn, and cut to the rank's blocks on ``mesh`` (a
+``launch/mesh.py::counting_mesh`` in the dry run).  Decode cells get
+``meta`` and ``model_flops`` only: their step is not lowered yet
+(``meta["not_lowered"]`` says why).
+
+Profiles: ``baseline`` only.  The reference's ``dp_sp`` and ``seq_sp`` take
+their batch axes from the rules and keep activations sequence-sharded; the
+port's mesh fixes its batch axes to ``("pod", "data")``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+
+from ..configs import SHAPES, get
+from ..configs.base import ModelConfig, ShapeConfig
+from ..distributed.sharding import use_mesh
+from ..launch.prefill import make_prefill_step, stub_shapes
+from ..models import build_model
+from ..models.layers import dtype_of
+from ..training.optimizer import AdamWConfig
+from ..training.trainer import make_train_step, rank_state
+
+#: why a decode cell's step is not run (``meta["not_lowered"]``)
+DECODE_NOT_LOWERED = (
+    "decode not lowered yet: the port's decode attention has no "
+    "tensor-parallel branch (it splits the full head count), and the "
+    "reference's sequence-sharded KV cache ('kv_seq') is not ported")
+
+
+def wants_fsdp(cfg: ModelConfig, mesh) -> bool:
+    """FSDP is *required* (parameters sharded over the data axes too, the
+    ZeRO-3 / 2.5D-style trade of communication for memory) when tensor
+    parallelism alone leaves > 4 GB a rank of parameters."""
+    model_ways = mesh.shape.get("model", 1)
+    per_dev = cfg.param_count() * 2 / model_ways
+    return per_dev > 4e9
+
+
+def choose_fsdp(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
+                required: bool) -> bool:
+    """The layout choice routed through the tuner: FSDP when memory
+    requires it, else, for train shapes, when the LM-step model predicts
+    the per-layer all-gathers pay for themselves (cached in the plan cache
+    like any linalg plan).  Serving shapes get FSDP only when required:
+    the model prices a training step."""
+    if shape.kind != "train":
+        return required
+    from ..tuner import default_tuner
+    try:
+        return default_tuner().recommend_fsdp(cfg, shape, dict(mesh.shape),
+                                              required=required)
+    except Exception:  # the model consult must never break a dry run
+        return required
+
+
+#: sharding profiles (the reference's names); the port has the baseline
+PROFILES = {"baseline": lambda cfg: {}}
+
+
+def rules_for(arch: str, profile: str = "baseline") -> dict:
+    if profile not in PROFILES:
+        raise ValueError(f"profile {profile!r} is not ported (the port "
+                         f"has {sorted(PROFILES)})")
+    return PROFILES[profile](get(arch))
+
+
+def opt_config_for(cfg: ModelConfig) -> AdamWConfig:
+    """Optimizer and precision policy by scale: below 80B parameters AdamW
+    with fp32 moments; 80-250B AdamW with bf16 moments; from 250B
+    Adafactor (a factored second moment)."""
+    n = cfg.param_count()
+    if n >= 250e9:
+        return AdamWConfig(kind="adafactor")
+    return AdamWConfig(state_dtype="bfloat16" if n >= 80e9 else "float32")
+
+
+def microbatches(cfg: ModelConfig, shape: ShapeConfig, mesh) -> int:
+    """At most ~2 GB a rank of rematerialization stash: the batch split
+    in powers of two until it fits."""
+    chips = 1
+    for v in mesh.shape.values():
+        chips *= v
+    stash = (cfg.n_layers * shape.global_batch * shape.seq_len
+             * cfg.d_model * 2 / chips)
+    micro = 1
+    while stash / micro > 2.2e9 and micro < shape.global_batch:
+        micro *= 2
+    return micro
+
+
+def cell_meta(cfg: ModelConfig, shape: ShapeConfig, mesh):
+    """(meta, model_flops) of a cell: what the reference's
+    ``step_and_specs`` records, without building anything."""
+    meta: Dict[str, Any] = {"arch": cfg.name, "shape": shape.name,
+                            "kind": shape.kind}
+    meta["fsdp"] = choose_fsdp(cfg, shape, mesh,
+                               required=wants_fsdp(cfg, mesh))
+    n_active = cfg.active_param_count()
+    tokens = shape.global_batch * shape.seq_len
+    if shape.kind == "train":
+        opt_cfg = opt_config_for(cfg)
+        meta["opt_state_dtype"] = opt_cfg.state_dtype
+        meta["microbatches"] = microbatches(cfg, shape, mesh)
+        meta["grad_accum_dtype"] = opt_cfg.state_dtype
+        model_flops = 6.0 * n_active * tokens
+    elif shape.kind == "prefill":
+        model_flops = 2.0 * n_active * tokens
+    else:
+        meta["cache_len"] = (min(shape.seq_len, cfg.sliding_window)
+                             if cfg.sliding_window else shape.seq_len)
+        model_flops = 2.0 * n_active * shape.global_batch
+    meta["params"] = int(cfg.param_count())
+    meta["active_params"] = int(n_active)
+    return meta, model_flops
+
+
+def batch_rows(shape: ShapeConfig, mesh) -> int:
+    """This rank's rows of the global batch: split over the batch axes
+    where they divide it, else every row (replicated, as ``valid_spec``
+    leaves an indivisible batch)."""
+    n = mesh.axis_size(mesh.batch_axes)
+    b = shape.global_batch
+    return b // n if b % n == 0 else b
+
+
+def rank_batch(cfg: ModelConfig, shape: ShapeConfig, mesh, device
+               ) -> Dict[str, torch.Tensor]:
+    """This rank's batch, zeros on ``device``: tokens (and labels for
+    train) of the cell's length, and the stub inputs the arch takes."""
+    rows = batch_rows(shape, mesh)
+    z = dict(dtype=torch.int32, device=device)
+    out = {"tokens": torch.zeros((rows, shape.seq_len), **z)}
+    if shape.kind == "train":
+        out["labels"] = torch.zeros((rows, shape.seq_len), **z)
+    for name, tail in stub_shapes(cfg).items():
+        out[name] = torch.zeros((rows, *tail), dtype=dtype_of(cfg.dtype),
+                                device=device)
+    return out
+
+
+def step_and_specs(arch: str, shape_name: str, mesh, *, device="meta",
+                   layers: Optional[int] = None):
+    """(step_fn, args, model_flops, meta) of rank ``mesh.rank``'s step of
+    the cell (module docstring).  ``layers`` cuts the depth (the record
+    says so in ``meta["layers"]``)."""
+    cfg = get(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    shape = SHAPES[shape_name]
+    meta, model_flops = cell_meta(cfg, shape, mesh)
+    meta["layers"] = cfg.n_layers
+    if shape.kind == "decode":
+        meta["not_lowered"] = DECODE_NOT_LOWERED
+        return None, (), model_flops, meta
+    model = build_model(cfg)
+    device = torch.device(device)
+    opt_cfg = opt_config_for(cfg) if shape.kind == "train" else None
+    net, layout, opt_state = rank_state(model, opt_cfg, mesh, seed=None,
+                                        device=device, fsdp=meta["fsdp"])
+    batch = rank_batch(cfg, shape, mesh, device)
+    meta["rank"] = mesh.rank
+    meta["batch_rows"] = batch["tokens"].shape[0]
+    if shape.kind == "train":
+        accum = (torch.bfloat16 if opt_cfg.state_dtype == "bfloat16"
+                 else None)
+        train = make_train_step(model, opt_cfg,
+                                microbatches=meta["microbatches"],
+                                accum_dtype=accum)
+
+        def step_fn(net, opt_state, batch):
+            return train(net, opt_state, batch, layout)
+
+        return step_fn, (net, opt_state, batch), model_flops, meta
+    prefill = make_prefill_step(model)
+
+    def step_fn(net, batch):
+        with use_mesh(mesh):
+            return prefill(net, batch["tokens"],
+                           **{k: v for k, v in batch.items()
+                              if k != "tokens"})
+
+    return step_fn, (net, batch), model_flops, meta

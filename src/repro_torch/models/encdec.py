@@ -15,6 +15,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.sharding import placed
 from .attention import (Attention, attention_decode, attention_train,
                         cross_attention, init_kv_cache)
 from .layers import REMAT, MLP, Embedding, Linear, RMSNorm, _param, dtype_of
@@ -68,7 +69,7 @@ class EncDec(nn.Module):
 def encode(net: EncDec, cfg, frames: torch.Tensor) -> torch.Tensor:
     """frames: (B, n_frames, D) precomputed embeddings (the frontend stub)
     -> the encoder's states (B, n_frames, D)."""
-    x = frames + net.enc_pos_table[None, :frames.shape[1]]
+    x = frames + placed(net.enc_pos_table)[None, :frames.shape[1]]
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     for p in net.enc_layers:
@@ -86,7 +87,7 @@ def encdec_forward_train(net: EncDec, cfg, frames: torch.Tensor,
     memory = encode(net, cfg, frames)
     x = net.embed(tokens)
     b, s = x.shape[:2]
-    x = x + net.pos_table[None, :s]
+    x = x + placed(net.pos_table)[None, :s]
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     remat = cfg.remat and torch.is_grad_enabled()
     for p in net.dec_layers:
@@ -122,7 +123,7 @@ def encdec_decode_step(net: EncDec, cfg, tokens: torch.Tensor, caches,
     """tokens: (B, s1), one new token or a chunked-prefill chunk a row;
     memory: the encoder's states (B, M, D).  Returns (logits, caches)."""
     x = net.embed(tokens)
-    x = x + position_rows(net.pos_table, caches[-1]["kv"].length,
+    x = x + position_rows(placed(net.pos_table), caches[-1]["kv"].length,
                           tokens.shape[1])
     new_caches = []
     for p, c in zip(net.dec_layers, caches):

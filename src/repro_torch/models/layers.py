@@ -95,7 +95,7 @@ class RMSNorm(nn.Module):
         xf = x.to(torch.float32)
         var = torch.mean(xf * xf, dim=-1, keepdim=True)
         y = xf * torch.rsqrt(var + self.eps)
-        return (y * self.scale.to(torch.float32)).to(x.dtype)
+        return (y * placed(self.scale).to(torch.float32)).to(x.dtype)
 
 
 class Embedding(nn.Module):

@@ -22,9 +22,9 @@ logits tensor is never held.  Without ``device=`` the module and the caches
 go on the current GPU, and without a GPU ``init`` and ``init_cache`` raise:
 the caller names the CPU to run the plain versions.
 
-Under a mesh, ``Model.shard(net, mesh)`` cuts the network's parameters to
-this rank's blocks (``distributed/sharding.py``) and sets the dense blocks'
-tensor parallelism; ``loss`` then gives the rank's mean over its own rows
+Under a mesh, ``Model.shard(net, mesh, fsdp=)`` cuts the network's
+parameters to this rank's blocks (``distributed/sharding.py``; with
+``fsdp`` over ``data`` too) and sets the dense blocks' tensor parallelism; ``loss`` then gives the rank's mean over its own rows
 of the batch, which the trainer averages over the batch ranks.
 """
 
@@ -38,7 +38,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..devices import canonical, default_devices
-from ..distributed.sharding import P, TP, Placement, dims_over, leaf_spec
+from ..distributed.sharding import (P, TP, Placement, dims_over, fsdp_spec,
+                                    leaf_spec)
 from . import encdec as ed
 from . import transformer as tf
 from .attention import Attention
@@ -85,70 +86,88 @@ def _chunked_ce(net, cfg, hidden, labels, chunk: int):
 class Model:
     cfg: ModelConfig
 
-    def init(self, seed: int = 0, *,
+    def init(self, seed: Optional[int] = 0, *,
              device=None) -> Union[tf.Decoder, ed.EncDec]:
         """The network with parameters drawn from ``torch.Generator``
-        seeded with ``seed`` on ``device`` (default: the current GPU)."""
+        seeded with ``seed`` on ``device`` (default: the current GPU);
+        with ``seed=None`` left undrawn (the ``meta`` device's network of a
+        counted run, or one a state dict is loaded into)."""
         device = (default_devices()[0] if device is None
                   else canonical(device))
-        gen = torch.Generator(device=device).manual_seed(seed)
+        gen = (None if seed is None
+               else torch.Generator(device=device).manual_seed(seed))
         if self.cfg.block_pattern == "encdec":
             return ed.EncDec(self.cfg, device=device, generator=gen)
         return tf.Decoder(self.cfg, device=device, generator=gen)
 
-    def shard(self, net, mesh) -> Dict[str, P]:
+    def shard(self, net, mesh, *, fsdp: bool = False) -> Dict[str, P]:
         """Cut ``net``'s parameters in place to this rank's blocks under
         ``mesh`` and return ``{reference leaf path: spec}``.
 
         A leaf's spec is :func:`sharding.leaf_spec` of the reference's
-        stacked leaf.  The self-attention blocks (``attn``) whose ``wq`` /
-        ``wo`` are cut on whole query heads run tensor-parallel, with
-        ``wk`` / ``wv`` too where the KV heads divide; the MLPs whose
-        ``up`` / ``gate`` / ``down`` are cut on ``d_ff`` run
-        tensor-parallel; every other leaf cut over ``model`` is gathered
-        where it is used.  Each cut parameter carries its ``placement``."""
+        stacked leaf, or with ``fsdp`` its :func:`sharding.fsdp_spec`.  The
+        self-attention blocks (``attn``) whose ``wq`` / ``wo`` are cut on
+        whole query heads run tensor-parallel, with ``wk`` / ``wv`` too
+        where the KV heads divide; the MLPs whose ``up`` / ``gate`` /
+        ``down`` are cut on ``d_ff`` run tensor-parallel; every other leaf
+        cut over ``model`` is gathered where it is used, as is every leaf's
+        ``data`` block under FSDP.  Each cut parameter carries its
+        ``placement``."""
         m = mesh.shape.get("model", 1)
         params = dict(net.named_parameters())
-        specs, cut = {}, {}
+        specs, cut, fcut = {}, {}, {}
         for path, leaf in reference_leaves(net).items():
             p0 = params[leaf.names[0]]
             shape = (len(leaf.names),) * leaf.stacked + tuple(p0.shape)
-            specs[path] = spec = leaf_spec(path, shape, mesh)
-            dims = dims_over(spec, "model")
+            specs[path] = spec = (
+                fsdp_spec(path, shape, mesh, leaf.stacked) if fsdp
+                else leaf_spec(path, shape, mesh))
+            # an axis of one rank cuts nothing
+            dims = dims_over(spec, "model") if m > 1 else ()
+            fdims = (dims_over(spec, "data")
+                     if mesh.shape.get("data", 1) > 1 else ())
             for name in leaf.names:
                 cut[name] = dims[0] - leaf.stacked if dims else None
-        if m == 1:
-            return specs
-        tp = TP(mesh.group("model"), m, mesh.axis_index("model"))
+                fcut[name] = fdims[0] - leaf.stacked if fdims else None
         mode = {}
-        for mname, mod in net.named_modules():
-            pre = f"{mname}." if mname else ""
-            if isinstance(mod, Attention) and mname.endswith("attn"):
-                q_whole = (cut[pre + "wq.w"] == 1 and cut[pre + "wo.w"] == 0
-                           and self.cfg.n_heads % m == 0)
-                if not q_whole:
-                    continue
-                mod.tp = tp
-                mod.kv_tp = (cut[pre + "wk.w"] == 1
-                             and self.cfg.n_kv_heads % m == 0)
-                names = ["wq", "wo"] + (["wk", "wv"] if mod.kv_tp else [])
-                mode.update((f"{pre}{n}.{w}", "tp") for n in names
-                            for w in ("w", "b"))
-            elif isinstance(mod, MLP):
-                lins = ["up", "down"] + (["gate"] if mod.gate is not None
-                                         else [])
-                want = {"up": 1, "gate": 1, "down": 0}
-                if all(cut[f"{pre}{n}.w"] == want[n] for n in lins):
+        if m > 1:
+            tp = TP(mesh.group("model"), m, mesh.axis_index("model"))
+            for mname, mod in net.named_modules():
+                pre = f"{mname}." if mname else ""
+                if isinstance(mod, Attention) and mname.endswith("attn"):
+                    q_whole = (cut[pre + "wq.w"] == 1
+                               and cut[pre + "wo.w"] == 0
+                               and self.cfg.n_heads % m == 0)
+                    if not q_whole:
+                        continue
                     mod.tp = tp
-                    mode.update((f"{pre}{n}.w", "tp") for n in lins)
+                    mod.kv_tp = (cut[pre + "wk.w"] == 1
+                                 and self.cfg.n_kv_heads % m == 0)
+                    names = ["wq", "wo"] + (["wk", "wv"] if mod.kv_tp
+                                            else [])
+                    mode.update((f"{pre}{n}.{w}", "tp") for n in names
+                                for w in ("w", "b"))
+                elif isinstance(mod, MLP):
+                    lins = ["up", "down"] + (["gate"] if mod.gate is not None
+                                             else [])
+                    want = {"up": 1, "gate": 1, "down": 0}
+                    if all(cut[f"{pre}{n}.w"] == want[n] for n in lins):
+                        mod.tp = tp
+                        mode.update((f"{pre}{n}.w", "tp") for n in lins)
         with torch.no_grad():
             for name, p in params.items():
-                dim = cut[name]
-                if dim is None:
+                dim, fdim = cut[name], fcut[name]
+                if dim is None and fdim is None:
                     continue
-                size = p.shape[dim] // m
-                p.data = p.data.narrow(dim, tp.index * size, size).clone()
-                p.placement = Placement(dim, mode.get(name, "gather"), mesh)
+                x = p.data
+                for d, axis in ((dim, "model"), (fdim, "data")):
+                    if d is not None:
+                        size = x.shape[d] // mesh.shape[axis]
+                        x = x.narrow(d, mesh.coords[axis] * size, size)
+                p.data = x.clone()
+                p.placement = Placement(
+                    dim, None if dim is None else mode.get(name, "gather"),
+                    mesh, fdim)
         return specs
 
     def loss(self, net, batch: Mapping[str, torch.Tensor]):

@@ -222,7 +222,7 @@ def decoder_forward_train(net: Decoder, cfg, tokens: torch.Tensor, *,
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     if net.pos_table is not None:
-        x = x + net.pos_table[:s][None]
+        x = x + placed(net.pos_table)[:s][None]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if not (cfg.remat and torch.is_grad_enabled()):
         # layer by layer: each layer's input is freed as the next one runs
@@ -325,7 +325,7 @@ def decoder_decode_step(net: Decoder, cfg, tokens: torch.Tensor, caches,
     Returns (logits (B, s1, V), new_caches)."""
     x = net.embed(tokens)
     if net.pos_table is not None:
-        x = x + position_rows(net.pos_table, caches_length(caches),
+        x = x + position_rows(placed(net.pos_table), caches_length(caches),
                               tokens.shape[1])
     new_caches = []
     for kind, layer, c in zip(net.kinds, net.layers, caches):

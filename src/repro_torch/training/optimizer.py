@@ -22,7 +22,8 @@ added on one replicated dimension, so each rank holds its ``data`` slice of
 its ``model`` block (:func:`zero_slice`); the update runs on that slice and
 the updated parameter slices are all-gathered over ``data``
 (:func:`zero_unslice`).  Adafactor's statistics are not reached by the
-reference's constraint and stay whole on every rank.
+reference's constraint and stay whole on every rank; its update runs on
+the rank's block (:func:`adafactor_leaf`).
 :func:`sharded_global_norm` counts each leaf's distinct blocks once.
 """
 
@@ -36,7 +37,7 @@ from typing import (Any, Iterable, Mapping, NamedTuple, Optional, Tuple,
 import torch
 
 from ..distributed import process_group as pg
-from ..distributed.sharding import dims_over
+from ..distributed.sharding import Mesh, P, dims_over, gather, shard_of
 
 _STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 #: elements of a leaf that AdamW's math takes at once (whole rows)
@@ -113,22 +114,34 @@ def global_norm(tensors: Union[Mapping[str, torch.Tensor],
                           for x in tensors))
 
 
-def sharded_global_norm(blocks: Iterable[Tuple[torch.Tensor, bool]],
+def sharded_global_norm(blocks: Iterable[Tuple[torch.Tensor, bool, bool]],
                         mesh) -> torch.Tensor:
     """The global norm of a model held in blocks: ``blocks`` yields (a
-    gradient block, whether its leaf is cut over ``model``).  The squares
-    of a leaf replicated over ``model`` are counted on the first
-    ``model`` rank only, then the sum is all-reduced over ``model`` (the
-    ``data`` ranks hold the same averaged gradients)."""
+    gradient block, whether its leaf is cut over ``model``, whether over
+    ``data`` (FSDP)).  The squares of a leaf replicated over ``model`` are
+    counted on the first ``model`` rank only; those of the FSDP blocks are
+    summed over ``data`` (the other ``data`` ranks hold the same averaged
+    gradients of every other leaf); then the sum is all-reduced over
+    ``model``."""
     first = mesh.coords.get("model", 0) == 0
-    total = None
-    for g, cut in blocks:
+    sums = [None, None]                       # [whole over data, FSDP]
+    has_fsdp = False
+    for g, cut, fsdp in blocks:
+        has_fsdp |= bool(fsdp)
+        if sums[0] is None:
+            sums[0] = g.new_zeros((), dtype=torch.float32)
         if not (cut or first):
             continue
         sq = torch.sum(torch.square(g.to(torch.float32)))
-        total = sq if total is None else total + sq
-    if total is None:
+        sums[fsdp] = sq if sums[fsdp] is None else sums[fsdp] + sq
+    if sums[0] is None:
         raise ValueError("no gradient blocks")
+    total = sums[0]
+    if has_fsdp:
+        part = sums[1] if sums[1] is not None else torch.zeros_like(total)
+        group = mesh.group("data")
+        total = total + (part if group is None
+                         else pg.all_reduce(part, group))
     group = mesh.group("model")
     if group is not None:
         total = pg.all_reduce(total, group)
@@ -216,31 +229,72 @@ def adafactor_begin(cfg: AdamWConfig, state: AdamState):
     return step, lr_at(cfg, step), 1.0 - (step.to(torch.float32) + 1.0) ** -0.8
 
 
+def _cut_axes(part, mesh) -> Tuple[str, ...]:
+    """The mesh axes of more than one rank that a spec entry cuts over."""
+    names = () if part is None else (part,) if isinstance(part, str) \
+        else tuple(part)
+    return tuple(a for a in names if mesh.shape.get(a, 1) > 1)
+
+
+def _sum_over(x: torch.Tensor, axes, mesh) -> torch.Tensor:
+    for a in axes:
+        x = pg.all_reduce(x, mesh.group(a))
+    return x
+
+
 def adafactor_leaf(cfg: AdamWConfig, lr, b2, p: torch.Tensor,
-                   g: torch.Tensor, v: dict) -> None:
+                   g: torch.Tensor, v: dict, spec=P(),
+                   mesh: Optional[Mesh] = None) -> None:
     """One leaf's Adafactor update (factored second moment, no first
     moment, the update clipped at RMS 1 over the whole leaf), in place on
     p and the accumulators in ``v``.  The full-size math runs in the
     parameter's type when that is bf16, else fp32; the accumulators are
-    fp32."""
+    fp32.
+
+    ``p`` (gradient ``g``) is this rank's block of a leaf cut by ``spec``
+    on ``mesh`` (default: the whole leaf), with the statistics ``v`` whole
+    on every rank.  A factored leaf is never gathered: the row and column
+    means of g^2 are summed over the axes that cut their dimension and
+    gathered over the rest (they are a dimension smaller than the leaf),
+    the rank's rows and columns of the factors are cut from them, and the
+    RMS of the update is summed over every cutting axis; where nothing
+    cuts the leaf these collectives are no-ops.  An unfactored leaf (a
+    dimension below 8: small) that is cut is gathered, updated whole and
+    cut again."""
+    mesh = mesh or Mesh({})
+    parts = list(spec) + [None] * (p.ndim - len(spec))
+    cut = [_cut_axes(part, mesh) for part in parts]
     eps = 1e-30
     mdt = p.dtype if p.dtype == torch.bfloat16 else torch.float32
     g2 = torch.square(g.to(torch.float32))
     if "vr" in v:
-        vr = v["vr"] * b2 + (1 - b2) * (torch.mean(g2, dim=-1) + eps)
-        vc = v["vc"] * b2 + (1 - b2) * (torch.mean(g2, dim=-2) + eps)
+        whole = [n * mesh.axis_size(a) for n, a in zip(p.shape, cut)]
+        row_spec, col_spec = P(*parts[:-1]), P(*parts[:-2], parts[-1])
+        rows = _sum_over(torch.sum(g2, dim=-1), cut[-1], mesh) / whole[-1]
+        cols = _sum_over(torch.sum(g2, dim=-2), cut[-2], mesh) / whole[-2]
+        vr = v["vr"] * b2 + (1 - b2) * (gather(rows, row_spec, mesh) + eps)
+        vc = v["vc"] * b2 + (1 - b2) * (gather(cols, col_spec, mesh) + eps)
         r = torch.rsqrt(torch.clamp(
             vr / torch.clamp(vr.mean(dim=-1, keepdim=True), min=eps),
             min=eps))
         c = torch.rsqrt(torch.clamp(vc, min=eps))
+        r, c = shard_of(r, row_spec, mesh), shard_of(c, col_spec, mesh)
         u = g.to(mdt) * r[..., :, None].to(mdt) * c[..., None, :].to(mdt)
         v["vr"].copy_(vr)
         v["vc"].copy_(vc)
+    elif any(cut):
+        full = gather(p, spec, mesh)
+        adafactor_leaf(cfg, lr, b2, full, gather(g, spec, mesh), v)
+        p.copy_(shard_of(full, spec, mesh))
+        return
     else:
         vfull = v["v"] * b2 + (1 - b2) * g2
         u = g.to(mdt) * torch.rsqrt(torch.clamp(vfull, min=eps)).to(mdt)
         v["v"].copy_(vfull)
-    rms = torch.sqrt(torch.mean(torch.square(u.to(torch.float32))) + eps)
+    sq = _sum_over(torch.sum(torch.square(u.to(torch.float32))),
+                   [a for axes in cut for a in axes], mesh)
+    rms = torch.sqrt(sq / math.prod(p.shape[i] * mesh.axis_size(cut[i])
+                                    for i in range(p.ndim)) + eps)
     u = u / torch.clamp(rms, min=1.0).to(mdt)
     if cfg.weight_decay and p.ndim >= 2:
         u = u + cfg.weight_decay * p.to(mdt)

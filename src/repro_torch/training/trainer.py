@@ -38,8 +38,8 @@ from ..configs.base import ModelConfig
 from ..devices import canonical, default_devices
 from ..distributed import process_group as pg
 from ..distributed.sharding import (P, Mesh, block_shape, dims_over,
-                                    gather, leaf_zero_spec, shard_of,
-                                    use_mesh)
+                                    gather, is_fsdp, leaf_zero_spec,
+                                    shard_of, use_mesh)
 from ..models import build_model, moe
 from ..models.convert import (host_array, load_leaves, nest,
                               reference_leaves, write_rows)
@@ -75,6 +75,11 @@ class Layout(NamedTuple):
     def cut(self, path: str) -> bool:
         """True when the leaf is cut over ``model``."""
         return bool(dims_over(self.specs[path], "model"))
+
+    def fsdp(self, path: str) -> bool:
+        """True when the leaf's parameters are cut over ``data`` (FSDP):
+        its moments are the parameters' own blocks."""
+        return bool(dims_over(self.specs[path], "data"))
 
 
 def whole_layout(net) -> Layout:
@@ -146,16 +151,16 @@ def apply_update(opt_cfg: AdamWConfig, net, grads: Dict[str, torch.Tensor],
     gradients are dropped as their leaf is done.  The parameters and
     gradients are this rank's blocks under ``layout`` (default: whole, on
     one rank): AdamW updates the rank's ZeRO-1 slice and gathers the
-    slices over ``data``; Adafactor gathers the leaf over ``model``,
-    updates it whole and cuts it again.  Returns (new state,
-    {"grad_norm", "lr"})."""
+    slices over ``data`` (an FSDP block is its own slice); Adafactor
+    updates the rank's block (``optimizer.adafactor_leaf``).  Returns
+    (new state, {"grad_norm", "lr"})."""
     layout = layout or whole_layout(net)
     mesh = layout.mesh
     params = dict(net.named_parameters())
     leaves = reference_leaves(net)
     gnorm = sharded_global_norm(
-        ((grads[n], layout.cut(path)) for path, leaf in leaves.items()
-         for n in leaf.names), mesh)
+        ((grads[n], layout.cut(path), layout.fsdp(path))
+         for path, leaf in leaves.items() for n in leaf.names), mesh)
     if opt_cfg.kind == "adafactor":
         step, lr, b2 = adafactor_begin(opt_cfg, state)
     else:
@@ -169,11 +174,11 @@ def apply_update(opt_cfg: AdamWConfig, net, grads: Dict[str, torch.Tensor],
             p, g = params[leaf.names[0]].detach(), grads.pop(leaf.names[0])
         held = p
         if opt_cfg.kind == "adafactor":
-            spec = layout.specs[path]
-            full, gfull = gather(p, spec, mesh), gather(g, spec, mesh)
-            adafactor_leaf(opt_cfg, lr, b2, full, gfull, state.nu[path])
-            p = shard_of(full, spec, mesh)
-            del full, gfull
+            adafactor_leaf(opt_cfg, lr, b2, p, g, state.nu[path],
+                            layout.specs[path], mesh)
+        elif layout.fsdp(path):
+            # the rank's block is its ZeRO-1 slice already
+            adamw_leaf(opt_cfg, st, p, g, state.mu[path], state.nu[path])
         else:
             zspec = layout.zero[path]
             part = zero_slice(p, zspec, mesh)
@@ -234,8 +239,8 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, microbatches: int = 1,
     The metrics ("loss", "ce", "aux", "grad_norm", "lr") are 0-d tensors
     on the parameters' device.  Under a sharded ``Layout`` (``Trainer``
     with a mesh) ``batch`` is this rank's rows; the step averages the
-    gradients and the metrics over the batch ranks and runs the sharded
-    update."""
+    gradients (but for FSDP blocks, whose backward averaged them already)
+    and the metrics over the batch ranks and runs the sharded update."""
 
     def train_step(net, opt_state: AdamState, batch: Mapping[str, Any],
                    layout: Optional[Layout] = None):
@@ -245,7 +250,10 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, microbatches: int = 1,
             loss, metrics, grads = _gradients(model, net, batch,
                                               microbatches, accum_dtype)
         group = mesh.group(mesh.batch_axes)
-        grads = average_over(grads, group)
+        fsdp = {n for n, p in net.named_parameters() if is_fsdp(p)}
+        grads = {**average_over({n: g for n, g in grads.items()
+                                 if n not in fsdp}, group),
+                 **{n: grads[n] for n in fsdp}}
         means = average_over({"loss": loss, **metrics}, group)
         opt_state, opt_metrics = apply_update(opt_cfg, net, grads, opt_state,
                                               layout)
@@ -260,43 +268,61 @@ def _expanded(shape, dtype, device) -> torch.Tensor:
     return torch.zeros((), dtype=dtype, device=device).expand(*shape)
 
 
+def rank_state(model, opt_cfg: Optional[AdamWConfig], mesh=None, *,
+               seed: Optional[int] = 0, device=None, fsdp: bool = False):
+    """(net, layout, optimizer state) of one rank: the network drawn from
+    ``seed`` on ``device`` (``seed=None``: left undrawn, as a ``meta``
+    network is) and cut to the rank's blocks under ``mesh`` (with
+    ``fsdp`` over ``data`` too), and the optimizer's zero state for those
+    blocks (None without ``opt_cfg``).  AdamW's moments are ZeRO-1 blocks
+    (an FSDP leaf's are its parameters' blocks); Adafactor's statistics,
+    which the reference's constraint does not reach, stay whole."""
+    mesh = Mesh({}) if mesh is None else mesh
+    net = model.init(seed, device=device)
+    templates = leaf_templates(net)
+    shapes = {path: tuple(t.shape) for path, t in templates.items()}
+    specs = model.shard(net, mesh, fsdp=fsdp)
+    zero = {path: specs[path] if dims_over(specs[path], "data")
+            else leaf_zero_spec(path, shape, mesh)
+            for path, shape in shapes.items()}
+    layout = Layout(mesh, shapes, specs, zero)
+    if opt_cfg is None:
+        return net, layout, None
+    whole = opt_cfg.kind == "adafactor"
+    opt_state = init_adamw(opt_cfg, {path: _expanded(
+        shapes[path] if whole else block_shape(shapes[path], zero[path],
+                                               mesh),
+        t.dtype, t.device) for path, t in templates.items()})
+    return net, layout, opt_state
+
+
 class Trainer:
-    """``Trainer(cfg, mesh=None, seed=, device=)``: the network drawn from
-    ``seed`` on ``device`` (default: the current GPU; without one it raises
-    unless the CPU is named), the optimizer's state, the data pipeline;
-    ``run`` trains ``cfg.n_steps`` steps through the restartable loop,
-    checkpointing into ``cfg.checkpoint_dir`` every
+    """``Trainer(cfg, mesh=None, seed=, device=, fsdp=)``: the network
+    drawn from ``seed`` on ``device`` (default: the current GPU; without
+    one it raises unless the CPU is named), the optimizer's state, the data
+    pipeline; ``run`` trains ``cfg.n_steps`` steps through the restartable
+    loop, checkpointing into ``cfg.checkpoint_dir`` every
     ``cfg.checkpoint_every`` steps.  The network, the moments and the
-    batch are this rank's shares under ``mesh`` (``layout``); without one
-    the mesh has no axes and the shares are the whole."""
+    batch are this rank's shares under ``mesh`` (``layout``; with ``fsdp``
+    the parameters are cut over ``data`` too); without one the mesh has no
+    axes and the shares are the whole."""
 
     def __init__(self, cfg: TrainConfig, *, mesh=None, seed: int = 0,
-                 device=None):
+                 device=None, fsdp: bool = False):
         self.cfg = cfg
         self.device = (default_devices()[0] if device is None
                        else canonical(device))
         self.model = build_model(cfg.model)
         self.data = DataPipeline(cfg.data)
         self.mesh = Mesh({}) if mesh is None else mesh
-        self.net = self.model.init(seed, device=self.device)
         #: the reference's expert-parallel test on the mesh given (MoE only)
         self.ep_works = None
         if mesh is not None and cfg.model.moe:
             with use_mesh(mesh):
                 self.ep_works = moe.ep_works(cfg.model)
-        templates = leaf_templates(self.net)
-        shapes = {path: tuple(t.shape) for path, t in templates.items()}
-        specs = self.model.shard(self.net, self.mesh)
-        zero = {path: leaf_zero_spec(path, shape, self.mesh)
-                for path, shape in shapes.items()}
-        self.layout = Layout(self.mesh, shapes, specs, zero)
-        # AdamW's moments are ZeRO-1 blocks; Adafactor's statistics, which
-        # the reference's constraint does not reach, stay whole
-        whole = cfg.opt.kind == "adafactor"
-        self.opt_state = init_adamw(cfg.opt, {path: _expanded(
-            shapes[path] if whole else block_shape(shapes[path], zero[path],
-                                                   self.mesh),
-            t.dtype, t.device) for path, t in templates.items()})
+        self.net, self.layout, self.opt_state = rank_state(
+            self.model, cfg.opt, self.mesh, seed=seed, device=self.device,
+            fsdp=fsdp)
         self._step_fn = make_train_step(self.model, cfg.opt)
         self.step = 0
         self.monitor = StragglerMonitor()

@@ -1,0 +1,333 @@
+"""The dry run on the CPU: the kernels' counted operators on ``meta``, the
+collectives a counting mesh records against a real gloo world's, and the
+``launch/dryrun.py`` entry point.
+
+* K4, K5 and K6 (and K6's backward) on ``meta`` tensors give the shape
+  and type of their plain versions' CPU outputs, and a flop counter reads
+  the formulas PERF.md's bounds use: K4 4 D a kept (query, key) pair, K5
+  4 DK DV a step, K6 27 a step and its backward 60.  K4's operand copies
+  are decided from strides, so a ``meta`` count sees them.
+* A gloo world of four ranks on (1, 2, 2) runs one reduced dense, MoE and
+  FSDP train step; each rank's ``collective_stats()`` by kind (calls and
+  operand bytes) equals the count of the same rank's step on
+  ``counting_mesh``, exactly.
+* ``python -m repro_torch.launch.dryrun`` writes a record with the
+  reference's keys, with ``jax`` never imported, and
+  ``benchmarks/roofline_table.py`` reads it; ``--device cuda`` on a host
+  without a card exits non-zero.
+"""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import textwrap
+import time
+
+import numpy as np
+import pytest
+import torch
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro.core import roofline as ref_rl
+from repro_torch.configs import get
+from repro_torch.core import roofline as rl
+from repro_torch.distributed import process_group as pg
+from repro_torch.distributed import spawn
+from repro_torch.kernels import (flash_attention_cuda, slstm_scan_bwd_cuda,
+                                 slstm_scan_cuda, ssm_scan_cuda)
+from repro_torch.kernels import launches, reset_launches
+from repro_torch.training import AdamWConfig, DataConfig, TrainConfig, Trainer
+
+SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
+META = torch.device("meta")
+
+
+def _pair(shape, dtype=torch.float32, seed=0):
+    """The same shape on the CPU (seeded) and on meta."""
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal(shape)
+                         .astype(np.float32)).to(dtype)
+    return x, torch.empty(shape, dtype=dtype, device=META)
+
+
+def _flops(fn):
+    with FlopCounterMode(display=False) as fc:
+        out = fn()
+    return out, fc.get_total_flops()
+
+
+# -- the kernels' meta paths and formulas ---------------------------------------
+
+@pytest.mark.parametrize("b,h,kv,s,d,causal,dtype", [
+    (2, 4, 2, 256, 64, True, torch.float32),
+    (1, 6, 3, 300, 80, False, torch.float32),     # padded to 96
+    (2, 4, 4, 256, 128, True, torch.bfloat16),
+    (1, 4, 2, 384, 320, True, torch.bfloat16),    # the wide body's pad
+])
+def test_k4_meta_path_and_formula(b, h, kv, s, d, causal, dtype):
+    (q, mq), (k, mk), (v, mv) = (_pair((b, n, s, d), dtype, i)
+                                 for i, n in enumerate((h, kv, kv)))
+    reset_launches()
+    want = flash_attention_cuda(q, k, v, causal=causal)
+    got, flops = _flops(lambda: flash_attention_cuda(mq, mk, mv,
+                                                     causal=causal))
+    assert got.device == META and got.shape == want.shape
+    assert got.dtype == want.dtype == dtype
+    pairs = s * (s + 1) // 2 if causal else s * s
+    assert flops == 4 * b * h * d * pairs
+    assert launches()["flash_attention_cuda"] == 0
+
+
+@pytest.mark.parametrize("b,h,s,dk,dv,dtype", [
+    (2, 3, 300, 16, 64, torch.bfloat16),
+    (1, 2, 256, 64, 65, torch.float32),           # v with a ones column
+])
+def test_k5_meta_path_and_formula(b, h, s, dk, dv, dtype):
+    (q, mq), (k, mk) = _pair((b, h, s, dk), dtype, 1), _pair((b, h, s, dk),
+                                                             dtype, 2)
+    v, mv = _pair((b, h, s, dv), dtype, 3)
+    la, mla = _pair((b, h, s), torch.float32, 4)
+    la = -la.abs()
+    want = ssm_scan_cuda(q, k, v, la)
+    got, flops = _flops(lambda: ssm_scan_cuda(mq, mk, mv, mla))
+    assert got.device == META and got.shape == want.shape
+    assert got.dtype == want.dtype
+    assert flops == 4 * b * h * s * dk * dv
+
+
+@pytest.mark.parametrize("states", [False, True])
+def test_k6_meta_paths_and_formulas(states):
+    b, s, w = 2, 50, 40
+    cpu, meta = zip(*(_pair((b, s, w), seed=i) for i in range(4)))
+    want = slstm_scan_cuda(*cpu, states=states)
+    got, flops = _flops(lambda: slstm_scan_cuda(*meta, states=states))
+    want, got = ((want,), (got,)) if not states else (want, got)
+    for g, w_ in zip(got, want):
+        assert g.device == META and g.shape == w_.shape
+        assert g.dtype == w_.dtype == torch.float32
+    assert flops == 27 * b * s * w
+    if states:
+        dy, mdy = _pair((b, s, w), seed=9)
+        want_g = slstm_scan_bwd_cuda(*cpu, *want[1:], dy)
+        got_g, flops = _flops(lambda: slstm_scan_bwd_cuda(*meta, *got[1:],
+                                                          mdy))
+        assert [g.shape for g in got_g] == [g.shape for g in want_g]
+        assert all(g.device == META for g in got_g)
+        assert flops == 60 * b * s * w
+
+
+def test_the_formulas_are_the_bounds():
+    from repro_torch.kernels.flash_attention.ops import flash_attention_flops
+    from repro_torch.kernels.slstm.ops import slstm_scan_flops
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan_flops
+    # chip_smoke.py's K4 bound at starcoder2-3b's prefill shape
+    assert flash_attention_flops(4, 24, 4096, 4096, 128, True) == \
+        4.0 * 4 * 24 * 128 * (4096 * 4097 // 2)
+    assert ssm_scan_flops(100, 4096, 16, 64) == 4.0 * 100 * 4096 * 16 * 64
+    assert slstm_scan_flops(4, 4096, 1024) == 27.0 * 4 * 4096 * 1024
+    assert slstm_scan_flops(1, 1024, 1024, backward=True) == \
+        60.0 * 1024 * 1024
+
+
+def test_k4_copies_are_decided_from_strides_on_meta():
+    """A bf16 operand whose rows are not 16-byte strided is copied before
+    the launch on meta as on the card: the count reads and writes it."""
+    b, h, s, d = 1, 4, 256, 64
+    wide = torch.empty(b, s, h * d + 4, dtype=torch.bfloat16, device=META)
+    odd = wide[..., :h * d].unflatten(-1, (h, d)).transpose(1, 2)
+    even = torch.empty(b, s, h * d, dtype=torch.bfloat16,
+                       device=META).unflatten(-1, (h, d)).transpose(1, 2)
+    kv = torch.empty(b, 2, s, d, dtype=torch.bfloat16, device=META)
+    counted = [rl.count_step(lambda x=x: flash_attention_cuda(x, kv, kv))
+               for x in (even, odd)]
+    copy = 2 * b * h * s * d * 2
+    assert counted[1].bytes - counted[0].bytes == copy
+    assert counted[0].flops_by_type == counted[1].flops_by_type
+
+
+@pytest.mark.parametrize("kernel", ["k5", "k6"])
+def test_the_fp32_workspaces_are_counted_on_meta(kernel):
+    """K5's and K6's fp32 workspaces are made before their operators, so a
+    count holds them at the size csrc/ssm_scan.cu and csrc/slstm.cu ask:
+    the peak is the workspace and the output, and the operator reads the
+    workspace."""
+    if kernel == "k5":
+        b, h, s, dk, dv = 2, 3, 300, 16, 65
+        q = torch.empty(b, h, s, dk, device=META)
+        v = torch.empty(b, h, s, dv, device=META)
+        la = torch.empty(b, h, s, device=META)
+        work = b * h * -(-s // 64) * (dk * 68 + 1) * 4
+        out = b * h * s * dv * 4
+        count = rl.count_step(lambda: ssm_scan_cuda(q, q, v, la))
+    else:
+        b, s, w = 2, 50, 40
+        z = torch.empty(b, s, w, device=META)
+        work = 4 * b * -(-s // 32) * w * 4
+        out = b * s * w * 4
+        count = rl.count_step(lambda: slstm_scan_cuda(z, z, z, z))
+    assert count.memory["temp_bytes"] == work + out
+    assert count.bytes >= work + out
+
+
+def test_a_plain_run_on_the_card_skips_the_operators():
+    """Operands on CUDA launch straight, out of any dispatch mode; under
+    one (a count, a fake-tensor trace) they go through the operator, which
+    the mode sees.  CPU and meta operands never launch straight."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels.common import launch_directly
+    with FakeTensorMode():
+        x = torch.empty(4, device="cuda")
+        assert x.is_cuda and not launch_directly(x)
+    assert launch_directly(x)
+    assert not launch_directly(torch.empty(4))
+    assert not launch_directly(torch.empty(4, device=META))
+
+
+# -- collectives: a real world against the counting mesh ----------------------------
+
+BATCH, SEQ, SEED = 4, 32, 0
+CASES = [("starcoder2-3b", False), ("qwen2-moe-a2.7b", False),
+         ("starcoder2-3b", True)]
+
+
+def _trainer(arch, mesh, fsdp):
+    cfg = dataclasses.replace(get(arch).reduced(),
+                              remat=arch == "starcoder2-3b")
+    return Trainer(TrainConfig(
+        model=cfg, opt=AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10),
+        data=DataConfig(cfg.vocab_size, SEQ, BATCH, seed=SEED), n_steps=1),
+        mesh=mesh, seed=SEED, device="cpu", fsdp=fsdp)
+
+
+def _count_rank(rank, world, device, shape):
+    from repro_torch.launch.mesh import counting_mesh, make_mesh
+    torch.set_num_threads(1)
+    real = make_mesh(1, *shape)
+    out = {}
+    for arch, fsdp in CASES:
+        seen = []
+        for mesh in (real, counting_mesh(shape, rank)):
+            tr = _trainer(arch, mesh, fsdp)
+            batch = tr.batch_at(0)
+            pg.reset_collective_stats()
+            tr.train_step(batch)
+            st = pg.collective_stats()
+            seen.append((st["calls_by_kind"], st["bytes_by_kind"]))
+        out[f"{arch}{'-fsdp' if fsdp else ''}"] = seen
+    return out
+
+
+@pytest.fixture(scope="module")
+def counted_world(tmp_path_factory):
+    return spawn(_count_rank, 4, init_dir=str(
+        tmp_path_factory.mktemp("count_world")), timeout_s=600,
+        args=((2, 2),))
+
+
+@pytest.mark.parametrize("rank", range(4))
+@pytest.mark.parametrize("case", [f"{a}{'-fsdp' if f else ''}"
+                                  for a, f in CASES])
+def test_counting_mesh_counts_what_the_world_sends(counted_world, case,
+                                                   rank):
+    real, counted = counted_world[rank][case]
+    assert real == counted
+    calls, nbytes = real
+    assert set(calls) >= {"all-reduce", "all-gather"}
+    if case.endswith("fsdp"):
+        assert calls.get("reduce-scatter", 0) > 0
+    assert all(v > 0 for v in nbytes.values())
+
+
+# -- the entry point ---------------------------------------------------------------
+
+CLI = textwrap.dedent(r"""
+    import runpy, sys
+    sys.path.insert(0, sys.argv[1])
+    sys.argv = ["dryrun"] + sys.argv[2:]
+    try:
+        runpy.run_module("repro_torch.launch.dryrun", run_name="__main__")
+    except SystemExit as e:
+        code = e.code
+    print("JAX_IMPORTED", "jax" in sys.modules, "EXIT", code)
+""")
+
+
+def _cli(tmp_path, *args):
+    env = dict(os.environ)
+    env.update(REPRO_PLAN_DIR=str(tmp_path / "plans"),
+               REPRO_ARTIFACTS=str(tmp_path / "art"), CUDA_VISIBLE_DEVICES="")
+    return subprocess.run([sys.executable, "-c", CLI, SRC, *args],
+                          capture_output=True, text=True, env=env,
+                          timeout=300)
+
+
+def test_the_cli_writes_a_record_without_jax(tmp_path):
+    t0 = time.perf_counter()
+    res = _cli(tmp_path, "--arch", "whisper-tiny", "--shape", "train_4k",
+               "--mesh", "pod", "--out", str(tmp_path / "out"))
+    wall = time.perf_counter() - t0
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "JAX_IMPORTED False EXIT 0" in res.stdout
+    assert wall < 60
+    with open(tmp_path / "out" / "pod" / "whisper-tiny@train_4k.json") as f:
+        rec = json.load(f)
+    ref_keys = set(ref_rl.RooflineTerms.__dataclass_fields__) | {
+        "compute_term", "memory_term", "collective_term", "dominant",
+        "bound_time", "useful_flops_fraction", "roofline_fraction",
+        "arch", "shape", "kind", "fsdp", "opt_state_dtype", "microbatches",
+        "grad_accum_dtype", "params", "active_params", "lower_s",
+        "compile_s", "fits_hbm"}
+    assert ref_keys <= set(rec)
+    assert rec["device"] == "meta" and rec["lowered"] and rec["fits_hbm"]
+    assert rec["chips"] == 256 and rec["machine"] == "h100-sxm"
+    assert set(rec["memory_analysis"]) == {
+        "argument_bytes", "output_bytes", "temp_bytes", "alias_bytes",
+        "total_bytes"}
+    assert rec["flops"] > 0 and rec["collective_bytes"] > 0
+    from repro_torch.benchmarks import roofline_table
+    cells = roofline_table.load_cells("pod", str(tmp_path / "out"))
+    assert [c["arch"] for c in cells] == ["whisper-tiny"]
+    table = roofline_table.markdown_table(cells)
+    assert "| whisper-tiny | train_4k |" in table
+    agg = roofline_table.main(str(tmp_path / "out"))
+    assert agg["pod"]["n_cells"] == 1
+
+
+def test_the_roofline_bench_emits_the_records(tmp_path, monkeypatch,
+                                             capsys):
+    """``run.py --only roofline`` over the dry run's records: one line a
+    mesh and one a train cell, and its JSON stamped."""
+    from repro_torch.benchmarks import roofline_table, run
+    res = _cli(tmp_path, "--arch", "whisper-tiny", "--mesh", "both")
+    assert res.returncode == 0, res.stderr[-3000:]
+    monkeypatch.setattr(roofline_table, "ART", str(tmp_path / "art"))
+    monkeypatch.setattr(run, "OUT", str(tmp_path / "bench"))
+    out = run.bench_roofline()
+    lines = capsys.readouterr().out.splitlines()
+    assert [ln.split(",")[0] for ln in lines] == [
+        "roofline_pod", "roofline_multipod",
+        "roofline_cell_whisper-tiny@train_4k"]
+    assert out["pod"]["n_cells"] == 2 and out["pod"]["n_not_lowered"] == 1
+    with open(tmp_path / "bench" / "roofline.json") as f:
+        assert "_meta" in json.load(f)
+
+
+def test_a_decode_cell_is_recorded_not_lowered(tmp_path):
+    res = _cli(tmp_path, "--arch", "hymba-1.5b", "--shape", "decode_32k",
+               "--mesh", "both", "--out", str(tmp_path / "out"))
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "EXIT 0" in res.stdout and "2 not lowered" in res.stdout
+    with open(tmp_path / "out" / "multipod" / "hymba-1.5b@decode_32k.json") \
+            as f:
+        rec = json.load(f)
+    assert rec["lowered"] is False and rec["cache_len"] == 1024
+    assert "kv_seq" in rec["not_lowered"] and rec["chips"] == 512
+
+
+def test_device_cuda_without_a_card_exits_non_zero(tmp_path):
+    res = _cli(tmp_path, "--arch", "whisper-tiny", "--shape", "train_4k",
+               "--device", "cuda", "--out", str(tmp_path / "out"))
+    assert "EXIT 0" not in res.stdout
+    assert "needs a GPU" in res.stdout + res.stderr
+    assert not (tmp_path / "out" / "pod").exists()

@@ -627,9 +627,10 @@ def test_kv_heads_cut_within_a_head_are_gathered(worlds):
 
 
 def test_adafactor_on_a_mesh_equals_the_unsharded_port(worlds):
-    """Adafactor on (1, 2, 2): each leaf gathered over ``model``, updated
-    whole (its statistics whole on every rank) and cut again; two steps
-    within 1e-6 of the port's unsharded Adafactor."""
+    """Adafactor on (1, 2, 2): each leaf updated on the rank's block (its
+    statistics whole on every rank, the factored means and the update's
+    RMS summed over the cutting axes); two steps within 1e-6 of the
+    port's unsharded Adafactor."""
     losses, params = worlds[(1, 2, 2)]["adafactor"]
     tr = _trainer("starcoder2-3b", kind="adafactor")
     want_l = _steps(tr, _batch(tr.cfg.model))
