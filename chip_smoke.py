@@ -163,8 +163,8 @@
    ``Trainer`` on the card: loss < 1e-5 relative, every rank's block of
    every parameter < 1e-4 of the whole parameter's largest entry.
    13.2: starcoder2-3b bf16 at full width on (1, 2, 2), S 2304, global
-   batch 2, remat, AdamW (ZeRO-1 moments), at the most layers four
-   ranks' estimated bytes fit on the card (``rank_bytes``): a cold and a
+   batch 2, remat, AdamW (ZeRO-1 moments), at the most layers (up to 8)
+   four ranks' estimated bytes fit on the card (``rank_bytes``): a cold and a
    warm step, the slowest rank's wall, each rank's peak memory (below the
    unsharded run's), the staged bytes and host seconds in the group
    collectives a step.  In 13.1 and 13.2 K4 is launched in every rank
@@ -173,7 +173,21 @@
    inputs (the quantizer bitwise on every pod's input, the mean over the
    gathered payloads and the new error within 1e-6).  13.4:
    ``launch/train.py --smoke --mesh 1,2,2 --steps 3`` as a subprocess.
-   The kernels line adds every rank's launches of 13.1 and 13.2.
+   13.5, the expert-parallel layout: qwen2-moe-a2.7b in fp32 at full
+   width, depth 2, S 2304, global batch 2, on (1, 1, 4) and (1, 2, 2)
+   (60 experts divide both: every bank "ep"), two AdamW steps against
+   the unsharded run on the card with 13.1's bars, K4 in every rank, and
+   no all-gather over ``model`` of a bank's block; arctic-480b's forward
+   in bf16 at full width, depth 1, one row of 2304 tokens on (1, 1, 4),
+   its weights drawn on each rank's blocks only (built on ``meta``): each
+   rank's peak under 13.39 GB (half of one layer's whole banks), finite
+   logits, K4 in every rank.  13.6, the sharded decode: starcoder2-3b,
+   xlstm-350m and qwen2-moe-a2.7b in fp32 at full width, depth 2, on
+   (1, 1, 4), 2 rows, a 16-token chunk (token by token for xlstm) then 16
+   one-token steps: every step's logits within 1e-5 of the largest of
+   the unsharded decode on the card, the same argmax, and each rank's
+   bytes of the cache leaves the specs cut a quarter of the whole's.
+   The kernels line adds every rank's launches of 13.1, 13.2 and 13.5.
 14. The dry run (``repro_torch.launch.dryrun``, ``launch/specs.py``,
    ``core/roofline.py``): rank 0 of the (16, 16) ``data, model`` mesh,
    its collectives counted and not sent (``counting_mesh``).  14.1: the
@@ -188,7 +202,12 @@
    within 1e-9 relative, the measured peak within 30 % of the predicted
    one, K4 launched in both and its plain version on no CUDA tensor;
    reported, the cold (counted) and warm wall against the bound of the
-   compute and memory terms.  The kernels line adds §14's launches.
+   compute and memory terms.  14.3: the decode cells starcoder2-3b@
+   decode_32k (8 rows, 2048 of the 32768 slots a rank) and
+   xlstm-350m@long_500k (one row), rank 0 of the same mesh, on meta and
+   then on the card at full depth, with 14.2's gates on the counts and
+   the peak (no kernel: decode reaches none).  The kernels line adds
+   §14's launches.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero, as do
@@ -3027,8 +3046,10 @@ SHARD_SEQ, SHARD_BATCH = 2304, 2
 #: ranks' sums add in another order, would move it by anything up to lr
 SHARD_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10, eps=1e-3)
 SHARD_LOSS_TOL, SHARD_PARAM_TOL = 1e-5, 1e-4
-#: 13.2: bf16 at full width on (1, 2, 2), remat, AdamW
+#: 13.2: bf16 at full width on (1, 2, 2), remat, AdamW, at most this many
+#: layers (the script's time: 28 layers took 32 s cold and 22 s warm)
 SHARD_PATH_MESH = (1, 2, 2)
+SHARD_PATH_MAX_LAYERS = 8
 SHARD_PATH_OPT = dict(lr=3e-4, warmup_steps=20, total_steps=100)
 #: 13.3's mesh
 SHARD_POD_MESH = (2, 1, 2)
@@ -3138,10 +3159,10 @@ def rank_bytes(cfg, mesh_shape, seq):
 
 
 def shard_path_depth(seq):
-    """13.2's depth: the most layers (up to the config's) at which four
-    ranks' ``rank_bytes`` fit the card beside CARD_RESERVE."""
+    """13.2's depth: the most layers (up to SHARD_PATH_MAX_LAYERS) at
+    which four ranks' ``rank_bytes`` fit the card beside CARD_RESERVE."""
     from repro_torch.configs import get
-    full = get(SHARD_ARCH).n_layers
+    full = min(get(SHARD_ARCH).n_layers, SHARD_PATH_MAX_LAYERS)
     world = math.prod(SHARD_PATH_MESH)
     for layers in range(full, 0, -1):
         est = rank_bytes(shard_config("bfloat16", layers), SHARD_PATH_MESH,
@@ -3165,6 +3186,9 @@ def sharded_training(torch):
     t_start = time.perf_counter()
     layers, est, whole_walls, whole_peak = path_unsharded(torch)
     want_losses, want_file = exact_unsharded(torch, root)
+    ep_losses, ep_file = exact_unsharded(torch, root, ep_config(),
+                                         "ep_want.pt")
+    decode_file = decode_unsharded(torch, root)
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -3179,8 +3203,8 @@ def sharded_training(torch):
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     try:
         rs = spawn(shard_rank, SHARD_WORLD, device_of_rank=on_first_card,
-                   init_dir=os.path.join(root, "world"), timeout_s=600,
-                   args=(want_file, layers))
+                   init_dir=os.path.join(root, "world"), timeout_s=900,
+                   args=(want_file, layers, ep_file, decode_file))
     finally:
         if saved is None:
             del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
@@ -3194,6 +3218,11 @@ def sharded_training(torch):
         add_counts(totals, exact_report(
             [r["exact"][shape] for r in rs], shape, want_losses))
     pods_report([r["pods"] for r in rs])
+    for shape in EP_MESHES:
+        add_counts(totals, ep_report([r["ep"][shape] for r in rs], shape,
+                                     ep_losses))
+    add_counts(totals, arctic_report([r["arctic"] for r in rs]))
+    decode_report([r["decode"] for r in rs])
     shard_launcher(torch)
     check(os.stat(so).st_mtime_ns == built,
           "§13: a rank rebuilt the extension in build/torch_ext/")
@@ -3202,26 +3231,28 @@ def sharded_training(torch):
     return totals
 
 
-def exact_unsharded(torch, root):
-    """13.1's reference: two unsharded fp32 steps on the card.  Returns
-    the losses and the file that holds the whole parameters after them
-    (``{"params": {leaf path: fp32 tensor}, "scale": {leaf path: its
-    largest magnitude}}``), which each rank reads in place."""
-    cfg = shard_config("float32", 2)
+def exact_unsharded(torch, root, cfg=None, name="exact_want.pt"):
+    """13.1's (13.5's, with ``cfg``) reference: two unsharded fp32 steps
+    on the card.  Returns the losses and the file that holds the whole
+    parameters after them (``{"params": {leaf path: fp32 tensor},
+    "scale": {leaf path: its largest magnitude}}``), which each rank reads
+    in place."""
+    cfg = cfg or shard_config("float32", 2)
     batch = shard_batch(cfg, SHARD_SEQ)
     tr = shard_trainer(cfg, SHARD_SEQ, SHARD_OPT)
     losses = []
-    for _ in range(2):
-        m = tr.train_step({k: torch.from_numpy(v).cuda()
-                           for k, v in batch.items()})
-        losses.append(float(m["loss"]))
+    with RoutingLog() as routing:
+        for _ in range(2):
+            m = tr.train_step({k: torch.from_numpy(v).cuda()
+                               for k, v in batch.items()})
+            losses.append(float(m["loss"]))
     want = {p: torch.from_numpy(v.copy())
             for p, v in tr._whole_leaves()[0].items()}
     del tr
-    path = os.path.join(root, "exact_want.pt")
+    path = os.path.join(root, name)
     torch.save({"params": want,
-                "scale": {p: float(w.abs().max()) for p, w in want.items()}},
-               path)
+                "scale": {p: float(w.abs().max()) for p, w in want.items()},
+                "routing": [idx for idx, _ in routing.calls]}, path)
     return losses, path
 
 
@@ -3360,10 +3391,12 @@ def shard_launcher(torch):
           f"§13.4: the launcher failed: {out.stderr[-2000:]}")
 
 
-def shard_rank(rank, world, device, want_file, layers):
+def shard_rank(rank, world, device, want_file, layers, ep_file,
+               decode_file):
     """One rank of §13's world: 13.2 (first, on a fresh allocator: it
-    fills the card), 13.1 on each SHARD_EXACT mesh, then 13.3, each on a
-    mesh of its own over the world."""
+    fills the card), 13.1 on each SHARD_EXACT mesh, 13.3, 13.5 on each
+    EP_MESHES mesh and arctic-480b's forward, then 13.6, each on a mesh of
+    its own over the world."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.launch.mesh import make_mesh
@@ -3380,6 +3413,18 @@ def shard_rank(rank, world, device, want_file, layers):
         gc.collect()
         torch.cuda.empty_cache()
     out["pods"] = shard_rank_pods(torch, make_mesh(*SHARD_POD_MESH))
+    out["ep"] = {}
+    for shape in EP_MESHES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["ep"][shape] = shard_rank_exact(torch, make_mesh(*shape),
+                                            ep_file, ep_config())
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["arctic"] = arctic_rank(torch, make_mesh(*ARCTIC_MESH))
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["decode"] = decode_rank(torch, make_mesh(*DECODE_MESH), decode_file)
     return out
 
 
@@ -3410,11 +3455,14 @@ def block_errors(torch, tr, want_file):
     return errs, set(errs) == set(want["params"])
 
 
-def shard_rank_exact(torch, mesh, want_file):
+def shard_rank_exact(torch, mesh, want_file, cfg=None):
+    """13.1's (13.5's, with ``cfg``) rank: two steps on ``mesh`` against
+    the unsharded run's parameters in ``want_file``; the shapes of the
+    all-gathers over ``model`` and the expert banks' blocks and modes."""
     from repro_torch import kernels
     from repro_torch.distributed import (collective_stats,
                                          reset_collective_stats)
-    cfg = shard_config("float32", 2)
+    cfg = cfg or shard_config("float32", 2)
     batch = shard_batch(cfg, SHARD_SEQ)
     t0 = time.perf_counter()
     tr = shard_trainer(cfg, SHARD_SEQ, SHARD_OPT, mesh=mesh)
@@ -3424,7 +3472,8 @@ def shard_rank_exact(torch, mesh, want_file):
     kernels.reset_launches()
     reset_collective_stats()
     losses, walls = [], []
-    with PlainK4Calls() as plain:
+    with PlainK4Calls() as plain, ModelGathers(mesh) as gathers, \
+            RoutingLog() as routing:
         for _ in range(2):
             t0 = time.perf_counter()
             losses.append(float(tr.train_step(rows)["loss"]))
@@ -3433,10 +3482,22 @@ def shard_rank_exact(torch, mesh, want_file):
     stats = collective_stats()
     t0 = time.perf_counter()
     errs, leaves_match = block_errors(torch, tr, want_file)
+    # the routing of the rank's groups (forward and recompute, by layer)
+    # against the unsharded run's same groups
+    want_routing = torch.load(want_file, mmap=True)["routing"]
+    flips = []
+    for (idx, _), whole in zip(routing.calls, want_routing):
+        g0 = mesh.axis_index(mesh.batch_axes) * idx.shape[0]
+        flips.append(int((idx != whole[g0:g0 + idx.shape[0]]).any(-1).sum()))
+    banks = {n: (p.placement.mode if hasattr(p, "placement") else None,
+                 tuple(p.shape)) for n, p in tr.net.named_parameters()
+             if n.rsplit(".", 1)[-1] in ("w_up", "w_gate", "w_down")}
     return {"losses": losses, "launches": counts, "k4_plain": plain.calls,
             "on_card": on_card(tr), "init_s": init_s, "step_wall_s": walls,
             "collectives": stats, "errs": errs, "leaves_match": leaves_match,
             "compare_s": time.perf_counter() - t0,
+            "model_gathers": gathers.shapes, "banks": banks,
+            "routing_flips": flips,
             "tp": sorted(n for n, m in tr.net.named_modules()
                          if getattr(m, "tp", None) is not None)}
 
@@ -3498,10 +3559,336 @@ def shard_rank_pods(torch, mesh):
             "mean_err": float((mg["w"].cpu() - want).abs().max()),
             "err_err": float((ne["w"].cpu() - want_err).abs().max())}
 
+# -- 13.5 the expert-parallel step, 13.6 the sharded decode ------------------
+
+#: 13.5: qwen2-moe at full width in fp32, depth 2, S and batch as 13.1's;
+#: its 60 experts divide model = 4 and 2, so the banks take "ep"
+EP_ARCH = "qwen2-moe-a2.7b"
+EP_MESHES = ((1, 1, 4), (1, 2, 2))
+#: 13.5: arctic-480b's forward at full width in bf16, depth 1, B 1 x S
+#: SHARD_SEQ, its weights drawn on each rank's blocks only
+ARCTIC_ARCH, ARCTIC_MESH = "arctic-480b", (1, 1, 4)
+#: half of one whole arctic layer's banks: 3 x 128 x 7168 x 4864 x 2 B / 2
+ARCTIC_BYTES = 13.39e9
+#: 13.6: three archs at full width in fp32, depth 2, on (1, 1, 4): a
+#: DECODE_PROMPT-token chunk (token by token where the arch takes one),
+#: then DECODE_STEPS one-token steps, DECODE_ROWS rows, DECODE_SLOTS slots
+DECODE_MESH = (1, 1, 4)
+MESH_DECODE_ARCHS = ("starcoder2-3b", "xlstm-350m", "qwen2-moe-a2.7b")
+MESH_DECODE_PROMPT, MESH_DECODE_STEPS = 16, 16
+MESH_DECODE_ROWS, MESH_DECODE_SLOTS = 2, 32
+MESH_DECODE_TOL = 1e-5
+
+
+def ep_config():
+    return check_config(EP_ARCH, "float32", {"n_layers": 2})
+
+
+class ModelGathers:
+    """Records, while installed, the operand shape of every all-gather
+    over the ``model`` axis of ``mesh`` (the collectives of the sharding
+    module and the models)."""
+
+    def __init__(self, mesh):
+        self.group = (mesh.group("model") if mesh.shape.get("model", 1) > 1
+                      else None)
+        self.shapes = []
+
+    def __enter__(self):
+        from repro_torch.distributed import process_group as pg
+        self._pg, self._orig = pg, pg.all_gather
+
+        def recorded(x, group=None, *, dim=0):
+            if group is not None and group is self.group:
+                self.shapes.append(tuple(x.shape))
+            return self._orig(x, group, dim=dim)
+
+        pg.all_gather = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._pg.all_gather = self._orig
+        return False
+
+
+def ep_report(rs, shape, want_losses):
+    """13.5's gates on one mesh's ranks: 13.1's (loss, every block, K4),
+    every bank leaf in mode "ep", and no all-gather over ``model`` of a
+    bank's block."""
+    tag = "x".join(map(str, shape))
+    errs = {}
+    for r in rs:
+        for p, e in r["errs"].items():
+            errs[p] = max(errs.get(p, 0.0), e)
+    worst = max(errs, key=errs.get)
+    loss_err = max(abs(l - w) / abs(w) for r in rs
+                   for l, w in zip(r["losses"], want_losses))
+    modes = sorted({m for r in rs for m, _ in r["banks"].values()},
+                   key=str)
+    bank_gathers = sum(1 for r in rs for g in r["model_gathers"]
+                       if g in {b for _, b in r["banks"].values()})
+    emit({"shard_ep": EP_ARCH, "mesh": tag, "world": len(rs),
+          "losses": rs[0]["losses"], "unsharded_losses": want_losses,
+          "loss_rel_err": loss_err, "param_rel_err_max": errs[worst],
+          "param_worst": worst, "bank_modes": modes,
+          "bank_blocks": sorted({b for _, b in rs[0]["banks"].values()}),
+          "model_gathers_rank0": len(rs[0]["model_gathers"]),
+          "bank_gathers_over_model": bank_gathers,
+          "topk_differs_by_route_call": [sum(x) for x in zip(
+              *(r["routing_flips"] for r in rs))],
+          "k4_launches_by_rank": [r["launches"]["flash_attention_cuda"]
+                                  for r in rs],
+          "k4_plain_on_cuda_by_rank": [r["k4_plain"] for r in rs],
+          "init_s": rs[0]["init_s"],
+          "step_wall_s_slowest": [max(r["step_wall_s"][i] for r in rs)
+                                  for i in range(2)],
+          "collectives_rank0": rs[0]["collectives"]})
+    check(loss_err < SHARD_LOSS_TOL,
+          f"§13.5 {tag}: loss rel err {loss_err:.3e}")
+    check(errs[worst] < SHARD_PARAM_TOL,
+          f"§13.5 {tag}: {worst} rel err {errs[worst]:.3e}")
+    check(all(r["leaves_match"] for r in rs), f"§13.5 {tag}: leaves differ")
+    check(modes == ["ep"], f"§13.5 {tag}: bank modes {modes}")
+    check(bank_gathers == 0, f"§13.5 {tag}: {bank_gathers} all-gathers "
+          f"over model of an expert bank's block")
+    return check_k4(rs, f"§13.5 {tag}")
+
+
+def materialise(torch, net, mesh, seed):
+    """Draw ``net``'s parameters (this rank's blocks, on ``meta``) on the
+    card: the blocks cut over the mesh from a generator seeded by the
+    rank, the whole ones from one seeded alike on every rank; normal(0,
+    1/sqrt(d_in)) weights of the whole leaf's d_in (0.02 the
+    embeddings), unit norm scales, zero biases.  A 3-D block is drawn an
+    expert at a time, so no whole fp32 bank is held."""
+    own = torch.Generator(device="cuda").manual_seed(seed + 1 + mesh.rank)
+    shared = torch.Generator(device="cuda").manual_seed(seed)
+    # to_empty makes new parameters: their placements are carried over
+    placements = {n: p.placement for n, p in net.named_parameters()
+                  if hasattr(p, "placement")}
+    net.to_empty(device="cuda")
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            where = placements.get(name)
+            if where is not None:
+                p.placement = where
+            cut = where is not None and (where.dim is not None
+                                         or where.fsdp is not None)
+            gen = own if cut else shared
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "scale":
+                p.fill_(1.0)
+            elif leaf == "b":
+                p.zero_()
+            else:
+                whole = list(p.shape)
+                if where is not None and where.dim is not None:
+                    whole[where.dim] *= mesh.shape["model"]
+                std = (0.02 if name.startswith("embed")
+                       else whole[-2] ** -0.5)
+                for part in (p if p.dim() == 3 else (p,)):
+                    part.copy_(torch.randn(part.shape, generator=gen,
+                                           device="cuda").mul_(std))
+
+
+def arctic_rank(torch, mesh):
+    """13.5's arctic-480b forward on this rank: the network built on
+    ``meta``, cut to the rank's blocks, drawn on the card
+    (:func:`materialise`), then the prefill step of one row of
+    SHARD_SEQ tokens under the mesh; the peak memory, the logits, K4."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.launch.prefill import make_prefill_step
+    from repro_torch.models import build_model
+    cfg = check_config(ARCTIC_ARCH, "bfloat16", {"n_layers": 1})
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    net = model.init(None, device="meta")
+    model.shard(net, mesh)
+    materialise(torch, net, mesh, SEED + 31)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    held = sum(p.numel() * p.element_size() for p in net.parameters())
+    modes = sorted({p.placement.mode for n, p in net.named_parameters()
+                    if n.rsplit(".", 1)[-1] in ("w_up", "w_gate",
+                                                "w_down")}, key=str)
+    rng = np.random.default_rng(SEED + 37)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (1, SHARD_SEQ)).astype(np.int64)).cuda()
+    prefill = make_prefill_step(model)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with PlainK4Calls() as plain, ModelGathers(mesh) as gathers, \
+            use_mesh(mesh):
+        logits = prefill(net, tokens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    banks = {tuple(p.shape) for n, p in net.named_parameters()
+             if n.rsplit(".", 1)[-1] in ("w_up", "w_gate", "w_down")}
+    out = {"peak": torch.cuda.max_memory_allocated(), "before": before,
+           "params_held": held, "init_s": init_s, "wall_s": wall,
+           "finite": bool(torch.isfinite(logits.float()).all()),
+           "logits_shape": tuple(logits.shape), "bank_modes": modes,
+           "bank_gathers": sum(g in banks for g in gathers.shapes),
+           "launches": kernels.launches(), "k4_plain": plain.calls,
+           "on_card": all(p.is_cuda for p in net.parameters())}
+    del net, logits
+    return out
+
+
+def arctic_report(rs):
+    """13.5's arctic gates: each rank's peak under ARCTIC_BYTES, finite
+    logits, the banks "ep" and never gathered over model, K4."""
+    peaks = [r["peak"] for r in rs]
+    emit({"shard_arctic": ARCTIC_ARCH, "mesh": ARCTIC_MESH, "layers": 1,
+          "seq": SHARD_SEQ, "peak_by_rank": peaks, "limit": ARCTIC_BYTES,
+          "allocated_before_by_rank": [r["before"] for r in rs],
+          "params_held_by_rank": [r["params_held"] for r in rs],
+          "init_s": [r["init_s"] for r in rs],
+          "forward_wall_s": [r["wall_s"] for r in rs],
+          "logits_shape": rs[0]["logits_shape"],
+          "bank_modes": rs[0]["bank_modes"],
+          "bank_gathers_over_model": sum(r["bank_gathers"] for r in rs),
+          "k4_launches_by_rank": [r["launches"]["flash_attention_cuda"]
+                                  for r in rs],
+          "k4_plain_on_cuda_by_rank": [r["k4_plain"] for r in rs]})
+    check(max(peaks) < ARCTIC_BYTES, f"§13.5 arctic: a rank's peak "
+          f"{max(peaks)} B is not under {ARCTIC_BYTES}")
+    check(all(r["finite"] for r in rs), "§13.5 arctic: non-finite logits")
+    check(rs[0]["bank_modes"] == ["ep"],
+          f"§13.5 arctic: bank modes {rs[0]['bank_modes']}")
+    check(all(r["bank_gathers"] == 0 for r in rs),
+          "§13.5 arctic: an expert bank gathered over model")
+    return check_k4(rs, "§13.5 arctic")
+
+
+def mesh_decode_tokens(cfg):
+    import numpy as np
+    rng = np.random.default_rng(SEED + 41)
+    return rng.integers(0, cfg.vocab_size, (
+        MESH_DECODE_ROWS, MESH_DECODE_PROMPT + MESH_DECODE_STEPS)).astype(
+            np.int64)
+
+
+def mesh_decode_run(torch, model, net, caches, tokens, mesh=None):
+    """13.6's schedule: the prompt in one chunk (token by token where the
+    arch takes one), then one token a step; every step's logits (on the
+    host) and the caches."""
+    from repro_torch.serving.engine import make_serve_step
+    step = make_serve_step(model, mesh)
+    s1 = MESH_DECODE_PROMPT if model.supports_chunked_prefill else 1
+    cuts = list(range(0, MESH_DECODE_PROMPT, s1)) + list(range(
+        MESH_DECODE_PROMPT, MESH_DECODE_PROMPT + MESH_DECODE_STEPS))
+    ends = cuts[1:] + [MESH_DECODE_PROMPT + MESH_DECODE_STEPS]
+    out = []
+    for a, b in zip(cuts, ends):
+        logits, caches = step(net, torch.from_numpy(tokens[:, a:b]).cuda(),
+                              caches)
+        out.append(logits.float().cpu())
+    return out, caches
+
+
+def decode_unsharded(torch, root):
+    """13.6's reference: each arch's unsharded decode on the card.
+    Returns the file of ``{arch: every step's last logits}``."""
+    from repro_torch.models import build_model
+    want = {}
+    for arch in MESH_DECODE_ARCHS:
+        cfg = check_config(arch, "float32", {"n_layers": 2})
+        model = build_model(cfg)
+        net = model.init(SEED, device="cuda")
+        caches = model.init_cache(MESH_DECODE_ROWS, MESH_DECODE_SLOTS,
+                                  device="cuda")
+        want[arch], _ = mesh_decode_run(torch, model, net, caches,
+                                        mesh_decode_tokens(cfg))
+        del net, caches
+        gc.collect()
+        torch.cuda.empty_cache()
+    path = os.path.join(root, "decode_want.pt")
+    torch.save(want, path)
+    return path
+
+
+def decode_rank(torch, mesh, want_file):
+    """13.6 on this rank: each arch's network drawn whole from the seed
+    and cut to its blocks, its caches built as blocks, the schedule run
+    under the mesh; the logits' error against the unsharded decode's, the
+    argmax, and the cache bytes held on the leaves the specs cut."""
+    from repro_torch.models import build_model
+    want = torch.load(want_file)
+    out = {}
+    for arch in MESH_DECODE_ARCHS:
+        cfg = check_config(arch, "float32", {"n_layers": 2})
+        model = build_model(cfg)
+        net = model.init(SEED, device="cuda")
+        model.shard(net, mesh)
+        caches = model.init_cache(MESH_DECODE_ROWS, MESH_DECODE_SLOTS,
+                                  device="cuda", mesh=mesh)
+        whole = model.init_cache(MESH_DECODE_ROWS, MESH_DECODE_SLOTS,
+                                 device="meta")
+        held = total = 0
+        for blk, full in zip(caches, whole):
+            for key, st in blk.items():
+                for f in st._fields:
+                    b, w = getattr(st, f), getattr(full[key], f)
+                    if b.shape != w.shape:
+                        held += b.numel() * b.element_size()
+                        total += w.numel() * w.element_size()
+        t0 = time.perf_counter()
+        got, caches = mesh_decode_run(torch, model, net, caches,
+                                      mesh_decode_tokens(cfg), mesh)
+        wall = time.perf_counter() - t0
+        errs = [float((g - w).abs().max() / w.abs().max())
+                for g, w in zip(got, want[arch])]
+        out[arch] = {"err": max(errs), "steps": len(got),
+                     "argmax_equal": all(torch.equal(g.argmax(-1),
+                                                     w.argmax(-1))
+                                         for g, w in zip(got, want[arch])),
+                     "finite": all(bool(torch.isfinite(g).all())
+                                   for g in got),
+                     "cut_bytes_held": held, "cut_bytes_whole": total,
+                     "wall_s": wall}
+        del net, caches
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def decode_report(rs):
+    """13.6's gates: every step's logits within MESH_DECODE_TOL of the
+    unsharded decode's largest, the same argmax, and each rank's cache
+    bytes on the cut leaves a quarter of the whole's."""
+    m = math.prod(DECODE_MESH)
+    for arch in MESH_DECODE_ARCHS:
+        a = [r[arch] for r in rs]
+        err = max(x["err"] for x in a)
+        emit({"shard_decode": arch, "mesh": DECODE_MESH,
+              "rows": MESH_DECODE_ROWS, "slots": MESH_DECODE_SLOTS,
+              "steps": a[0]["steps"], "logits_rel_err": err,
+              "argmax_equal": all(x["argmax_equal"] for x in a),
+              "cut_bytes_held_by_rank": [x["cut_bytes_held"] for x in a],
+              "cut_bytes_whole": a[0]["cut_bytes_whole"],
+              "wall_s_by_rank": [x["wall_s"] for x in a]})
+        check(all(x["finite"] for x in a), f"§13.6 {arch}: non-finite logits")
+        check(err <= MESH_DECODE_TOL, f"§13.6 {arch}: logits rel err "
+              f"{err:.3e}")
+        check(all(x["argmax_equal"] for x in a), f"§13.6 {arch}: argmax "
+              "differs from the unsharded decode's")
+        check(a[0]["cut_bytes_whole"] > 0, f"§13.6 {arch}: no cache leaf cut")
+        check(all(x["cut_bytes_held"] * m == x["cut_bytes_whole"]
+                  for x in a), f"§13.6 {arch}: a rank's cut cache bytes "
+              f"are not 1/{m} of the whole's")
+
 # -- 14. the dry run ------------------------------------------------------------
 
 DRY_ARCH = "starcoder2-3b"
 DRY_MESH = (16, 16)
+#: 14.3: decode cells, rank 0 of DRY_MESH on meta, then on the card
+DRY_DECODE = (("starcoder2-3b", "decode_32k"), ("xlstm-350m", "long_500k"))
 #: the predicted peak a rank under which 14.2's train depth stays
 DRY_TRAIN_BYTES = 60e9
 DRY_COUNT_TOL = 1e-9
@@ -3521,15 +3908,17 @@ def dry_run(torch):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
-    def cell(shape, device, layers=None):
+    def cell(shape, device, layers=None, arch=DRY_ARCH):
         tag = f"{device}-{layers or 'full'}"
-        return run_cell(DRY_ARCH, shape, mesh, "pod",
+        return run_cell(arch, shape, mesh, "pod",
                         os.path.join(out_dir, tag), force=True,
                         verbose=False, device=device, layers=layers)
 
     meta = {shape: cell(shape, "meta") for shape in ("train_4k",
                                                      "prefill_32k")}
-    for r in meta.values():
+    decode = {(arch, shape): cell(shape, "meta", arch=arch)
+              for arch, shape in DRY_DECODE}
+    for r in list(meta.values()) + list(decode.values()):
         emit({"dryrun_meta": dry_terms(r)})
     layers, train_meta = dry_train_depth(cell, meta["train_4k"])
     totals = {name: 0 for name in kernels.launches()}
@@ -3541,12 +3930,14 @@ def dry_run(torch):
         "memory_reserved": torch.cuda.memory_reserved()}})
     torch.cuda.memory._set_allocator_settings("expandable_segments:True")
     try:
-        for shape, want, depth in (("prefill_32k", meta["prefill_32k"],
-                                    None),
-                                   ("train_4k", train_meta, layers)):
+        runs = [(DRY_ARCH, "prefill_32k", meta["prefill_32k"], None),
+                (DRY_ARCH, "train_4k", train_meta, layers)]
+        runs += [(arch, shape, want, None)
+                 for (arch, shape), want in decode.items()]
+        for arch, shape, want, depth in runs:
             kernels.reset_launches()
             with PlainK4Calls() as plain:
-                got = cell(shape, "cuda", depth)
+                got = cell(shape, "cuda", depth, arch)
             counts = kernels.launches()
             add_counts(totals, counts)
             gc.collect()
@@ -3591,8 +3982,10 @@ def dry_terms(r):
 
 
 def dry_report(got, want, counts, plain_calls):
-    """14.2's gates on one card run against its meta count."""
-    tag = f"§14 {got['shape']}"
+    """14.2's (14.3's) gates on one card run against its meta count; a
+    decode step launches no kernel (as the reference's decode reaches no
+    Pallas kernel)."""
+    tag = f"§14 {got['arch']}@{got['shape']}"
     pairs = {"memory_bytes": (got["memory_bytes"], want["memory_bytes"])}
     for key in ("flops_by_type", "collective_breakdown", "collective_counts"):
         check(set(got[key]) == set(want[key]),
@@ -3622,8 +4015,9 @@ def dry_report(got, want, counts, plain_calls):
               f"{tag}: the card's {name} {a} is not the meta count {b}")
     check(abs(gap) <= DRY_PEAK_TOL, f"{tag}: measured peak {peak:.4g} B is "
           f"{gap:+.1%} off the predicted {predicted:.4g} B")
-    check(counts["flash_attention_cuda"] > 0, f"{tag}: K4 never launched")
     check(plain_calls == 0, f"{tag}: K4's plain version ran on the card")
+    if got["kind"] != "decode":
+        check(counts["flash_attention_cuda"] > 0, f"{tag}: K4 never launched")
 
 
 if __name__ == "__main__":

@@ -13,17 +13,13 @@ import os
 from .common import ART
 
 
-def load_cells(mesh: str = "pod", base: str = None, *,
-               lowered: bool = True):
-    """The mesh's records, sorted by file name; with ``lowered`` only the
-    cells whose step was counted (decode cells are not lowered yet)."""
+def load_cells(mesh: str = "pod", base: str = None):
+    """The mesh's records, sorted by file name."""
     base = base or os.path.join(ART, "dryrun_torch")
     cells = []
     for f in sorted(glob.glob(os.path.join(base, mesh, "*.json"))):
         with open(f) as fh:
-            c = json.load(fh)
-        if c.get("lowered", True) or not lowered:
-            cells.append(c)
+            cells.append(json.load(fh))
     return cells
 
 
@@ -53,8 +49,6 @@ def main(base: str = None) -> dict:
             continue
         out[mesh] = {
             "n_cells": len(cells),
-            "n_not_lowered": len(load_cells(mesh, base, lowered=False))
-            - len(cells),
             "dominant_counts": {},
             "worst_fraction": None,
             "most_collective_bound": None,

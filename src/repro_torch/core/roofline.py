@@ -16,7 +16,8 @@ counts the eager step itself, on the ``meta`` device or on the card
   is unfused, so this is what the card moves); views move nothing;
 * the peak of live bytes: the step's arguments, and every storage an
   operation makes while it lives (the counterpart of the reference's
-  ``memory_analysis``).
+  ``memory_analysis``), and the temporaries live at that peak by the
+  operation that made them (``peak_by_op``: what holds the peak).
 
 Collective bytes and calls come from ``distributed/process_group.py``'s
 stats, summed operand sizes by kind as the reference sums them.  Every
@@ -160,6 +161,9 @@ def _is_view(func) -> bool:
                               and not r.alias_info.is_write for r in rets)
 
 
+_LOG_SIGMOID = torch.ops.aten.log_sigmoid_forward.default
+
+
 def _tensors(tree):
     return [x for x in tree_flatten(tree)[0] if isinstance(x, torch.Tensor)]
 
@@ -167,7 +171,9 @@ def _tensors(tree):
 class CountingMode(TorchDispatchMode):
     """Counts what the operations run under it do: FLOPs by the first
     operand's type (``flops``), bytes read and written (``bytes``), and
-    the live bytes of the storages they make (``live``, ``peak``)."""
+    the live bytes of the storages they make (``live``, ``peak``), with
+    the live bytes at the peak by the operation that made them
+    (``peak_by_op``)."""
 
     def __init__(self):
         super().__init__()
@@ -176,10 +182,15 @@ class CountingMode(TorchDispatchMode):
         self.ops = 0
         self.live = 0
         self.peak = 0
-        self._storages: Dict[int, int] = {}
+        self.peak_by_op: Dict[str, int] = {}
+        self._storages: Dict[int, tuple] = {}
+        self._by_op: Dict[str, int] = defaultdict(int)
 
     def _free(self, key: int) -> None:
-        self.live -= self._storages.pop(key, 0)
+        n, op = self._storages.pop(key, (0, None))
+        self.live -= n
+        if op is not None:
+            self._by_op[op] -= n
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -195,6 +206,10 @@ class CountingMode(TorchDispatchMode):
         out = func(*args, **kwargs)
         self.ops += 1
         ins, outs = _tensors((args, kwargs)), _tensors(out)
+        if func is _LOG_SIGMOID and outs[0].device.type != "cpu":
+            # the CPU kernel fills a buffer for its backward; the card's
+            # returns it empty, and a count takes what the card makes
+            outs = outs[:1]
         if formula is not None and ins:
             self.flops[str(ins[0].dtype).replace("torch.", "")] += float(
                 formula(*args, **kwargs, out_val=out))
@@ -210,10 +225,14 @@ class CountingMode(TorchDispatchMode):
             key = st._cdata
             if key in self._storages or key in mine:
                 continue
-            self._storages[key] = st.nbytes()
+            op = func.__name__
+            self._storages[key] = (st.nbytes(), op)
             self.live += st.nbytes()
+            self._by_op[op] += st.nbytes()
             weakref.finalize(st, self._free, key)
-        self.peak = max(self.peak, self.live)
+        if self.live > self.peak:
+            self.peak = self.live
+            self.peak_by_op = {k: v for k, v in self._by_op.items() if v}
         return out
 
 
@@ -241,6 +260,9 @@ class Count:
     collective_calls: Dict[str, float]
     ops: int
     wall_s: float
+    #: the temporaries live at the peak, by the operation that made them
+    #: (the eight largest)
+    peak_by_op: Dict[str, float] = dataclasses.field(default_factory=dict)
 
 
 def count_step(step: Callable[[], object], arguments=()) -> Count:
@@ -264,10 +286,11 @@ def count_step(step: Callable[[], object], arguments=()) -> Count:
     memory = {"argument_bytes": float(args), "output_bytes": float(out),
               "temp_bytes": float(mode.peak), "alias_bytes": 0.0,
               "total_bytes": float(args + mode.peak)}
+    top = sorted(mode.peak_by_op.items(), key=lambda kv: -kv[1])[:8]
     return Count(dict(mode.flops), float(mode.bytes), memory,
                  {k: float(v) for k, v in stats["bytes_by_kind"].items()},
                  {k: float(v) for k, v in stats["calls_by_kind"].items()},
-                 mode.ops, wall)
+                 mode.ops, wall, {k: float(v) for k, v in top})
 
 
 def terms_of(count: Count, *, arch: str, shape: str, mesh_name: str,

@@ -19,10 +19,10 @@ backend runs them as P processes, each owning its own blocks.
   the same way, through pinned host memory (:func:`to_host`,
   :func:`to_device`).  NCCL and CPU tensors do not stage.
 * The collectives the models' sharding takes (``sharding.py``), on any
-  group or subgroup, staged by the same rule: :func:`all_reduce` (sum or
-  mean), :func:`all_gather` along a dimension, :func:`reduce_scatter` and
-  :func:`broadcast`.  Each returns a new tensor and leaves its input as it
-  was.
+  group or subgroup, staged by the same rule: :func:`all_reduce` (sum,
+  mean or max), :func:`all_gather` along a dimension,
+  :func:`reduce_scatter` and :func:`broadcast`.  Each returns a new
+  tensor and leaves its input as it was.
 * A :class:`CountingGroup` stands in for a group in a counted run (the dry
   run, ``launch/dryrun.py``): the same collectives record the call and its
   operand bytes and return zeros of the result's shape on the input's
@@ -237,14 +237,14 @@ def _count(t0: float, kind: str, operand_bytes: int,
 
 def all_reduce(x: torch.Tensor, group=None, *, op: str = "sum"
                ) -> torch.Tensor:
-    """The sum (``op="sum"``) or the mean (``op="mean"``) of ``x`` over the
-    ranks of ``group``, on every rank, in ``x``'s type and on its device.
-    On a gloo group a 2-byte float is reduced in fp32 and rounded once
-    (gloo's half-precision sums are not taken); the mean divides the sum
-    by the group's size."""
+    """The sum (``op="sum"``), the mean (``op="mean"``) or the elementwise
+    maximum (``op="max"``) of ``x`` over the ranks of ``group``, on every
+    rank, in ``x``'s type and on its device.  On a gloo group a 2-byte
+    float is reduced in fp32 and rounded once (gloo's half-precision sums
+    are not taken); the mean divides the sum by the group's size."""
     group = group or dist.group.WORLD
-    if op not in ("sum", "mean"):
-        raise ValueError(f"op must be 'sum' or 'mean', got {op!r}")
+    if op not in ("sum", "mean", "max"):
+        raise ValueError(f"op must be 'sum', 'mean' or 'max', got {op!r}")
     t0 = time.perf_counter()
     out, staged = _all_reduce(x, group, op)
     _count(t0, "all-reduce", _nbytes(x), staged)
@@ -260,13 +260,14 @@ def _all_reduce(x: torch.Tensor, group, op: str):
               and dist.get_backend(group) == "gloo")
     buf = x.to(torch.float32) if narrow else x
     staged = stages(group, buf)
+    red = dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM
     if staged:
         host = to_host(buf)
-        dist.all_reduce(host, group=group)
+        dist.all_reduce(host, op=red, group=group)
         out = to_device(host, x.device)
     else:
         out = buf.clone()
-        dist.all_reduce(out, group=group)
+        dist.all_reduce(out, op=red, group=group)
     if op == "mean" and n > 1:
         out = out / n
     out = out.to(x.dtype) if narrow else out

@@ -19,14 +19,28 @@ gives this rank's block of a whole tensor under a spec, and
 cuts a network's parameters to their blocks and marks how each is used:
 
 * ``"tp"``: a leaf of a dense block whose spec cuts on whole heads or on
-  the ``d_ff`` columns.  The block's forward runs on the rank's block
-  between :func:`tp_enter` (identity forward, all-reduced gradient) and
-  :func:`tp_exit` (all-reduced forward, identity gradient).
+  the ``d_ff`` columns, or an MoE expert bank cut on the experts' ``ff``
+  dimension (the experts do not divide ``model``).  The block's forward
+  runs on the rank's block between :func:`tp_enter` (identity forward,
+  all-reduced gradient) and :func:`tp_exit` (all-reduced forward,
+  identity gradient).
+* ``"ep"``: an MoE expert bank cut on its experts (they divide
+  ``model``): the rank runs its own experts, between the same pair.
 * ``"gather"``: every other leaf the spec shards over ``model``.  It is
   all-gathered where it is used (:func:`placed`), inside the remat unit,
   so that the recompute gathers again; its gradient is this rank's slice
   of the full gradient, which the ``model`` ranks compute replicated on
-  the same rows.
+  the same rows.  Where no graph is built (decode, prefill) the
+  vocabulary leaves are used on their blocks instead (:func:`vocab_block`):
+  an embedding looks up the rows it holds and the ranks sum them, an LM
+  head gives its share of the logits and the ranks gather them, wherever
+  that moves fewer bytes than gathering the leaf.
+
+The decode caches follow the reference's cache rules
+(:func:`cache_block_spec`): a KV cache's slots over ``model``
+(``kv_seq``), the recurrent states' heads over ``model``, the rows over
+the batch axes.  A cache cut on its slots carries ``placement`` (mode
+``"kv_seq"``), which the decode reads.
 
 With FSDP (the reference's ``zero_data_axes`` parameter shardings: a
 leaf's spec with the ``data`` axis added by :func:`zero_spec`), a
@@ -45,14 +59,22 @@ from __future__ import annotations
 import contextlib
 import itertools
 import math
-import threading
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from . import process_group as pg
 
-_state = threading.local()
+
+class _State:
+    """The active (mesh, rules).  One for the process, not one a thread:
+    the autograd engine runs a CUDA backward, and the recompute of a
+    checkpointed unit in it, on a thread of its own, which must see the
+    mesh the forward ran under (a rank is one process with one mesh)."""
+    ctx = None
+
+
+_state = _State()
 
 # logical axis -> mesh axis (or tuple); None = replicated
 DEFAULT_RULES = {
@@ -182,7 +204,7 @@ def mesh_axes(mesh) -> set:
 def use_mesh(mesh, rules: Optional[dict] = None):
     """Activate (mesh, rules) for :func:`param_spec` and the model code's
     mesh-aware steps."""
-    prev = getattr(_state, "ctx", None)
+    prev = _state.ctx
     rules = dict(DEFAULT_RULES, **(rules or {}))
     # drop references to axes the mesh doesn't have (single-pod: no 'pod')
     names = mesh_axes(mesh)
@@ -201,7 +223,7 @@ def use_mesh(mesh, rules: Optional[dict] = None):
 
 
 def active():
-    return getattr(_state, "ctx", None)
+    return _state.ctx
 
 
 def logical_spec(*axes: Optional[str]) -> Optional[P]:
@@ -453,11 +475,13 @@ def gather(block: torch.Tensor, spec: P, mesh) -> torch.Tensor:
 
 
 class Placement(NamedTuple):
-    """How a per-layer parameter of the port is held under a mesh: its
-    dimension cut over ``model`` (None: whole over ``model``), its use
-    (``"tp"``: the block is used as it is; ``"gather"``: gathered where
-    used; None), the mesh, and its dimension cut over ``data`` under FSDP
-    (None: whole over ``data``)."""
+    """How a per-layer parameter (or a decode cache) of the port is held
+    under a mesh: its dimension cut over ``model`` (None: whole over
+    ``model``), its use (``"tp"``: the block is used as it is, between
+    :func:`tp_enter` and :func:`tp_exit`; ``"ep"``: an expert bank's own
+    experts, used alike; ``"gather"``: gathered where used;
+    ``"kv_seq"``: a KV cache's slots; None), the mesh, and its dimension
+    cut over ``data`` under FSDP (None: whole over ``data``)."""
     dim: Optional[int]
     mode: Optional[str]
     mesh: Mesh
@@ -499,22 +523,6 @@ class _GatherData(torch.autograd.Function):
         return g / mesh.axis_size(mesh.batch_axes), None, None
 
 
-class _GatherParam(torch.autograd.Function):
-    """A parameter's block gathered over ``model`` along ``dim``; the
-    gradient is this rank's slice of the whole one."""
-
-    @staticmethod
-    def forward(ctx, block, dim, mesh):
-        ctx.dim, ctx.index = dim, mesh.axis_index("model")
-        ctx.size = block.shape[dim]
-        return pg.all_gather(block, mesh.group("model"), dim=dim)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return (grad.narrow(ctx.dim, ctx.index * ctx.size,
-                            ctx.size).contiguous(), None, None)
-
-
 def placed(p: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     """``p`` as the forward uses it: an FSDP parameter gathered over
     ``data``; a ``"gather"`` parameter's whole tensor, gathered over
@@ -525,8 +533,23 @@ def placed(p: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     if where.fsdp is not None:
         p = _GatherData.apply(p, where.fsdp, where.mesh)
     if where.mode == "gather":
-        p = _GatherParam.apply(p, where.dim, where.mesh)
+        p = tp_gather(p, tp_of(where.mesh), where.dim)
     return p
+
+
+def vocab_block(p: torch.Tensor):
+    """(the rank's block, the ``model`` axis as a :class:`TP`, its cut
+    dimension) of a ``"gather"`` leaf used where no graph is built (the
+    vocabulary leaves of a decode or prefill step), its ``data`` block
+    gathered under FSDP; None where ``p`` is not such a leaf or a graph is
+    built (training gathers it whole, :func:`placed`)."""
+    where = getattr(p, "placement", None)
+    if (where is None or where.mode != "gather"
+            or torch.is_grad_enabled()):
+        return None
+    if where.fsdp is not None:
+        p = _GatherData.apply(p, where.fsdp, where.mesh)
+    return p, tp_of(where.mesh), where.dim
 
 
 def is_fsdp(p) -> bool:
@@ -592,6 +615,66 @@ def tp_exit(y: torch.Tensor, tp: TP) -> torch.Tensor:
     """The output of a row-parallel block: the partial sums added over the
     ``model`` ranks."""
     return _Exit.apply(y, tp.group)
+
+
+class _GatherModel(torch.autograd.Function):
+    """Every ``model`` rank's block concatenated along ``dim``; the
+    gradient is this rank's block of it (the ranks hold one replicated
+    gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, tp):
+        ctx.dim, ctx.index, ctx.size = dim, tp.index, x.shape[dim]
+        return pg.all_gather(x, tp.group, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad.narrow(ctx.dim, ctx.index * ctx.size,
+                            ctx.size).contiguous(), None, None)
+
+
+def tp_gather(x: torch.Tensor, tp: TP, dim: int) -> torch.Tensor:
+    """The ``model`` ranks' blocks of a replicated tensor (a ``"gather"``
+    parameter, the MoE's token-cut outputs), each cut along ``dim``, put
+    back whole on every rank."""
+    return _GatherModel.apply(x, dim, tp)
+
+
+def tp_of(mesh) -> Optional[TP]:
+    """The ``model`` axis of ``mesh`` as a :class:`TP`, None where it has
+    one rank."""
+    if mesh is None or mesh.shape.get("model", 1) == 1:
+        return None
+    return TP(mesh.group("model"), mesh.shape["model"],
+              mesh.axis_index("model"))
+
+
+def active_tp() -> Optional[TP]:
+    """:func:`tp_of` the active mesh (None without one)."""
+    ctx = active()
+    return tp_of(ctx[0]) if ctx is not None else None
+
+
+# ---------------------------------------------------------------------------
+# decode caches
+# ---------------------------------------------------------------------------
+
+
+def cache_block_spec(path: str, shape: Sequence[int], mesh) -> P:
+    """The spec of the port's per-layer block of the reference's stacked
+    decode-cache leaf ``path`` (its ``init_decode_cache`` tree) of
+    ``shape``: the leaf's :func:`leaf_spec`, as the reference's dry run
+    places its caches, without the layer dimension.  The rule
+    for ``n`` is written for the SSM's (B, H, DK) normaliser; on the
+    sLSTM's (B, W) normaliser it lands one dimension early (the layer
+    axis over the batch axes, the rows over ``model``), a layout no step
+    could use without moving the state between ranks: the port lays the
+    sLSTM's ``n`` out as its ``c`` and ``m``."""
+    parts = path.split("/")
+    if parts[-1] == "n" and len(parts) > 1 and parts[-2] == "sl":
+        path = "/".join(parts[:-1] + ["c"])
+    spec = leaf_spec(path, shape, mesh)
+    return P(*spec[1:])
 
 
 def batch_mean(x: torch.Tensor) -> torch.Tensor:

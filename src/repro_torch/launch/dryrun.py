@@ -15,9 +15,8 @@ on the ``meta`` device under ``core/roofline.py``'s count, its collectives
 recorded and not sent.  ``--device cuda`` runs the same rank's step on the
 card (collectives still counted): the count of its first run, then a
 second run, with the measured peak memory and both walls in the record.
-It never falls back to the CPU.  Decode cells are recorded with their
-``meta`` and ``model_flops`` and marked not lowered (the reason is in the
-record); that is not a failure.
+It never falls back to the CPU.  A decode cell counts one serving step
+(one new token a row) against the rank's blocks of its caches.
 
 Records go to ``artifacts/dryrun_torch/<mesh>/<arch>@<shape>.json``
 (``$REPRO_ARTIFACTS`` in place of ``artifacts``); existing ones are kept
@@ -73,30 +72,25 @@ def run_cell(arch: str, shape: str, mesh, mesh_name: str, out_dir: str,
             arch, shape, mesh, device=dev, layers=layers)
     t_build = time.perf_counter() - t0
     chips = mesh_chips(mesh)
-    if step_fn is None:
-        record = dict(meta, mesh=mesh_name, chips=chips,
-                      model_flops=model_flops, lowered=False,
-                      device=dev.type, profile=profile)
-    else:
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-        count = rl.count_step(lambda: step_fn(*args), args)
-        terms = rl.terms_of(count, arch=arch, shape=shape,
-                            mesh_name=mesh_name, chips=chips,
-                            model_flops=model_flops, machine=H100_SXM)
-        record = terms.to_dict()
-        record.update(meta)
-        record.update(lowered=True, device=dev.type, profile=profile,
-                      ops=count.ops)
-        # the reference's timing keys: building the rank's arguments, and
-        # the counted run (which stands in for lowering and compiling)
-        record["lower_s"] = round(t_build, 2)
-        record["compile_s"] = round(count.wall_s, 2)
-        ma = record["memory_analysis"]
-        record["fits_hbm"] = bool(ma["total_bytes"] <= H100_SXM.mem_per_unit)
-        if dev.type == "cuda":
-            record["measured"] = measure_on_card(step_fn, args, count, base)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    count = rl.count_step(lambda: step_fn(*args), args)
+    terms = rl.terms_of(count, arch=arch, shape=shape, mesh_name=mesh_name,
+                        chips=chips, model_flops=model_flops,
+                        machine=H100_SXM)
+    record = terms.to_dict()
+    record.update(meta)
+    record.update(lowered=True, device=dev.type, profile=profile,
+                  ops=count.ops, peak_by_op=count.peak_by_op)
+    # the reference's timing keys: building the rank's arguments, and the
+    # counted run (which stands in for lowering and compiling)
+    record["lower_s"] = round(t_build, 2)
+    record["compile_s"] = round(count.wall_s, 2)
+    ma = record["memory_analysis"]
+    record["fits_hbm"] = bool(ma["total_bytes"] <= H100_SXM.mem_per_unit)
+    if dev.type == "cuda":
+        record["measured"] = measure_on_card(step_fn, args, count, base)
     with open(path, "w") as f:
         json.dump(record, f, indent=1)
     if verbose:
@@ -124,8 +118,6 @@ def measure_on_card(step_fn, args, count, base: int) -> dict:
 
 def summary(r: dict) -> str:
     head = f"[{r['mesh']}] {r['arch']}@{r['shape']}:"
-    if not r.get("lowered"):
-        return f"{head} not lowered ({r.get('not_lowered')})"
     ma = r["memory_analysis"]
     return (f"{head} count {r['compile_s']:.1f}s  "
             f"args {ma['argument_bytes'] / 1e9:.2f} GB/rank  "
@@ -161,24 +153,21 @@ def main(argv=None):
         and (args.shape is None or s == args.shape)]
     names = ("pod", "multipod") if args.mesh == "both" else (args.mesh,)
 
-    failures, not_lowered = [], []
+    failures = []
     for mesh_name in names:
         mesh = counting_mesh(MESHES[mesh_name], 0)
         for arch, shape in cells:
             try:
-                r = run_cell(arch, shape, mesh, mesh_name,
-                             os.path.join(args.out, mesh_name),
-                             force=args.force, profile=args.profile,
-                             device=args.device)
-                if not r.get("lowered"):
-                    not_lowered.append((mesh_name, arch, shape))
+                run_cell(arch, shape, mesh, mesh_name,
+                         os.path.join(args.out, mesh_name),
+                         force=args.force, profile=args.profile,
+                         device=args.device)
             except Exception as e:  # noqa: BLE001 -- report every cell
                 failures.append((mesh_name, arch, shape, repr(e)))
                 print(f"[{mesh_name}] {arch}@{shape}: FAIL {e}", flush=True)
                 traceback.print_exc()
     n = len(cells) * len(names)
-    print(f"\ndone: {n - len(failures)} ok ({len(not_lowered)} not lowered: "
-          f"decode), {len(failures)} failed")
+    print(f"\ndone: {n - len(failures)} counted, {len(failures)} failed")
     for f in failures:
         print("  FAIL:", *f)
     raise SystemExit(1 if failures else 0)

@@ -13,9 +13,12 @@
 The rank's network and optimizer state are built by the code the
 ``Trainer`` builds them with (``training/trainer.py::rank_state``), with no
 weights drawn, and cut to the rank's blocks on ``mesh`` (a
-``launch/mesh.py::counting_mesh`` in the dry run).  Decode cells get
-``meta`` and ``model_flops`` only: their step is not lowered yet
-(``meta["not_lowered"]`` says why).
+``launch/mesh.py::counting_mesh`` in the dry run).  A decode cell's step is
+``serving/engine.py::make_serve_step`` on the mesh: the rank's network, its
+blocks of the decode caches at ``cache_len`` slots (``min(seq, window)``
+for a windowed arch, as the reference's) and one new token a row of its
+batch, with the cross-attention memory (the encoder's states, the image
+embeddings; rows over the batch axes) where the arch has one.
 
 Profiles: ``baseline`` only.  The reference's ``dp_sp`` and ``seq_sp`` take
 their batch axes from the rules and keep activations sequence-sharded; the
@@ -35,15 +38,9 @@ from ..distributed.sharding import use_mesh
 from ..launch.prefill import make_prefill_step, stub_shapes
 from ..models import build_model
 from ..models.layers import dtype_of
+from ..serving.engine import make_serve_step
 from ..training.optimizer import AdamWConfig
 from ..training.trainer import make_train_step, rank_state
-
-#: why a decode cell's step is not run (``meta["not_lowered"]``)
-DECODE_NOT_LOWERED = (
-    "decode not lowered yet: the port's decode attention has no "
-    "tensor-parallel branch (it splits the full head count), and the "
-    "reference's sequence-sharded KV cache ('kv_seq') is not ported")
-
 
 def wants_fsdp(cfg: ModelConfig, mesh) -> bool:
     """FSDP is *required* (parameters sharded over the data axes too, the
@@ -144,10 +141,13 @@ def batch_rows(shape: ShapeConfig, mesh) -> int:
 def rank_batch(cfg: ModelConfig, shape: ShapeConfig, mesh, device
                ) -> Dict[str, torch.Tensor]:
     """This rank's batch, zeros on ``device``: tokens (and labels for
-    train) of the cell's length, and the stub inputs the arch takes."""
+    train) of the cell's length (one token for decode), and the stub
+    inputs the arch takes (for decode: the memory its cross-attention
+    reads, of the stub's shape)."""
     rows = batch_rows(shape, mesh)
     z = dict(dtype=torch.int32, device=device)
-    out = {"tokens": torch.zeros((rows, shape.seq_len), **z)}
+    seq = 1 if shape.kind == "decode" else shape.seq_len
+    out = {"tokens": torch.zeros((rows, seq), **z)}
     if shape.kind == "train":
         out["labels"] = torch.zeros((rows, shape.seq_len), **z)
     for name, tail in stub_shapes(cfg).items():
@@ -167,9 +167,6 @@ def step_and_specs(arch: str, shape_name: str, mesh, *, device="meta",
     shape = SHAPES[shape_name]
     meta, model_flops = cell_meta(cfg, shape, mesh)
     meta["layers"] = cfg.n_layers
-    if shape.kind == "decode":
-        meta["not_lowered"] = DECODE_NOT_LOWERED
-        return None, (), model_flops, meta
     model = build_model(cfg)
     device = torch.device(device)
     opt_cfg = opt_config_for(cfg) if shape.kind == "train" else None
@@ -189,6 +186,17 @@ def step_and_specs(arch: str, shape_name: str, mesh, *, device="meta",
             return train(net, opt_state, batch, layout)
 
         return step_fn, (net, opt_state, batch), model_flops, meta
+    if shape.kind == "decode":
+        caches = model.init_cache(shape.global_batch, meta["cache_len"],
+                                  device=device, mesh=mesh)
+        memory = next((v for k, v in batch.items() if k != "tokens"), None)
+        serve = make_serve_step(model, mesh)
+
+        def step_fn(net, tokens, caches, memory=None):
+            return serve(net, tokens, caches, memory)
+
+        return (step_fn, (net, batch["tokens"], caches, memory), model_flops,
+                meta)
     prefill = make_prefill_step(model)
 
     def step_fn(net, batch):

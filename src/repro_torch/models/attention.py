@@ -28,7 +28,13 @@ outputs.  KV leaves cut within a head are gathered whole
 read.
 
 Decode (``attention_decode``) runs ``_sdpa`` over the whole KV ring buffer,
-as the reference's does: no kernel.  The reference keeps one cache a request
+as the reference's does: no kernel.  Under a mesh the cache follows the
+reference's rule ``("batch", None, "kv_seq", None)``: the rank holds its
+rows and slots ``[i smax/m, (i+1) smax/m)`` of every KV head
+(``_sharded_attend``), writes the new keys and values where it owns their
+slots, and its partial softmax over its slots is combined with the other
+ranks' by the reference's "psum pair" (a max of the row maxima, then a
+sum of the rescaled sums and outputs).  The reference keeps one cache a request
 and maps its step over the requests, each with a scalar length; here a cache
 carries a batch dim and one length a row, so every row has its own write
 index, mask and RoPE positions.  The paged-pool bridge
@@ -43,6 +49,7 @@ from typing import NamedTuple, Sequence
 import torch
 from torch import nn
 
+from ..distributed import process_group as pg
 from ..distributed.sharding import tp_enter, tp_exit
 from ..kernels.flash_attention import flash_attention
 from .layers import Linear, apply_rope, dtype_of
@@ -288,37 +295,124 @@ def attention_decode(p: Attention, cfg, x, cache: KVCache):
     Each row has its own length, write index, mask and positions.  The new
     keys and values are written into ``cache.k`` / ``cache.v`` in place (a
     request owns its cache); the returned cache holds those tensors and the
-    lengths plus ``s1``.  x: (B, s1, D).  Returns (out, new_cache)."""
+    lengths plus ``s1``.  Under a mesh the projections are all-gathered
+    to every head where the module is cut by heads, a cache cut on its
+    slots (``cache.k.placement``) takes :func:`_sharded_attend`, and the
+    rank's own heads go through ``wo`` under ``tp_exit``.  x: (B, s1, D).
+    Returns (out, new_cache)."""
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     b, s1, _ = x.shape
     dev = x.device
     steps = torch.arange(s1, device=dev)
     pos = cache.length[:, None] + steps                       # (B, s1)
-    q = _split_heads(p.wq(x), h, hd)
-    k_new = _split_heads(p.wk(x), kvh, hd)
-    v_new = _split_heads(p.wv(x), kvh, hd)
+    # every head's projections, all-gathered where the module is cut by
+    # heads (tensor-parallel under a mesh)
+    tp = p.tp
+    kv_tp = tp if p.kv_tp else None
+    q = _whole_heads(p.wq(x), tp, h, hd)
+    k_new = _whole_heads(p.wk(x), kv_tp, kvh, hd)
+    v_new = _whole_heads(p.wv(x), kv_tp, kvh, hd)
     if cfg.positions == "rope":
         q = apply_rope(q.transpose(1, 2), pos, cfg.rope_theta).transpose(1, 2)
         k_new = apply_rope(k_new.transpose(1, 2), pos,
                            cfg.rope_theta).transpose(1, 2)
-    smax = cache.k.shape[2]
-    write_idx = cache.length % smax                           # (B,)
-    start = torch.clamp(write_idx, max=max(smax - s1, 0))
-    rows = torch.arange(b, device=dev)[:, None]
-    slots = start[:, None] + steps                            # (B, s1)
-    # advanced indices around a slice: the indexed view is (B, s1, KV, hd)
-    cache.k[rows, :, slots] = k_new.transpose(1, 2).to(cache.k.dtype)
-    cache.v[rows, :, slots] = v_new.transpose(1, 2).to(cache.v.dtype)
-    cols = torch.arange(smax, device=dev)[None, None, :]      # (1, 1, smax)
-    # slots < length + s1 hold data; once wrapped, every slot is valid
-    valid = cols < torch.clamp(cache.length + s1, max=smax)[:, None, None]
-    # within the just-written chunk, query i must not see slots j > i
-    off = cols - write_idx[:, None, None]                     # (B, 1, smax)
-    future = (off > steps[None, :, None]) & (off < s1)
-    mask = valid & ~future                                    # (B, s1, smax)
-    o = _sdpa(q, cache.k, cache.v, mask, hd ** -0.5)
-    out = p.wo(_merge_heads(o))
+    where = getattr(cache.k, "placement", None)
+    if where is not None:
+        o = _sharded_attend(q, k_new, v_new, cache, where, hd)
+    else:
+        smax = cache.k.shape[2]
+        write_idx = cache.length % smax                       # (B,)
+        start = torch.clamp(write_idx, max=max(smax - s1, 0))
+        rows = torch.arange(b, device=dev)[:, None]
+        slots = start[:, None] + steps                        # (B, s1)
+        # advanced indices around a slice: the indexed view is
+        # (B, s1, KV, hd)
+        cache.k[rows, :, slots] = k_new.transpose(1, 2).to(cache.k.dtype)
+        cache.v[rows, :, slots] = v_new.transpose(1, 2).to(cache.v.dtype)
+        mask = _decode_mask(cache.length, s1,
+                            torch.arange(smax, device=dev), smax)
+        o = _sdpa(q, cache.k, cache.v, mask, hd ** -0.5)
+    if tp is None:
+        out = p.wo(_merge_heads(o))
+    else:
+        # this rank's heads into its rows of wo, the partial sums added
+        hl = h // tp.size
+        out = tp_exit(p.wo(_merge_heads(
+            o[:, tp.index * hl:(tp.index + 1) * hl])), tp)
     return out, KVCache(cache.k, cache.v, cache.length + s1)
+
+
+def _decode_mask(length, s1: int, cols, smax: int):
+    """(B, s1, len(cols)) bool: which of the slots ``cols`` (of a ring of
+    ``smax``) each new token of each row sees."""
+    steps = torch.arange(s1, device=cols.device)
+    cols = cols[None, None, :]
+    write_idx = length % smax
+    # slots < length + s1 hold data; once wrapped, every slot is valid
+    valid = cols < torch.clamp(length + s1, max=smax)[:, None, None]
+    # within the just-written chunk, query i must not see slots j > i
+    off = cols - write_idx[:, None, None]                     # (B, 1, n)
+    future = (off > steps[None, :, None]) & (off < s1)
+    return valid & ~future
+
+
+def _whole_heads(t, tp, n: int, hd: int):
+    """(B, s1, n * hd) projections of all ``n`` heads: this rank's heads
+    all-gathered over ``model`` where ``tp`` is set."""
+    if tp is not None:
+        t = pg.all_gather(t, tp.group, dim=2)
+    return _split_heads(t, n, hd)
+
+
+def _sharded_attend(q, k_new, v_new, cache: KVCache, where, hd: int):
+    """The attention of ``attention_decode`` on a cache cut on its slots
+    over ``model`` (``where``: its ``Placement``, mode ``"kv_seq"``): this
+    rank holds slots ``[lo, lo + n)`` of a ring of ``smax = n * m``, and
+    every head's ``q`` and new keys and values.
+
+    A rank writes the new keys and values whose slots it owns (the clamp
+    and the mask of the unsharded path, on global slot indices), then
+    attends over its own slots: the row maxima are all-reduced (max), each
+    rank's exponentials are taken against that maximum, and their sums and
+    weighted values all-reduced (sum).  A rank with no valid slot holds
+    -1e30 scores: against the global maximum (some rank holds the new
+    token) they add exactly zero.  Returns (B, H, s1, hd), every head."""
+    mesh = where.mesh
+    group = mesh.group("model")
+    b, h, s1, _ = q.shape
+    kvh = cache.k.shape[1]
+    dev = q.device
+    steps = torch.arange(s1, device=dev)
+    n = cache.k.shape[2]
+    smax = n * mesh.shape["model"]
+    lo = mesh.axis_index("model") * n
+    start = torch.clamp(cache.length % smax, max=max(smax - s1, 0))
+    local = start[:, None] + steps - lo                       # (B, s1)
+    own = (local >= 0) & (local < n)
+    # a token this rank does not own writes the value of the row's first
+    # owned token to that token's slot (or, with none owned, a slot's own
+    # value back to it): no slot takes two different values
+    first = own.to(torch.int32).argmax(1, keepdim=True)       # (B, 1)
+    src = torch.where(own, steps[None], first)                # (B, s1)
+    idx = torch.gather(local, 1, src).clamp(0, n - 1)
+    rows = torch.arange(b, device=dev)[:, None]
+    hit = own.any(1)[:, None, None, None]
+    for new, buf in ((k_new, cache.k), (v_new, cache.v)):
+        vals = new.transpose(1, 2)[rows, src].to(buf.dtype)   # (B,s1,KV,hd)
+        buf[rows, :, idx] = torch.where(hit, vals, buf[rows, :, idx])
+    mask = _decode_mask(cache.length, s1, lo + torch.arange(n, device=dev),
+                        smax)                                 # (B, s1, n)
+    qg = q.reshape(b, kvh, h // kvh, s1, hd).to(torch.float32) * hd ** -0.5
+    sc = torch.einsum("bkgqd,bkld->bkgql", qg, cache.k.to(torch.float32))
+    sc = torch.where(mask[:, None, None], sc, NEG_INF)
+    top = pg.all_reduce(sc.amax(-1), group, op="max")         # (B,KV,g,s1)
+    e = torch.exp(sc - top[..., None])
+    part = torch.cat([torch.einsum("bkgql,bkld->bkgqd", e,
+                                   cache.v.to(torch.float32)),
+                      e.sum(-1)[..., None]], dim=-1)
+    part = pg.all_reduce(part, group)
+    o = part[..., :hd] / part[..., hd:]
+    return o.reshape(b, h, s1, hd).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..distributed.sharding import (P, Placement, block_shape,
+                                    cache_block_spec, dims_over, gather,
+                                    shard_of)
 from .transformer import stack_plan
 
 #: the encoder-decoder's stacks: one layer a row of the leading axis
@@ -255,3 +258,124 @@ def load_leaves(net: nn.Module, flat: Mapping[str, Any]) -> nn.Module:
             value = _to_tensor(value)
         write_rows(params, leaf, value)
     return net
+
+
+# ---------------------------------------------------------------------------
+# decode caches: the reference's cache tree and a rank's blocks of it
+# ---------------------------------------------------------------------------
+# The reference stacks its decode caches as its parameters (one tree a
+# ``stack_plan`` group, a tuple of the unit's layers, each a dict of
+# NamedTuples, a leading layer axis on every leaf; the encoder-decoder one
+# ``{"kv": KVCache}`` stacked over the decoder's layers), with a scalar
+# ``length``; the port keeps a list of one dict a layer, with one length a
+# row.  Under a mesh each leaf is the rank's block of the reference's
+# stacked leaf under ``sharding.cache_block_spec`` (its ``length`` the rows
+# of its state's), built directly at that size.
+
+
+def cache_paths(cfg) -> List[Tuple[str, int, int]]:
+    """For each of the port's cache layers, in order: (the reference's
+    path prefix of its stacked caches, their layer count, its row)."""
+    if cfg.block_pattern == "encdec":
+        return [("", cfg.n_layers, i) for i in range(cfg.n_layers)]
+    out = []
+    for g, (_, n, kinds) in enumerate(stack_plan(cfg)):
+        for i in range(n):
+            out.extend((f"{g}/{u}", n, i) for u in range(len(kinds)))
+    return out
+
+
+def _leaf_path(prefix: str, key: str, field: str) -> str:
+    return "/".join(x for x in (prefix, key, field) if x)
+
+
+def _layer_specs(shapes: Mapping[Tuple[str, str], Tuple[int, ...]],
+                 prefix: str, mesh) -> Dict[Tuple[str, str], Any]:
+    """``{(key, field): spec}`` of one layer's caches, given the reference's
+    stacked shape of each tensor: its ``sharding.cache_block_spec``; a
+    ``length`` takes the rows of its state's first tensor."""
+    out, first = {}, {}
+    for (key, field), shape in shapes.items():
+        if field != "length":
+            out[key, field] = spec = cache_block_spec(
+                _leaf_path(prefix, key, field), shape, mesh)
+            first.setdefault(key, spec)
+    for key, field in shapes:
+        if field == "length":
+            out[key, field] = P(first[key][0])
+    return out
+
+
+def shard_caches(whole, cfg, mesh, device):
+    """The rank's blocks of ``whole`` (the port's caches at their whole
+    shapes, on any device: only shapes and types are read), zeros on
+    ``device``.  A KV cache cut on its slots over ``model`` carries
+    ``placement`` (mode ``"kv_seq"``), which ``attention_decode`` reads."""
+    out = []
+    for layer, (prefix, n, _) in zip(whole, cache_paths(cfg)):
+        specs = _layer_specs({(key, f): (n,) + tuple(getattr(st, f).shape)
+                              for key, st in layer.items()
+                              for f in st._fields}, prefix, mesh)
+        new = {}
+        for key, st in layer.items():
+            parts = []
+            for field in st._fields:
+                t, spec = getattr(st, field), specs[key, field]
+                blk = torch.zeros(block_shape(t.shape, spec, mesh),
+                                  dtype=t.dtype, device=device)
+                if field in ("k", "v") and dims_over(spec, "model") == (2,) \
+                        and mesh.shape.get("model", 1) > 1:
+                    blk.placement = Placement(2, "kv_seq", mesh)
+                parts.append(blk)
+            new[key] = type(st)(*parts)
+        out.append(new)
+    return out
+
+
+@torch.no_grad()
+def load_reference_cache(caches, tree, cfg, mesh=None):
+    """Copy the reference's cache tree (numpy leaves, stacked, a scalar
+    length a layer) into the port's ``caches`` in place: the whole rows,
+    or under ``mesh`` (the one the caches were built on) this rank's
+    blocks of them.  Returns ``caches``."""
+    flat = {p: _to_tensor(v) for p, v in tree_paths(tree)}
+    for layer, (prefix, n, i) in zip(caches, cache_paths(cfg)):
+        shapes = {(key, f): tuple(flat[_leaf_path(prefix, key, f)].shape)
+                  for key, st in layer.items() for f in st._fields}
+        specs = _layer_specs(shapes, prefix, mesh) if mesh else {}
+        for key, st in layer.items():
+            rows = shapes[key, st._fields[0]][1]
+            for field in st._fields:
+                row = flat[_leaf_path(prefix, key, field)][i]
+                if field == "length":
+                    row = row.expand(rows)
+                if mesh is not None:
+                    row = shard_of(row, specs[key, field], mesh)
+                t = getattr(st, field)
+                t.copy_(row.to(device=t.device, dtype=t.dtype))
+    return caches
+
+
+def cache_to_reference(caches, cfg, mesh=None, whole=None):
+    """The port's caches as the reference's tree of numpy arrays: each
+    leaf's rows stacked, a length row 0's (the reference keeps one a
+    layer).  Under ``mesh`` the caches are the rank's blocks of ``whole``
+    (the caches at their whole shapes, on any device: ``Model.init_cache``
+    on ``meta``) and are gathered whole (every rank takes part)."""
+    flat: Dict[str, Dict[int, np.ndarray]] = {}
+    for j, (prefix, n, i) in enumerate(cache_paths(cfg)):
+        layer = caches[j]
+        if mesh is not None:
+            specs = _layer_specs({(key, f): (n,) + tuple(getattr(st, f).shape)
+                                  for key, st in whole[j].items()
+                                  for f in st._fields}, prefix, mesh)
+            layer = {key: type(st)(*(gather(getattr(st, f), specs[key, f],
+                                            mesh) for f in st._fields))
+                     for key, st in layer.items()}
+        for key, st in layer.items():
+            for field in st._fields:
+                t = getattr(st, field)
+                flat.setdefault(_leaf_path(prefix, key, field), {})[i] = \
+                    host_array(t[0] if field == "length" else t)
+    return nest({p: np.stack([rows[i] for i in sorted(rows)])
+                 for p, rows in flat.items()})

@@ -12,8 +12,10 @@ no graph (prefill, serving, decode) run under ``torch.inference_mode()``.
 
 Under a mesh (``distributed/sharding.py``) a parameter may hold only this
 rank's block: ``Linear`` and ``Embedding`` gather a ``"gather"`` block where
-they use it, and an ``MLP`` whose ``tp`` is set runs tensor-parallel, its
-``up`` / ``gate`` cut by columns and ``down`` by rows.
+they use it (an ``Embedding`` that builds no graph for fewer tokens than
+its rows looks up its own rows instead, summed over ``model``), and an
+``MLP`` whose ``tp`` is set runs tensor-parallel, its ``up`` / ``gate``
+cut by columns and ``down`` by rows.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..distributed.sharding import placed, tp_enter, tp_exit
+from ..distributed import process_group as pg
+from ..distributed.sharding import placed, tp_enter, tp_exit, vocab_block
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -107,6 +110,16 @@ class Embedding(nn.Module):
         self.w = _param((vocab, d), dtype, device, generator, 0.02)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        vb = vocab_block(self.w)
+        if vb is not None and tokens.numel() < self.w.shape[0] * vb[1].size:
+            # fewer looked-up rows than the table: each rank looks up the
+            # tokens its rows hold (zeros elsewhere) and the ranks add
+            w, tp, _ = vb
+            n = w.shape[0]
+            local = tokens.long() - tp.index * n
+            hit = (local >= 0) & (local < n)
+            rows = w[local.clamp(0, n - 1)] * hit[..., None].to(w.dtype)
+            return pg.all_reduce(rows, tp.group)
         return placed(self.w)[tokens.long()]
 
 

@@ -14,6 +14,9 @@ reference's functions take their parameter tree.
     caches = build_model(cfg).init_cache(batch, max_len, device=...)
     logits, caches = build_model(cfg).decode_step(net, tokens, caches,
                                                   memory)
+    caches = build_model(cfg).init_cache(batch, max_len, mesh=mesh)
+    with use_mesh(mesh):                 # a rank's step on its blocks
+        logits, caches = build_model(cfg).decode_step(net, tokens, caches)
 
 Batches are dicts: tokens / labels (LM), frames (whisper), images (vlm).
 The loss computes cross-entropy in sequence chunks (``cfg.logits_chunk``),
@@ -24,8 +27,12 @@ the caller names the CPU to run the plain versions.
 
 Under a mesh, ``Model.shard(net, mesh, fsdp=)`` cuts the network's
 parameters to this rank's blocks (``distributed/sharding.py``; with
-``fsdp`` over ``data`` too) and sets the dense blocks' tensor parallelism; ``loss`` then gives the rank's mean over its own rows
-of the batch, which the trainer averages over the batch ranks.
+``fsdp`` over ``data`` too) and sets the dense blocks' tensor parallelism
+and the MoE layers' expert (or expert-``ff``) parallelism; ``loss`` then
+gives the rank's mean over its own rows of the batch, which the trainer
+averages over the batch ranks.  ``init_cache(..., mesh=)`` builds the
+rank's blocks of the decode caches, on which ``decode_step`` runs under
+``use_mesh(mesh)``.
 """
 
 from __future__ import annotations
@@ -38,13 +45,14 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..devices import canonical, default_devices
-from ..distributed.sharding import (P, TP, Placement, dims_over, fsdp_spec,
-                                    leaf_spec)
+from ..distributed.sharding import (P, Placement, dims_over, fsdp_spec,
+                                    leaf_spec, tp_of, use_mesh)
 from . import encdec as ed
 from . import transformer as tf
 from .attention import Attention
-from .convert import reference_leaves
+from .convert import reference_leaves, shard_caches
 from .layers import MLP, REMAT
+from .moe import MoE, ep_works
 
 
 def _ce_chunk(net, cfg, h, y, w):
@@ -109,10 +117,12 @@ class Model:
         self-attention blocks (``attn``) whose ``wq`` / ``wo`` are cut on
         whole query heads run tensor-parallel, with ``wk`` / ``wv`` too
         where the KV heads divide; the MLPs whose ``up`` / ``gate`` /
-        ``down`` are cut on ``d_ff`` run tensor-parallel; every other leaf
-        cut over ``model`` is gathered where it is used, as is every leaf's
-        ``data`` block under FSDP.  Each cut parameter carries its
-        ``placement``."""
+        ``down`` are cut on ``d_ff`` run tensor-parallel; the MoE layers
+        whose expert banks are cut on their experts run expert-parallel
+        (``"ep"``), and those cut on the experts' ``ff`` dimension
+        tensor-parallel (``"tp"``); every other leaf cut over ``model`` is
+        gathered where it is used, as is every leaf's ``data`` block under
+        FSDP.  Each cut parameter carries its ``placement``."""
         m = mesh.shape.get("model", 1)
         params = dict(net.named_parameters())
         specs, cut, fcut = {}, {}, {}
@@ -131,7 +141,7 @@ class Model:
                 fcut[name] = fdims[0] - leaf.stacked if fdims else None
         mode = {}
         if m > 1:
-            tp = TP(mesh.group("model"), m, mesh.axis_index("model"))
+            tp = tp_of(mesh)
             for mname, mod in net.named_modules():
                 pre = f"{mname}." if mname else ""
                 if isinstance(mod, Attention) and mname.endswith("attn"):
@@ -154,6 +164,17 @@ class Model:
                     if all(cut[f"{pre}{n}.w"] == want[n] for n in lins):
                         mod.tp = tp
                         mode.update((f"{pre}{n}.w", "tp") for n in lins)
+                elif isinstance(mod, MoE):
+                    banks = ["w_up", "w_down"] + (
+                        ["w_gate"] if mod.w_gate is not None else [])
+                    with use_mesh(mesh):
+                        ep = ep_works(self.cfg)
+                    # experts (dim 0), else the experts' ff dimension
+                    want = ({b: 0 for b in banks} if ep else
+                            {"w_up": 2, "w_gate": 2, "w_down": 1})
+                    if all(cut[pre + b] == want[b] for b in banks):
+                        mod.tp, mod.mode = tp, "ep" if ep else "tp"
+                        mode.update((pre + b, mod.mode) for b in banks)
         with torch.no_grad():
             for name, p in params.items():
                 dim, fdim = cut[name], fcut[name]
@@ -197,12 +218,18 @@ class Model:
             return batch["images"]
         return None
 
-    def init_cache(self, batch: int, max_len: int, *, device=None):
+    def init_cache(self, batch: int, max_len: int, *, device=None,
+                   mesh=None):
         """Empty decode caches for ``batch`` rows of up to ``max_len``
         tokens (a list with one dict a layer), on ``device`` (default: the
-        current GPU)."""
+        current GPU).  Under ``mesh`` this rank's blocks of them, as the
+        reference's cache rules place the leaves (``convert.shard_caches``),
+        made at their own size."""
         device = (default_devices()[0] if device is None
                   else canonical(device))
+        if mesh is not None:
+            whole = self.init_cache(batch, max_len, device="meta")
+            return shard_caches(whole, self.cfg, mesh, device)
         if self.cfg.block_pattern == "encdec":
             return ed.init_encdec_cache(self.cfg, batch, max_len, device)
         return tf.init_decode_cache(self.cfg, batch, max_len, device)

@@ -15,13 +15,25 @@ products are ``torch.einsum`` contractions, which the reference leaves to
 XLA outside any Pallas kernel.  Returns the Switch-style
 load-balance loss beside the output.
 
-Under a mesh (``distributed/sharding.py``) the expert banks are gathered
-over ``model`` where they are used, and the load-balance statistics (the
-routed share and the mean router probability of each expert) are averaged
-over the batch ranks, so that the loss is the reference's over the whole
-batch.  The reference's expert-parallel test (experts divide the
-``model`` axis: :func:`ep_works`) is kept as a reported fact; the dispatch
-itself is not expert-parallel.
+Under a mesh (``distributed/sharding.py``) the banks are laid out as the
+reference's partitioner lays them out under its ``baseline`` rules, where
+every ``model`` rank holds the same tokens (``batch`` is ``("pod",
+"data")``).  The routing runs whole on every rank (the router is not cut:
+the top-k, the running count and the kept mask are the same everywhere).
+Where the experts divide ``model`` (:func:`ep_works`, mode ``"ep"``) the
+rank forms the dispatch tensor's slice of its own experts and runs them;
+the combine over those experts is a partial sum, added over ``model``.
+Where they do not, the banks are cut on the experts' ``ff`` dimension
+(mode ``"tp"``, Megatron inside every expert), and the dispatch and
+combine one-hots are cut on the routing group's tokens, as the
+reference's ``tok_constrain`` asks where that dimension divides
+``model``: the rank builds its tokens' rows, the dispatched tokens are
+the sum of every rank's rows, and the outputs' rows are gathered back.
+No bank is gathered over ``model``.  The load-balance statistics (the
+routed share and the mean router probability of each expert) are the
+same on every ``model`` rank and averaged over the batch ranks, so that
+the loss is the reference's over the whole batch.  No all-to-all arises:
+that takes tokens cut over ``model``, which ``baseline`` never does.
 """
 
 from __future__ import annotations
@@ -32,7 +44,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..distributed.sharding import active, batch_mean, placed
+from ..distributed.sharding import (active, batch_mean, placed, tp_enter,
+                                    tp_exit, tp_gather)
 from .layers import ACTIVATIONS, MLP, Linear, _param, dtype_of
 
 #: tokens per routing group: fixes the dispatch tensors' size per token
@@ -43,7 +56,13 @@ GROUP_SIZE = 2048
 class MoE(nn.Module):
     """The router (fp32), the expert banks ``w_up``, ``w_down`` and (gated)
     ``w_gate`` as (E, d_in, d_out) parameters, and the optional ``shared``
-    and ``dense`` MLPs."""
+    and ``dense`` MLPs.  Under a mesh ``tp`` (a ``sharding.TP``) and
+    ``mode`` (``"ep"``: the rank holds experts ``[i E/m, (i+1) E/m)``;
+    ``"tp"``: every expert's ``ff`` columns ``[i F/m, (i+1) F/m)``) are
+    set where the banks are cut over ``model``."""
+
+    tp = None
+    mode = None
 
     def __init__(self, cfg, *, device=None, generator=None):
         super().__init__()
@@ -118,8 +137,16 @@ def ep_works(cfg) -> bool:
     return bool(ax) and ax in mesh.shape and cfg.moe.n_experts % mesh.shape[ax] == 0
 
 
-def moe_block(p: MoE, cfg, x: torch.Tensor):
-    """x: (B, S, D) -> (out (B, S, D), aux_loss fp32 scalar)."""
+def _token_cut(cfg, s: int, tp) -> bool:
+    """The reference's ``tok_constrain``: where the experts do not divide
+    ``model``, the one-hots' token dimension goes over ``model`` (its
+    ``kv_seq`` rule), where that divides the group's ``s`` tokens."""
+    return not ep_works(cfg) and s % tp.size == 0
+
+
+def moe_block(p: MoE, cfg, x: torch.Tensor, *, with_aux: bool = True):
+    """x: (B, S, D) -> (out (B, S, D), aux_loss fp32 scalar; 0 without
+    ``with_aux``, which decode takes)."""
     m = cfg.moe
     act = ACTIVATIONS[cfg.activation]
     bsz, seq, d = x.shape
@@ -127,32 +154,62 @@ def moe_block(p: MoE, cfg, x: torch.Tensor):
     x = x.reshape(bsz * (seq // gs), gs, d)
     r = route(p, cfg, x)
     cap = capacity(cfg, gs)
+    tp = p.tp
 
     # dispatch / combine tensors (G, s, E, C); a dropped (token, k) has no
-    # slot (pos >= C gives an all-zero one-hot row)
-    pos_oh = (r.pos[..., None] == torch.arange(
+    # slot (pos >= C gives an all-zero one-hot row).  Under a mesh the
+    # rank's slice: its experts ("ep") or its tokens (the token cut); the
+    # gates' and the tokens' gradients from that slice are partial, and
+    # tp_enter adds them over the ranks
+    onehot, keep, pos, gates, xin = r.onehot, r.keep, r.pos, r.gate_vals, x
+    cut = tp is not None and p.mode == "tp" and _token_cut(cfg, gs, tp)
+    if tp is not None:
+        gates, xin = tp_enter(gates, tp), tp_enter(x, tp)
+    if tp is not None and p.mode == "ep":
+        n = m.n_experts // tp.size
+        onehot = onehot[..., tp.index * n:(tp.index + 1) * n]
+    elif cut:
+        n = gs // tp.size
+        rows = slice(tp.index * n, (tp.index + 1) * n)
+        onehot, keep, pos = onehot[:, rows], keep[:, rows], pos[:, rows]
+        gates, xin = gates[:, rows], xin[:, rows]
+    pos_oh = (pos[..., None] == torch.arange(
         cap, device=x.device, dtype=torch.float32)).to(torch.float32)
-    dispatch = torch.einsum("bske,bskc->bsec", r.onehot * r.keep[..., None],
+    dispatch = torch.einsum("bske,bskc->bsec", onehot * keep[..., None],
                             pos_oh)
-    combine = torch.einsum("bske,bskc->bsec",
-                           r.onehot * r.gate_vals[..., None], pos_oh)
+    combine = torch.einsum("bske,bskc->bsec", onehot * gates[..., None],
+                           pos_oh)
 
-    xe = torch.einsum("bsec,bsd->becd", dispatch.to(x.dtype), x)  # (G,E,C,D)
+    xe = torch.einsum("bsec,bsd->becd", dispatch.to(x.dtype), xin)
+    if cut:
+        # every rank's tokens dispatched: the sum over model, whose
+        # gradient (partial over ff) is summed back
+        xe = tp_enter(tp_exit(xe, tp), tp)                        # (G,E,C,D)
     h = torch.einsum("becd,edf->becf", xe, placed(p.w_up))
     if p.w_gate is not None:
         h = h * act(torch.einsum("becd,edf->becf", xe, placed(p.w_gate)))
     else:
         h = act(h)
     ye = torch.einsum("becf,efd->becd", h, placed(p.w_down))       # (G,E,C,D)
+    if cut:
+        # the ff partial sums added; their gradient, partial over the
+        # rank's tokens, added back
+        ye = tp_enter(tp_exit(ye, tp), tp)
     y = torch.einsum("bsec,becd->bsd", combine.to(x.dtype), ye)
+    if cut:
+        y = tp_gather(y, tp, 1)
+    elif tp is not None:
+        y = tp_exit(y, tp)
 
     if p.shared is not None:
         y = y + p.shared(x)
     if p.dense is not None:
         y = y + p.dense(x)
 
-    # Switch-style load-balance loss: E * sum_e f_e * P_e
-    f = batch_mean(torch.mean(r.onehot.sum(2), dim=(0, 1)))     # routed share
-    pmean = batch_mean(torch.mean(r.probs, dim=(0, 1)))
-    aux = m.n_experts * torch.sum(f * pmean) * m.router_aux_weight
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if with_aux:
+        # Switch-style load-balance loss: E * sum_e f_e * P_e
+        f = batch_mean(torch.mean(r.onehot.sum(2), dim=(0, 1)))  # routed
+        pmean = batch_mean(torch.mean(r.probs, dim=(0, 1)))
+        aux = m.n_experts * torch.sum(f * pmean) * m.router_aux_weight
     return y.reshape(bsz, seq, d), aux

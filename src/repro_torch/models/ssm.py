@@ -29,6 +29,10 @@ reference's does: ``decayed_linear_attention_step`` (the SSD head),
 (``kernels/slstm/ref.py::slstm_step``).  Neither K5 nor K6 is launched for
 one token: a single step has no time loop to keep on the device.  The
 states carry one row a request of the batch, with one length a row.
+Under a mesh whose ``model`` axis divides the heads, a state holds this
+rank's heads (the reference's ``("batch", "heads", ...)`` cache rules):
+the projections run as the layout gives them, the rank updates its heads
+and all-gathers their outputs over ``model`` before the out projection.
 """
 
 from __future__ import annotations
@@ -40,6 +44,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.autograd.function import once_differentiable
 
+from ..distributed import process_group as pg
+from ..distributed.sharding import active_tp
 from ..kernels.slstm import slstm_scan, slstm_scan_bwd_cuda, slstm_scan_cuda
 from ..kernels.slstm.ref import slstm_step
 from ..kernels.ssm_scan import ssm_scan
@@ -231,16 +237,36 @@ def ssd_train(p: SSD, cfg, x: torch.Tensor) -> torch.Tensor:
     return p.wo(y)
 
 
+def _own(held: int, whole: int):
+    """(the active mesh's ``model`` axis, this rank's slice) where a decode
+    state holds ``held`` of ``whole`` heads (or features), cut over
+    ``model``; (None, everything) where it holds them all."""
+    if held == whole:
+        return None, slice(None)
+    tp = active_tp()
+    if tp is None or held * tp.size != whole:
+        raise ValueError(f"a decode state of {held} of {whole} heads needs "
+                         f"the mesh it was cut on to be active")
+    return tp, slice(tp.index * held, (tp.index + 1) * held)
+
+
+def _whole(y: torch.Tensor, tp, dim: int = 1) -> torch.Tensor:
+    """Every rank's heads of ``y`` (all-gathered along ``dim``)."""
+    return y if tp is None else pg.all_gather(y, tp.group, dim=dim)
+
+
 def ssd_decode(p: SSD, cfg, x: torch.Tensor, state: SSMState):
     """One token of the SSD head: x (B, 1, D) -> (out (B, 1, D), state)."""
     h = cfg.ssm.n_ssm_heads or cfg.n_heads
     st, hd = cfg.ssm.state_dim, cfg.hd
     b = x.shape[0]
-    Bm = p.wB(x)[:, 0].reshape(b, h, st)
-    Cm = p.wC(x)[:, 0].reshape(b, h, st)
-    v = p.wx(x)[:, 0].reshape(b, h, hd)
-    log_a = -F.softplus(p.wdt(x)[:, 0].to(torch.float32))
+    tp, mine = _own(state.S.shape[1], h)
+    Bm = p.wB(x)[:, 0].reshape(b, h, st)[:, mine]
+    Cm = p.wC(x)[:, 0].reshape(b, h, st)[:, mine]
+    v = p.wx(x)[:, 0].reshape(b, h, hd)[:, mine]
+    log_a = -F.softplus(p.wdt(x)[:, 0].to(torch.float32))[:, mine]
     y, S = decayed_linear_attention_step(Cm, Bm, v, log_a, state.S)
+    y = _whole(y, tp)
     out = p.wo(y.reshape(b, h * hd).to(x.dtype))[:, None, :]
     return out, SSMState(S, state.n, state.length + 1)
 
@@ -294,11 +320,12 @@ def mlstm_decode(p: MLSTM, cfg, x: torch.Tensor, state: SSMState):
     """One token of the mLSTM: x (B, 1, D) -> (out (B, 1, D), state)."""
     h, hd = cfg.n_heads, cfg.hd
     b = x.shape[0]
-    q = p.wq(x)[:, 0].reshape(b, h, hd) * hd ** -0.5
-    k = p.wk(x)[:, 0].reshape(b, h, hd) * hd ** -0.5
-    v = p.wv(x)[:, 0].reshape(b, h, hd)
-    log_f = F.logsigmoid(p.wf(x)[:, 0].to(torch.float32))
-    log_i = F.logsigmoid(p.wi(x)[:, 0].to(torch.float32))
+    tp, mine = _own(state.S.shape[1], h)
+    q = p.wq(x)[:, 0].reshape(b, h, hd)[:, mine] * hd ** -0.5
+    k = p.wk(x)[:, 0].reshape(b, h, hd)[:, mine] * hd ** -0.5
+    v = p.wv(x)[:, 0].reshape(b, h, hd)[:, mine]
+    log_f = F.logsigmoid(p.wf(x)[:, 0].to(torch.float32))[:, mine]
+    log_i = F.logsigmoid(p.wi(x)[:, 0].to(torch.float32))[:, mine]
     k = k * torch.exp(log_i).to(k.dtype)[..., None]
     a = torch.exp(log_f)[..., None, None]
     kf, qf = k.to(torch.float32), q.to(torch.float32)
@@ -306,7 +333,7 @@ def mlstm_decode(p: MLSTM, cfg, x: torch.Tensor, state: SSMState):
     n = state.n * a[..., 0] + kf
     num = torch.einsum("bhd,bhdv->bhv", qf, S)
     den = torch.einsum("bhd,bhd->bh", qf, n)
-    y = num / torch.clamp(den.abs(), min=1.0)[..., None]
+    y = _whole(num / torch.clamp(den.abs(), min=1.0)[..., None], tp)
     o_gate = torch.sigmoid(p.wo_gate(x)[:, 0])
     y = (y.reshape(b, h * hd) * o_gate.to(torch.float32)).to(x.dtype)
     return p.wo(y)[:, None, :], SSMState(S, n, state.length + 1)
@@ -347,9 +374,10 @@ def slstm_train(p: SLSTM, cfg, x: torch.Tensor) -> torch.Tensor:
 
 def slstm_decode(p: SLSTM, cfg, x: torch.Tensor, state: SLSTMState):
     """One token of the sLSTM: x (B, 1, D) -> (out (B, 1, D), state)."""
-    z = p.wz(x)[:, 0].to(torch.float32)
-    i = p.wi(x)[:, 0].to(torch.float32)
-    f = p.wf(x)[:, 0].to(torch.float32)
-    o = p.wog(x)[:, 0].to(torch.float32)
+    tp, mine = _own(state.c.shape[1], cfg.n_heads * cfg.hd)
+    z = p.wz(x)[:, 0].to(torch.float32)[:, mine]
+    i = p.wi(x)[:, 0].to(torch.float32)[:, mine]
+    f = p.wf(x)[:, 0].to(torch.float32)[:, mine]
+    o = p.wog(x)[:, 0].to(torch.float32)[:, mine]
     c, n, m, y = slstm_step(state.c, state.n, state.m, z, i, f, o)
-    return p.wo(y.to(x.dtype))[:, None, :], SLSTMState(c, n, m)
+    return p.wo(_whole(y, tp).to(x.dtype))[:, None, :], SLSTMState(c, n, m)

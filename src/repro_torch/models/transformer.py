@@ -35,7 +35,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..distributed.sharding import placed
+from ..distributed import process_group as pg
+from ..distributed.sharding import placed, vocab_block
 from .attention import (Attention, attention_decode, attention_train,
                         cross_attention, init_kv_cache)
 from .layers import (REMAT, MLP, Embedding, Linear, RMSNorm, _param,
@@ -130,7 +131,7 @@ def apply_layer_decode(p: Layer, cfg, kind: str, x, cache: Dict,
         x = x + h
         h2 = p.norm2(x)
         if kind == "moe":
-            y, _ = moe_block(p.moe, cfg, h2)
+            y, _ = moe_block(p.moe, cfg, h2, with_aux=False)
         else:
             y = p.mlp(h2)
         return x + y, {**cache, "kv": cache_kv}
@@ -259,8 +260,22 @@ def lm_head_weight(net: Decoder, cfg) -> torch.Tensor:
 def lm_logits(net: Decoder, cfg, x: torch.Tensor, weight=None
               ) -> torch.Tensor:
     """The logits of ``x``; ``weight`` is :func:`lm_head_weight`'s, taken
-    once for several calls (the loss's chunks)."""
+    once for several calls (the loss's chunks).  Where no graph is built
+    and the LM head's weight is a vocabulary block of a mesh, each rank
+    gives its share of the logits and the ranks gather them, where that
+    moves fewer bytes than gathering the weight (fewer rows than
+    ``d_model``: a decode step, the prefill's last position)."""
+    if weight is None:
+        vb = vocab_block(net.embed.w if cfg.tie_embeddings
+                         else net.lm_head.w)
+        if vb is not None and x.shape[:-1].numel() < cfg.d_model:
+            w, tp, _ = vb
+            return pg.all_gather(_logits(cfg, x, w), tp.group, dim=-1)
     w = lm_head_weight(net, cfg) if weight is None else weight
+    return _logits(cfg, x, w)
+
+
+def _logits(cfg, x, w):
     if cfg.tie_embeddings:
         return torch.einsum("bsd,vd->bsv", x, w)
     return promoted_matmul(x, w)

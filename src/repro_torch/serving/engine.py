@@ -30,6 +30,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ..distributed.sharding import use_mesh
 from ..models import Model
 
 
@@ -45,14 +46,20 @@ class ServeConfig:
                                        # (default: eos_id, else 0)
 
 
-def make_serve_step(model: Model):
+def make_serve_step(model: Model, mesh=None):
     """The decode step: (net, tokens, caches, memory) -> (logits,
     new_caches), without autograd.  tokens is (B, 1) for generation or
-    (B, chunk) during chunked prefill."""
+    (B, chunk) during chunked prefill.  Under ``mesh`` the step runs as
+    the rank's, under ``use_mesh(mesh)``: ``net`` and the caches are its
+    blocks (``Model.shard``, ``Model.init_cache(..., mesh=)``) and the
+    tokens its rows."""
 
     @torch.inference_mode()
     def serve_step(net, tokens, caches, memory=None):
-        return model.decode_step(net, tokens, caches, memory)
+        if mesh is None:
+            return model.decode_step(net, tokens, caches, memory)
+        with use_mesh(mesh):
+            return model.decode_step(net, tokens, caches, memory)
 
     return serve_step
 

@@ -19,7 +19,10 @@ as without one, then cuts it to this rank's blocks (``Model.shard``), so a
 sharded and an unsharded run start from the same weights.  Each rank takes
 the batch rows at its ``("pod", "data")`` coordinate; the gradients are
 averaged over those ranks at full precision (as the reference's trainer,
-this one does not compress them); AdamW's moments are ZeRO-1 slices
+this one does not compress them), and over those only: a block's
+gradient (``"tp"``, ``"ep"``: an expert bank's own experts, ``"gather"``)
+is already this rank's block of the whole gradient, and takes no sum
+over ``model``; AdamW's moments are ZeRO-1 slices
 (``optimizer.zero_slice``), and the updated slices are all-gathered over
 ``data``.  Checkpoints hold the reference's whole leaves: ``save``
 gathers them (rank 0 writes), ``restore`` cuts them to the current mesh.

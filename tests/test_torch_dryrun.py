@@ -8,9 +8,10 @@ collectives a counting mesh records against a real gloo world's, and the
   4 DK DV a step, K6 27 a step and its backward 60.  K4's operand copies
   are decided from strides, so a ``meta`` count sees them.
 * A gloo world of four ranks on (1, 2, 2) runs one reduced dense, MoE and
-  FSDP train step; each rank's ``collective_stats()`` by kind (calls and
-  operand bytes) equals the count of the same rank's step on
-  ``counting_mesh``, exactly.
+  FSDP train step, and two decode steps of five cases; each rank's
+  ``collective_stats()`` by kind (calls and operand bytes) equals the
+  count of the same rank's step on ``counting_mesh``, exactly.
+  arctic-480b's count gathers no expert bank over ``model``.
 * ``python -m repro_torch.launch.dryrun`` writes a record with the
   reference's keys, with ``jax`` never imported, and
   ``benchmarks/roofline_table.py`` reads it; ``--device cuda`` on a host
@@ -170,6 +171,20 @@ def test_the_fp32_workspaces_are_counted_on_meta(kernel):
     assert count.bytes >= work + out
 
 
+def test_log_sigmoid_is_counted_as_the_card_runs_it():
+    """``log_sigmoid_forward`` fills a buffer for its backward on the CPU
+    and returns it empty on the card; its meta kernel makes the CPU's.
+    The count takes the card's: one output read and written, no buffer
+    held (the mLSTM's and the sLSTM's gates reach it)."""
+    x = torch.empty(4, 64, device=META)
+    with torch.inference_mode():
+        count = rl.count_step(lambda: torch.nn.functional.logsigmoid(x))
+    assert count.bytes == 2 * 4 * 64 * 4
+    assert count.memory["temp_bytes"] == 4 * 64 * 4
+    cpu = torch.randn(4, 64)
+    assert torch.ops.aten.log_sigmoid_forward(cpu)[1].numel() == 4 * 64
+
+
 def test_a_plain_run_on_the_card_skips_the_operators():
     """Operands on CUDA launch straight, out of any dispatch mode; under
     one (a count, a fake-tensor trace) they go through the operator, which
@@ -200,6 +215,33 @@ def _trainer(arch, mesh, fsdp):
         mesh=mesh, seed=SEED, device="cpu", fsdp=fsdp)
 
 
+#: the decode steps a world counts: a dense arch, its chunked path, the
+#: windowed hybrid, xlstm's states by heads, the MoE's experts
+DECODE_CASES = [("starcoder2-3b", 1), ("starcoder2-3b", 3), ("hymba-1.5b", 1),
+                ("xlstm-350m", 1), ("qwen2-moe-a2.7b", 1)]
+
+
+def _decode_stats(arch, s1, mesh):
+    """The collectives of two decode steps of ``s1`` tokens of the reduced
+    ``arch`` on ``mesh`` (zeros for tokens: a counting mesh's collectives
+    return zeros, and the step's ops do not depend on the values)."""
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import make_serve_step
+    cfg = get(arch).reduced()
+    model = build_model(cfg)
+    net = model.init(SEED, device="cpu")
+    model.shard(net, mesh)
+    caches = model.init_cache(BATCH, 16, device="cpu", mesh=mesh)
+    step = make_serve_step(model, mesh)
+    rows = BATCH // mesh.axis_size(mesh.batch_axes)
+    pg.reset_collective_stats()
+    for _ in range(2):
+        _, caches = step(net, torch.zeros((rows, s1), dtype=torch.long),
+                         caches)
+    st = pg.collective_stats()
+    return st["calls_by_kind"], st["bytes_by_kind"]
+
+
 def _count_rank(rank, world, device, shape):
     from repro_torch.launch.mesh import counting_mesh, make_mesh
     torch.set_num_threads(1)
@@ -215,6 +257,10 @@ def _count_rank(rank, world, device, shape):
             st = pg.collective_stats()
             seen.append((st["calls_by_kind"], st["bytes_by_kind"]))
         out[f"{arch}{'-fsdp' if fsdp else ''}"] = seen
+    for arch, s1 in DECODE_CASES:
+        out[f"decode-{arch}-{s1}"] = [
+            _decode_stats(arch, s1, mesh)
+            for mesh in (real, counting_mesh(shape, rank))]
     return out
 
 
@@ -237,6 +283,63 @@ def test_counting_mesh_counts_what_the_world_sends(counted_world, case,
     if case.endswith("fsdp"):
         assert calls.get("reduce-scatter", 0) > 0
     assert all(v > 0 for v in nbytes.values())
+
+
+@pytest.mark.parametrize("rank", range(4))
+@pytest.mark.parametrize("case", [f"{a}-{s1}" for a, s1 in DECODE_CASES])
+def test_counting_mesh_counts_what_a_decode_sends(counted_world, case,
+                                                  rank):
+    """Two decode steps on the world's (1, 2, 2) mesh send, by kind, the
+    calls and operand bytes the counting mesh records for the same rank:
+    the combine's all-reduces (max, then sum) where the cache is cut on
+    its slots, and the heads' all-gathers."""
+    real, counted = counted_world[rank][f"decode-{case}"]
+    assert real == counted
+    calls, _ = real
+    if case.startswith("xlstm"):
+        # no KV cache: the heads' outputs and the logits gathered, the
+        # embedding's rows summed
+        assert calls["all-gather"] > 0 and calls["all-reduce"] == 2
+    else:
+        assert calls.get("all-reduce", 0) >= 2 * 2  # the combine, a layer
+
+
+def test_arctic_count_gathers_no_expert_bank(monkeypatch):
+    """arctic-480b's train step (two layers) and prefill (every layer:
+    FSDP) on rank 0 of (16, 16), counted on meta: no all-gather over
+    ``model`` takes an expert bank's block (8 of its 128 experts a rank);
+    under FSDP the banks are gathered over ``data`` only."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import counting_mesh
+    mesh = counting_mesh((16, 16))
+    seen = []
+    orig = pg.all_gather
+
+    def recorded(x, group=None, *, dim=0):
+        seen.append((tuple(x.shape), group is mesh.group("model")))
+        return orig(x, group, dim=dim)
+
+    monkeypatch.setattr(pg, "all_gather", recorded)
+    for shape, layers in (("train_4k", 2), ("prefill_32k", None)):
+        with shd.use_mesh(mesh):
+            fn, args, _, meta = specs.step_and_specs(
+                "arctic-480b", shape, mesh, layers=layers)
+        net = args[0]
+        banks = {tuple(p.shape) for n, p in net.named_parameters()
+                 if n.rsplit(".", 1)[-1] in ("w_up", "w_gate", "w_down")}
+        modes = {p.placement.mode for n, p in net.named_parameters()
+                 if n.rsplit(".", 1)[-1] in ("w_up", "w_gate", "w_down")}
+        assert modes == {"ep"} and meta["fsdp"] is (layers is None)
+        seen.clear()
+        rl.count_step(lambda: fn(*args), args)
+        over_model = {s for s, model in seen if model}
+        assert over_model and not over_model & banks
+        if meta["fsdp"]:
+            # the banks' FSDP blocks gathered over data: 8 experts whole
+            assert (8, 7168, 4864) in {s[:1] + (s[1] * 16,) + s[2:]
+                                       for s, model in seen
+                                       if not model and len(s) == 3}
 
 
 # -- the entry point ---------------------------------------------------------------
@@ -308,21 +411,30 @@ def test_the_roofline_bench_emits_the_records(tmp_path, monkeypatch,
     assert [ln.split(",")[0] for ln in lines] == [
         "roofline_pod", "roofline_multipod",
         "roofline_cell_whisper-tiny@train_4k"]
-    assert out["pod"]["n_cells"] == 2 and out["pod"]["n_not_lowered"] == 1
+    assert out["pod"]["n_cells"] == 3 and "n_not_lowered" not in out["pod"]
     with open(tmp_path / "bench" / "roofline.json") as f:
         assert "_meta" in json.load(f)
 
 
 def test_a_decode_cell_is_recorded_not_lowered(tmp_path):
+    """A decode cell is counted (no longer recorded unlowered): one
+    serving step of the rank, with the KV cache's combine over ``model``
+    (an all-reduce of the row maxima and one of the sums) in its
+    collectives."""
     res = _cli(tmp_path, "--arch", "hymba-1.5b", "--shape", "decode_32k",
                "--mesh", "both", "--out", str(tmp_path / "out"))
     assert res.returncode == 0, res.stderr[-3000:]
-    assert "EXIT 0" in res.stdout and "2 not lowered" in res.stdout
+    assert "EXIT 0" in res.stdout and "2 counted, 0 failed" in res.stdout
     with open(tmp_path / "out" / "multipod" / "hymba-1.5b@decode_32k.json") \
             as f:
         rec = json.load(f)
-    assert rec["lowered"] is False and rec["cache_len"] == 1024
-    assert "kv_seq" in rec["not_lowered"] and rec["chips"] == 512
+    assert rec["lowered"] is True and rec["cache_len"] == 1024
+    assert "not_lowered" not in rec and rec["chips"] == 512
+    assert rec["batch_rows"] == 4 and rec["flops"] > 0
+    # two all-reduces a layer in the attention's combine, one in its
+    # tensor-parallel output or none (25 heads do not divide 16)
+    assert rec["collective_counts"]["all-reduce"] >= 2 * 32
+    assert rec["memory_analysis"]["argument_bytes"] > 0
 
 
 def test_device_cuda_without_a_card_exits_non_zero(tmp_path):

@@ -135,8 +135,9 @@ def test_step_and_specs_builds_the_rank_on_meta():
     """The rank's arguments are meta tensors of its blocks: starcoder2-3b
     train on the pod mesh holds 16 rows, AdamW moments of the ZeRO-1
     blocks, and parameters cut over ``model``; ``meta`` is ``cell_meta``'s
-    plus the rank's notes.  A decode cell is not lowered, with its
-    reason."""
+    plus the rank's notes.  A decode cell is lowered: one token a row of
+    the rank's 8 rows, its blocks of the caches (hymba's 1024-slot window
+    cut over ``model``, its SSD state whole: 25 heads do not divide 16)."""
     mesh = counting_mesh((16, 16))
     fn, (net, opt, batch), flops, meta = specs.step_and_specs(
         "starcoder2-3b", "train_4k", mesh)
@@ -152,9 +153,40 @@ def test_step_and_specs_builds_the_rank_on_meta():
     mu = opt.mu["groups/0/0/mlp/up/w"]
     assert mu.device.type == "meta" and tuple(mu.shape) == (30, 3072 // 16,
                                                             12288 // 16)
-    fn, args, _, meta = specs.step_and_specs("hymba-1.5b", "decode_32k",
-                                             mesh)
-    assert fn is None and args == () and "kv_seq" in meta["not_lowered"]
+    fn, (net, tokens, caches, memory), _, meta = specs.step_and_specs(
+        "hymba-1.5b", "decode_32k", mesh)
+    assert callable(fn) and memory is None and "not_lowered" not in meta
+    assert tokens.shape == (8, 1) and meta["cache_len"] == 1024
+    kv, ssm = caches[0]["kv"], caches[0]["ssm"]
+    assert kv.k.device.type == "meta" and kv.k.shape == (8, 5, 64, 64)
+    assert kv.k.placement.mode == "kv_seq" and kv.length.shape == (8,)
+    assert ssm.S.shape == (8, 25, 16, 64)
+    assert len(caches) == 32
+
+
+DECODE_CELLS = [(a, s) for a, s in ALL_CELLS
+                if SHAPES[s].kind == "decode"]
+
+
+@pytest.mark.parametrize("cell", DECODE_CELLS, ids="@".join)
+def test_lowered_decode_meta_equals_the_references(reference_meta, cell):
+    """The 12 decode cells' ``meta`` from the lowered ``step_and_specs``
+    (``cache_len``, ``fsdp``, the parameter counts) and ``model_flops``
+    are the reference's on the pod mesh; the rank's caches hold
+    ``cache_len`` slots over ``model``."""
+    arch, shape = cell
+    mesh = counting_mesh((16, 16))
+    _, (_, tokens, caches, _), flops, meta = specs.step_and_specs(
+        arch, shape, mesh)
+    want = reference_meta[f"pod/{arch}@{shape}"]
+    for k in KEYS:
+        assert meta.get(k) == want.get(k), k
+    assert flops == want["model_flops"]
+    rows = SHAPES[shape].global_batch
+    assert tokens.shape == ((rows // 16 if rows % 16 == 0 else rows), 1)
+    kv = next((c["kv"] for c in caches if "kv" in c), None)
+    if kv is not None:
+        assert kv.k.shape[2] * 16 == meta["cache_len"]
 
 
 def test_depth_cut():
