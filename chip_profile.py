@@ -38,12 +38,16 @@ profiled in every rank: its wall, K1's device time (the products), the
 device time of the device-to-host and host-to-device copies (the staging),
 and the host time waiting on gloo (the ``comm_wait`` ranges of
 ``linalg.collectives.GroupComm``).
+K1 at each compiled CTA tile: what the loaded body reports, and its
+device time at 4096^3 beside ``torch.matmul``'s.
 Exits non-zero without a CUDA device or when a profile holds no device
 time.
 
 Usage, from the root of a checkout on a machine with a CUDA GPU:
 
-    python3 chip_profile.py
+    python3 chip_profile.py              # all of the above
+    python3 chip_profile.py --k1-tiles   # the build, the ptxas report of
+                                         # K1's sources and its tiles alone
 """
 
 from __future__ import annotations
@@ -99,17 +103,17 @@ def main() -> int:
     from repro_torch.tuner import PlanCache, Tuner
     torch.backends.cuda.matmul.allow_tf32 = False
     ext = _build.extension()
-    ptxas_report(_build)
-    if hasattr(ext, "matmul_info"):   # absent from builds of older sources
-        regs, spill, static, dynamic, ctas = ext.matmul_info()
-        print(json.dumps({"k1_fp32_body": {
-            "registers": regs, "spill_bytes": spill, "static_smem": static,
-            "dynamic_smem": dynamic, "ctas_per_sm": ctas}}), flush=True)
+    k1_only = "--k1-tiles" in sys.argv[1:]
+    ptxas_report(_build, only="matmul" if k1_only else None)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    k1_tile_report(torch, ext)
+    if k1_only:
+        k1_tile_device_times(torch, gen)
+        return 0
     k1_shapes = record_k1_shapes(ext)
     plan_dir = os.path.join(HERE, "build", "profile_plans")
     shutil.rmtree(plan_dir, ignore_errors=True)
     tuner = Tuner(cache=PlanCache(plan_dir))
-    gen = torch.Generator(device="cuda").manual_seed(0)
     for op in ("matmul", "trsm", "cholesky"):
         args = operands(torch, op, N, gen)
         getattr(linalg, op)(*args, tuner=tuner)          # warm-up
@@ -176,6 +180,7 @@ def main() -> int:
             return 1
     kernel_device_times(torch, gen)
     k1_device_times(torch, gen)
+    k1_tile_device_times(torch, gen)
     k5_device_times(torch, gen)
     k6_device_times(torch, gen)
     return 0 if group_profile() else 1
@@ -509,6 +514,33 @@ def k1_device_times(torch, gen) -> None:
     torch.cuda.empty_cache()
 
 
+def k1_tile_report(torch, ext) -> None:
+    """What the loaded K1 fp32 body reports at each compiled CTA tile
+    (registers, spill bytes, static and dynamic shared memory, resident
+    CTAs an SM, threads, stages); one JSON line each."""
+    from repro_torch.kernels.matmul import CTA_TILES
+    keys = ("registers", "spill_bytes", "static_smem", "dynamic_smem",
+            "ctas_per_sm", "threads", "stages")
+    for tile in CTA_TILES:
+        print(json.dumps({"k1_fp32_body": list(tile),
+                          **dict(zip(keys, ext.matmul_info(*tile)))}),
+              flush=True)
+
+
+def k1_tile_device_times(torch, gen, n: int = 4096) -> None:
+    """Device time per call of K1 at each compiled CTA tile at n^3, fp32,
+    and of ``torch.matmul`` beside it; one JSON line each."""
+    from repro_torch.kernels import matmul_cuda
+    from repro_torch.kernels.matmul import CTA_TILES
+    a = torch.randn(n, n, device="cuda", generator=gen)
+    b = torch.randn(n, n, device="cuda", generator=gen)
+    for tile in CTA_TILES:
+        print(json.dumps({
+            "kernel": "K1 matmul", "cta_tile": list(tile), "m": n, "k": n,
+            "n": n, **device_times(torch, lambda t=tile: matmul_cuda(
+                a, b, tile=t), lambda: torch.matmul(a, b))}), flush=True)
+
+
 def kernel_device_times(torch, gen) -> None:
     """Device time per call of K2 and K3 and of the library call computing
     the same function, at the shapes chip_smoke.py checks; one JSON line
@@ -540,7 +572,7 @@ def kernel_device_times(torch, gen) -> None:
 
 
 # K1's CUDA functions (the fp32 and bf16 bodies, in any version of
-# csrc/matmul.cu)
+# csrc/matmul.cu and csrc/matmul_tile_*.cu)
 K1_KERNEL = re.compile(r"matmul\w*_kernel<")
 
 
@@ -597,14 +629,16 @@ def device_times(torch, fn, library, reps: int = 10) -> dict:
     return out
 
 
-def ptxas_report(build) -> None:
-    """One JSON line per kernel function of each ``.cu`` source, as ptxas
-    reports it when the source is compiled again with the build's flags and
-    ``-Xptxas -v`` (to /dev/null)."""
+def ptxas_report(build, only=None) -> None:
+    """One JSON line per kernel function of each ``.cu`` source (or of those
+    whose name starts with ``only``), as ptxas reports it when the source is
+    compiled again with the build's flags and ``-Xptxas -v`` (to
+    /dev/null)."""
     from torch.utils.cpp_extension import CUDA_HOME
     nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
     for src in build.sources():
-        if not src.endswith(".cu"):
+        if not src.endswith(".cu") or not os.path.basename(src).startswith(
+                only or ""):
             continue
         res = subprocess.run(
             [nvcc, *build.CUDA_FLAGS, "-Xptxas", "-v", "-c", src, "-o",

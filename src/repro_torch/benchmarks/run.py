@@ -16,9 +16,8 @@ Results are written to ``ART/bench_torch/*.json``, each stamped with
 
 ``roofline`` reads the dry run's records (``launch/dryrun.py``, under
 ``ART/dryrun_torch/``) and emits their three terms; run the dry run first.
-
-Not here, and why: ``kernels`` (a tile sweep of K1, which sets nothing from
-its tiles yet).
+``kernels`` sweeps K1's CTA tiles through matmul plans and refits the
+kernel tier's constants (``bench_kernels``).
 """
 
 from __future__ import annotations
@@ -35,12 +34,14 @@ from .common import ART, emit, run_meta
 OUT = os.path.join(ART, "bench_torch")
 
 #: what ``--device cuda`` runs: fig5to8 on 4 gloo ranks on cuda:0 (g = 2,
-#: 4096-row local blocks), the tuner at n = 4096 on 8 stacked ranks, and
-#: Phase A of the serving bench on qwen1.5-4b at full width and depth
+#: 4096-row local blocks), the tuner at n = 4096 on 8 stacked ranks,
+#: Phase A of the serving bench on qwen1.5-4b at full width and depth, and
+#: K1's tile sweep at 4096^3
 CARD_SIZES = {
     "fig5to8": {"world": 4, "n": 8192},
     "tuner": {"n": 4096},
     "serving": {"reduced": False},
+    "kernels": {"n": 4096},
 }
 
 
@@ -206,6 +207,24 @@ def bench_telemetry():
     return res
 
 
+def bench_kernels(device):
+    t0 = time.perf_counter()
+    from .bench_kernels import main as kern
+    res = kern(device=device, **_sizes("kernels", device))
+    _save("BENCH_kernels", res)
+    ch, df = res["chosen_tile"], res["default_tile"]
+    emit("kernels_tile_autotune", (time.perf_counter() - t0) * 1e6,
+         f"tuned_over_default={res['tuned_over_default']:.2f}x "
+         f"chosen={ch['bm']}x{ch['bn']}x{ch['bk']} "
+         f"default={df['bm']}x{df['bn']}x{df['bk']} "
+         f"shortlist={res['shortlist_size']} "
+         f"refit_rev={res['refit']['revision']}")
+    where = "card" if device == "cuda" else "cpu plain versions"
+    for name, us in res["family_us"].items():
+        emit(f"kernel_{name}_n{res['n']}", us, f"{where}: {res['device']}")
+    return res
+
+
 def bench_obs(device):
     t0 = time.perf_counter()
     from .bench_obs import main as obs_bench
@@ -284,13 +303,15 @@ BENCHES = {
     "sim": bench_sim,
     "sim_scale": bench_sim_scale,
     "telemetry": bench_telemetry,
+    "kernels": bench_kernels,
     "serving": bench_serving,
     "obs": bench_obs,
     "faults": bench_faults,
     "roofline": bench_roofline,
 }
 #: the benches that take the device
-ON_DEVICE = ("fig1", "fig2", "fig34", "fig5to8", "tuner", "serving", "obs")
+ON_DEVICE = ("fig1", "fig2", "fig34", "fig5to8", "tuner", "serving", "obs",
+             "kernels")
 
 
 def run_bench(name: str, device: str = "cuda") -> dict:

@@ -231,6 +231,27 @@ H100_SXM = Machine(
           "not measured.",
 )
 
+#: the H100's kernel-tier seed for ``benchmarks/bench_kernels.py``, which
+#: registers ``dataclasses.replace(H100_SXM, kernel_constants=
+#: H100_KERNEL_SEED)`` in a registry of its own and refits it from K1's tile
+#: sweep on the card.  It is not attached to ``H100_SXM``: the candidate
+#: grid of ``perf/kernel.py`` speaks the TPU's VMEM blocks, so the card's
+#: dispatch keeps the heuristic plan, which K1 maps to its default tile.
+H100_KERNEL_SEED = KernelConstants(
+    # data sheet: 67 TFLOP/s IEEE fp32 FFMA on the CUDA cores, for the
+    # products and the column recurrences alike (no TF32)
+    fma_rate=67e12, vpu_rate=67e12,
+    # data sheet: 3.35 TB/s of HBM3, read and written alike
+    bw_h2d=3.35e12, bw_d2h=3.35e12,
+    # planning numbers: about 5 us a kernel launch, half charged to each
+    # side, and 100 ns for one of the model's grid steps (a block of C
+    # through one block of K) on 132 SMs; the refit moves the latter
+    c_h2d=2.5e-6, c_d2h=2.5e-6,
+    overhead_factor=1.0, loop_overhead=1e-7,
+    # the data sheet's 50 MB L2, which K1's grouped raster keeps its strips
+    # of A and B in: every plan of the sweep fits it
+    vmem_bytes=50 * 1024 * 1024)
+
 #: dense peaks of one unit by operand type, for the profiles whose data
 #: sheets give more than one (a table beside the profiles rather than a
 #: field of :class:`Machine`, whose fields and fingerprint are the

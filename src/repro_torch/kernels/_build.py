@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels at first use.
 
-All sources under ``kernels/csrc/`` (the six ``.cu`` kernel files with a
-plain C interface, and ``binding.cpp``, the one small file that includes
-PyTorch's headers) go through one ``torch.utils.cpp_extension.load`` call.
-It needs nvcc and ninja, compiles the sources in parallel for ``sm_90a``
+All sources under ``kernels/csrc/`` (the ``.cu`` kernel files with a
+plain C interface, K1's fp32 body split into a file a CTA tile, and
+``binding.cpp``, the one small file that includes PyTorch's headers) go
+through one ``torch.utils.cpp_extension.load`` call.  It needs nvcc and
+ninja, compiles the sources in parallel for ``sm_90a``
 (Hopper) into ``build/torch_ext/`` at the root of the checkout, and caches
 by content, so a second process in the same checkout loads without
 compiling.

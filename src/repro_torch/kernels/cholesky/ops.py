@@ -12,7 +12,7 @@ import torch
 
 from .. import _build
 from ..common import TilePlan, as_batched, check_cuda, stream_of, tile_block
-from ..matmul.ops import launch_matmul, matmul
+from ..matmul.ops import cta_tile, launch_matmul, matmul
 from ..trsm.ops import launch_trsm_diag, trsm
 from .ref import cholesky_block_ref, cholesky_ref
 
@@ -93,7 +93,7 @@ def cholesky_block_cuda(a: torch.Tensor) -> torch.Tensor:
                 lambda u, b, o: launch_trsm_diag(u.contiguous(), b, stream,
                                                  o),
                 lambda x, y: launch_matmul(x, y.contiguous(), x.dtype,
-                                           stream))
+                                           stream, cta_tile(None)))
     cholesky_block_cuda.launches += 1
     return out.reshape(*batch, nb, nb)
 

@@ -4,9 +4,12 @@
 // kernels/*/ops.py, which check devices, types, shapes and strides first.
 // Every launch is followed by C10_CUDA_KERNEL_LAUNCH_CHECK(), which raises
 // if the launch was refused (too many threads, too much shared memory).
-#include <torch/extension.h>
-
+// It includes the tensor type and PyTorch's pybind11 casters, not
+// <torch/extension.h>, the whole C++ frontend, which takes three times as
+// long to compile.
+#include <ATen/core/Tensor.h>
 #include <c10/cuda/CUDAException.h>
+#include <torch/csrc/utils/pybind.h>
 
 #include <cstdio>
 #include <vector>
@@ -26,28 +29,42 @@ cudaStream_t as_stream(i64 s) {
   return reinterpret_cast<cudaStream_t>(static_cast<intptr_t>(s));
 }
 
-// Raises, having launched nothing, for arguments the launcher refuses and
-// when the fp32 body's shared-memory limit cannot be raised.
+// Raises, having launched nothing, for arguments the launcher refuses (a
+// CTA tile that is not compiled among them) and when the fp32 body's
+// shared-memory limit cannot be raised.
 void matmul(i64 a, i64 b, i64 c, int in_type, int out_type, int batch, int m,
             int n, int k, i64 sa, i64 lda, i64 sb, i64 ldb, i64 sc, i64 ldc,
-            i64 stream) {
+            int tile_m, int tile_n, i64 stream) {
   const cudaError_t err = repro_matmul(
       ptr<const void>(a), ptr<const void>(b), ptr<void>(c), in_type,
-      out_type, batch, m, n, k, sa, lda, sb, ldb, sc, ldc, as_stream(stream));
-  TORCH_CHECK(err != cudaErrorInvalidValue,
-              "matmul: the launcher refused the arguments (type codes, "
-              "m, n, batch >= 1, k >= 0, batch <= 65535)");
+      out_type, batch, m, n, k, sa, lda, sb, ldb, sc, ldc, tile_m, tile_n,
+      as_stream(stream));
+  if (err == cudaErrorInvalidValue) {
+    // formatted here and passed as one C string: TORCH_CHECK's own
+    // formatting of several arguments crashes in this extension
+    char msg[256];
+    std::snprintf(msg, sizeof msg,
+                  "matmul: the launcher refused the arguments (type codes, "
+                  "m, n, batch >= 1, k >= 0, batch <= 65535, a compiled CTA "
+                  "tile; got %dx%d)",
+                  tile_m, tile_n);
+    const char* what = msg;
+    TORCH_CHECK(false, what);
+  }
   TORCH_CHECK(err == cudaSuccess, cudaGetErrorString(err));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// Registers, spill bytes, static and dynamic shared memory and resident
-// CTAs an SM of K1's fp32 body on the current device.
-std::vector<i64> matmul_info() {
-  long long out[5] = {0, 0, 0, 0, 0};
-  const cudaError_t err = repro_matmul_info(out);
+// Registers, spill bytes, static and dynamic shared memory, resident CTAs
+// an SM, threads a CTA and stages of K1's fp32 body at one CTA tile on the
+// current device; raises for a tile that is not compiled.
+std::vector<i64> matmul_info(int tile_m, int tile_n) {
+  long long out[7] = {0, 0, 0, 0, 0, 0, 0};
+  const cudaError_t err = repro_matmul_info(tile_m, tile_n, out);
+  TORCH_CHECK(err != cudaErrorInvalidValue,
+              "matmul_info: no configuration of that CTA tile is compiled");
   TORCH_CHECK(err == cudaSuccess, cudaGetErrorString(err));
-  return std::vector<i64>(out, out + 5);
+  return std::vector<i64>(out, out + 7);
 }
 
 // Raises, having launched nothing, for an empty m or nb.
@@ -136,10 +153,10 @@ void ssm_scan(i64 q, i64 k, i64 v, i64 log_a, i64 y, i64 work,
 // breaks: fp32, contiguous, on like's CUDA device, of like's (batch, s, w)
 // shape.  The messages are plain strings (ROADMAP.md, "How a slice
 // lands").
-void check_like(const torch::Tensor& t, const torch::Tensor& like,
+void check_like(const at::Tensor& t, const at::Tensor& like,
                 const char* fp32, const char* contiguous, const char* device,
                 const char* shape) {
-  TORCH_CHECK(t.scalar_type() == torch::kFloat32, fp32);
+  TORCH_CHECK(t.scalar_type() == at::kFloat, fp32);
   TORCH_CHECK(t.is_contiguous(), contiguous);
   TORCH_CHECK(t.is_cuda() && t.device() == like.device(), device);
   TORCH_CHECK(t.dim() == 3 && t.sizes() == like.sizes(), shape);
@@ -156,11 +173,11 @@ i64 slstm_scan_workspace(i64 batch, i64 s, i64 w, i64 chunk) {
 // all empty or all like y, the workspace is fp32 on that device and holds
 // what slstm_scan_workspace asks, every size is positive and the chunks
 // number at most 65535.
-void slstm_scan(torch::Tensor z, torch::Tensor i, torch::Tensor f,
-                torch::Tensor o, torch::Tensor y, torch::Tensor c,
-                torch::Tensor n, torch::Tensor m, torch::Tensor work,
+void slstm_scan(at::Tensor z, at::Tensor i, at::Tensor f,
+                at::Tensor o, at::Tensor y, at::Tensor c,
+                at::Tensor n, at::Tensor m, at::Tensor work,
                 i64 chunk, i64 stream) {
-  for (const torch::Tensor* t : {&z, &i, &f, &o, &y})
+  for (const at::Tensor* t : {&z, &i, &f, &o, &y})
     check_like(*t, z, "slstm_scan: z, i, f, o and y must be fp32",
                "slstm_scan: z, i, f, o and y must be contiguous",
                "slstm_scan: z, i, f, o and y must share one CUDA device",
@@ -169,12 +186,12 @@ void slstm_scan(torch::Tensor z, torch::Tensor i, torch::Tensor f,
   TORCH_CHECK(states == (n.numel() > 0) && states == (m.numel() > 0),
               "slstm_scan: c, n and m must all be given or all be empty");
   if (states)
-    for (const torch::Tensor* t : {&c, &n, &m})
+    for (const at::Tensor* t : {&c, &n, &m})
       check_like(*t, z, "slstm_scan: c, n and m must be fp32",
                  "slstm_scan: c, n and m must be contiguous",
                  "slstm_scan: c, n and m must share z's CUDA device",
                  "slstm_scan: c, n and m must be (batch, s, w) like z");
-  TORCH_CHECK(work.scalar_type() == torch::kFloat32 && work.is_cuda() &&
+  TORCH_CHECK(work.scalar_type() == at::kFloat && work.is_cuda() &&
                   work.device() == z.device() && work.is_contiguous(),
               "slstm_scan: the workspace must be fp32 and contiguous on "
               "z's CUDA device");
@@ -200,12 +217,12 @@ void slstm_scan(torch::Tensor z, torch::Tensor i, torch::Tensor f,
 // Raises, having launched nothing, unless the twelve tensors are fp32,
 // contiguous, (batch, s, w) alike and on one CUDA device, every size
 // positive.
-void slstm_scan_bwd(torch::Tensor z, torch::Tensor i, torch::Tensor f,
-                    torch::Tensor o, torch::Tensor c, torch::Tensor n,
-                    torch::Tensor m, torch::Tensor dy, torch::Tensor dz,
-                    torch::Tensor di, torch::Tensor df, torch::Tensor d_o,
+void slstm_scan_bwd(at::Tensor z, at::Tensor i, at::Tensor f,
+                    at::Tensor o, at::Tensor c, at::Tensor n,
+                    at::Tensor m, at::Tensor dy, at::Tensor dz,
+                    at::Tensor di, at::Tensor df, at::Tensor d_o,
                     i64 stream) {
-  for (const torch::Tensor* t :
+  for (const at::Tensor* t :
        {&z, &i, &f, &o, &c, &n, &m, &dy, &dz, &di, &df, &d_o})
     check_like(*t, z, "slstm_scan_bwd: every tensor must be fp32",
                "slstm_scan_bwd: every tensor must be contiguous",
@@ -229,7 +246,8 @@ void slstm_scan_bwd(torch::Tensor z, torch::Tensor i, torch::Tensor f,
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("matmul", &matmul, "K1: batched C = A @ B (fp32 accumulation)");
   m.def("matmul_info", &matmul_info,
-        "K1's fp32 body: registers, spills, shared memory, CTAs an SM");
+        "K1's fp32 body at one CTA tile: registers, spills, shared memory, "
+        "CTAs an SM, threads, stages");
   m.def("trsm_diag", &trsm_diag, "K2: batched X U = B, one diagonal block");
   m.def("cholesky_block", &cholesky_block,
         "K3: batched Cholesky factor of one SPD block");

@@ -21,21 +21,26 @@ enum { REPRO_F32 = 0, REPRO_BF16 = 1 };
 // K1: C[z] = A[z] @ B[z] with A (m, k), B (k, n), C (m, n), row-major with
 // row strides lda/ldb/ldc; fp32 accumulation, C written in out_type.  fp32
 // inputs run the FFMA body fed through a ring in shared memory (TMA boxes
-// when A's and B's rows are 16-byte aligned, 4-byte cp.async otherwise),
-// bf16 inputs the earlier body.  Returns cudaErrorInvalidValue, and
-// launches nothing, for an unknown type code, m, n or batch below 1, k below
-// 0, batch above 65535 or more than INT_MAX tiles of 128 x 128; and the
-// error of raising the fp32 body's shared-memory limit if that fails.
+// when A's and B's rows are 16-byte aligned, 4-byte cp.async otherwise) at
+// the CTA tile tile_m x tile_n, one of the compiled configurations (64x64,
+// 64x128, 128x64, 128x128, 256x64, 256x128); bf16 inputs the earlier body,
+// whose one tile is 128x128.  Returns cudaErrorInvalidValue, and launches
+// nothing, for an unknown type code, m, n or batch below 1, k below 0,
+// batch above 65535, a tile that is not compiled for the input type or
+// more than INT_MAX tiles; and the error of raising the fp32 body's
+// shared-memory limit if that fails.
 cudaError_t repro_matmul(const void* a, const void* b, void* c, int in_type,
                          int out_type, int batch, int m, int n, int k,
                          long long sa, long long lda, long long sb,
                          long long ldb, long long sc, long long ldc,
-                         cudaStream_t stream);
+                         int tile_m, int tile_n, cudaStream_t stream);
 
-// K1's fp32 body (TMA path, fp32 output) as loaded on the current
-// device: out[0..4] = registers a thread, local (spill) bytes a thread,
-// static and dynamic shared memory a CTA in bytes, and resident CTAs an SM.
-cudaError_t repro_matmul_info(long long* out);
+// K1's fp32 body (TMA path, fp32 output) at CTA tile tile_m x tile_n as
+// loaded on the current device: out[0..6] = registers a thread, local
+// (spill) bytes a thread, static and dynamic shared memory a CTA in bytes,
+// resident CTAs an SM, threads a CTA and the ring's stages.  Returns
+// cudaErrorInvalidValue, and writes nothing, for a tile not compiled.
+cudaError_t repro_matmul_info(int tile_m, int tile_n, long long* out);
 
 // K2: X[z] U[z] = B[z] for one upper-triangular diagonal block U (nb, nb);
 // B and X are (m, nb); fp32.  Returns cudaErrorInvalidValue, and launches

@@ -1,2 +1,3 @@
-from .ops import matmul, matmul_cuda
+from .ops import (CTA_TILES, DEFAULT_CTA_TILE, cta_tile, matmul,
+                  matmul_cuda)
 from .ref import matmul_ref

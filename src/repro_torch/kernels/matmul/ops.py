@@ -1,11 +1,23 @@
 """Public wrapper for the matmul kernel (K1): any (..., M, K) x (..., K, N)
 with broadcast leading dimensions (the stacked ranks of a process grid run
-as one batched launch), the tile plan's family checked, the plain version
-for problems where min(M, N, K) < 128."""
+as one batched launch), the plain version for problems where
+min(M, N, K) < 128.
+
+The tile plan picks K1's CTA tile by one rule, :func:`cta_tile`: each edge
+of the CTA's tile of C is half the plan's block on that axis, rounded down
+to a power of two and clamped to the compiled range (BM in [64, 256], BN in
+[64, 128]); ``bk`` has no counterpart, because K1's ring steps through K in
+stages of 32 whatever the plan.  No plan, or the heuristic plan (256, 256,
+512), gives the default 128 x 128; every plan ``perf/kernel.py::
+candidate_tiles("matmul", ...)`` emits gives one of :data:`CTA_TILES`, and
+a larger block never gives a smaller edge.  Every tile sums each element's
+products in the same order, so the tile changes the time, not the bits.
+"""
 
 from __future__ import annotations
 
-from typing import Optional
+from collections import Counter
+from typing import Optional, Tuple
 
 import torch
 
@@ -15,12 +27,39 @@ from .ref import matmul_ref
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+#: the CTA tiles (BM, BN) of K1's fp32 body that ``csrc/matmul_f32.cuh``
+#: lists (``with_tile``), each compiled in ``csrc/matmul_tile_<BM>x<BN>.cu``;
+#: the bf16 body has the default alone
+CTA_TILES = ((64, 64), (64, 128), (128, 64), (128, 128), (256, 64),
+             (256, 128))
+DEFAULT_CTA_TILE = (128, 128)
+
+
+def _edge(block: int, most: int) -> int:
+    """Half of ``block``, rounded down to a power of two, in [64, most]."""
+    half = max(int(block) // 2, 1)
+    return min(max(1 << (half.bit_length() - 1), 64), most)
+
+
+def cta_tile(tiles: Optional[TilePlan]) -> Tuple[int, int]:
+    """K1's CTA tile (BM, BN) for a matmul :class:`TilePlan` (the rule in
+    the module docstring); the default for ``None``.  Raises for a plan of
+    another kernel family."""
+    if tiles is None:
+        return DEFAULT_CTA_TILE
+    if tiles.kernel != "matmul":
+        raise ValueError(f"TilePlan for {tiles.kernel!r} passed to matmul")
+    return _edge(tiles["bm"], 256), _edge(tiles["bn"], 128)
+
 
 def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
-                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                out_dtype: Optional[torch.dtype] = None,
+                tile: Tuple[int, int] = DEFAULT_CTA_TILE) -> torch.Tensor:
     """K1 (``csrc/matmul.cu``), the counterpart of the reference's
-    ``matmul_pallas``: C = A @ B with fp32 accumulation.  CPU tensors take
-    the plain version; CUDA tensors launch the kernel or raise."""
+    ``matmul_pallas``: C = A @ B with fp32 accumulation, fp32 inputs at
+    the CTA tile ``tile`` (one of :data:`CTA_TILES`), bf16 inputs on their
+    one tile, the default.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise."""
     out_dtype = out_dtype or a.dtype
     if a.device.type == "cpu" and b.device.type == "cpu":
         return matmul_ref(a, b, out_dtype=out_dtype)
@@ -40,26 +79,33 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
     if a3.shape[0] * m * n == 0:
         return torch.empty((*batch, m, n), dtype=out_dtype, device=a.device)
     with torch.cuda.device(a.device):
-        out = launch_matmul(a3, b3, out_dtype, stream_of(a))
+        out = launch_matmul(a3, b3, out_dtype, stream_of(a), tile)
     return out.reshape(*batch, m, n)
 
 
 matmul_cuda.launches = 0
+#: launches by CTA tile (BM, BN); their sum is ``launches``
+matmul_cuda.launches_by_tile = Counter()
 
 
 def launch_matmul(a3: torch.Tensor, b3: torch.Tensor,
-                  out_dtype: torch.dtype, stream: int) -> torch.Tensor:
-    """One K1 launch, counted on ``matmul_cuda``, for operands that are
-    already checked: (batch, m, k) and (batch, k, n) of one type the kernel
-    takes, on the current CUDA device, unit column stride."""
+                  out_dtype: torch.dtype, stream: int,
+                  tile: Tuple[int, int]) -> torch.Tensor:
+    """One K1 launch at the CTA tile ``tile``, counted on ``matmul_cuda``
+    (also by tile), for operands that are already checked: (batch, m, k)
+    and (batch, k, n) of one type the kernel takes, on the current CUDA
+    device, unit column stride.  The launcher refuses a tile it does not
+    compile, and a bf16 launch at any tile but the default."""
     batch, m, k = a3.shape
     n = b3.shape[-1]
     out = torch.empty((batch, m, n), dtype=out_dtype, device=a3.device)
     _build.extension().matmul(
         a3.data_ptr(), b3.data_ptr(), out.data_ptr(), _CODES[a3.dtype],
         _CODES[out_dtype], batch, m, n, k, a3.stride(0), a3.stride(1),
-        b3.stride(0), b3.stride(1), out.stride(0), out.stride(1), stream)
+        b3.stride(0), b3.stride(1), out.stride(0), out.stride(1), tile[0],
+        tile[1], stream)
     matmul_cuda.launches += 1
+    matmul_cuda.launches_by_tile[tuple(tile)] += 1
     return out
 
 
@@ -68,15 +114,17 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
            tiles: Optional[TilePlan] = None) -> torch.Tensor:
     """C = A @ B for any (..., M, K) x (..., K, N).
 
-    ``tiles`` is a matmul :class:`TilePlan` (dims bm/bn/bk).  Its family is
-    checked as the reference checks it, but its blocks are VMEM choices of
-    the TPU kernel and set nothing here: K1's CTA tile is its own.
+    ``tiles`` is a matmul :class:`TilePlan` (dims bm/bn/bk); its family is
+    checked as the reference checks it, and :func:`cta_tile` maps it onto
+    K1's CTA tile (the default when omitted).  bf16 inputs run K1's bf16
+    body, whose one tile is the default, whatever the plan.
     """
     out_dtype = out_dtype or a.dtype
-    if tiles is not None and tiles.kernel != "matmul":
-        raise ValueError(f"TilePlan for {tiles.kernel!r} passed to matmul")
+    tile = cta_tile(tiles)
     m, k = a.shape[-2:]
     n = b.shape[-1]
     if min(m, n, k) < 128:
         return matmul_ref(a, b, out_dtype=out_dtype)
-    return matmul_cuda(a, b, out_dtype=out_dtype)
+    if a.dtype == torch.bfloat16:
+        tile = DEFAULT_CTA_TILE
+    return matmul_cuda(a, b, out_dtype=out_dtype, tile=tile)

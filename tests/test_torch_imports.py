@@ -104,7 +104,8 @@ BENCHMARKS = ["repro_torch.benchmarks.common",
               "repro_torch.benchmarks.bench_sim",
               "repro_torch.benchmarks.bench_sim_scale",
               "repro_torch.benchmarks.bench_telemetry",
-              "repro_torch.benchmarks.bench_faults"]
+              "repro_torch.benchmarks.bench_faults",
+              "repro_torch.benchmarks.bench_kernels"]
 
 
 @pytest.mark.parametrize("module", MEASURING + SIMULATOR + MODELS + SERVING

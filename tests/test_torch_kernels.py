@@ -145,21 +145,41 @@ class TestMatmul:
         assert _rel(tk.matmul_cuda(p, p.mT).numpy(), want) < 1e-5
 
     def test_two_ctas_fit_an_sm(self):
-        # the fp32 body's ring is sized for two resident CTAs an SM (227 KB
-        # a CTA at most, 228 KB an SM with 1 KB reserved for each CTA), and
-        # A's rows of BK floats fill one 128-byte swizzle span
+        # each compiled CTA tile's ring fits the CTAs an SM its launch
+        # bounds ask for (227 KB a CTA at most, 228 KB an SM with 1 KB
+        # reserved for each CTA): two for the default 128x128, the tile of
+        # every path without a plan; A's rows of BK floats fill one
+        # 128-byte swizzle span; the tiles are the wrapper's CTA_TILES, each
+        # compiled in a translation unit of its own
+        import os
         import re
         from repro_torch.kernels import _build
-        src = open(f"{_build.CSRC}/matmul.cu").read()
+        from repro_torch.kernels.matmul import CTA_TILES, DEFAULT_CTA_TILE
+        src = open(f"{_build.CSRC}/matmul_f32.cuh").read()
         body = src[src.index("namespace f32 {"):]
         c = {k: int(v) for k, v in
              re.findall(r"constexpr int (\w+) = (\d+);", body)}
-        stage = c["BM"] * (c["BK"] + 4) * 4 + c["BK"] * c["BN"] * 4
-        smem = c["STAGES"] * stage + 8 * c["STAGES"] + 1024
-        assert smem <= 227 * 1024
-        assert 2 * (smem + 1024) <= 228 * 1024
         assert c["BK"] * 4 == 128
-        assert "__launch_bounds__(THREADS, 2)" in body
+        tiles = {}
+        for bm, bn, tn, stages, ctas in re.findall(
+                r"using Tile\d+x\d+ = Tile<(\d+), (\d+), (\d+), (\d+), "
+                r"(\d+)>;", body):
+            bm, bn, tn, stages, ctas = map(int, (bm, bn, tn, stages, ctas))
+            stage = bm * (c["BK"] + 4) * 4 + c["BK"] * bn * 4
+            smem = stages * stage + 8 * stages + 1024
+            assert smem <= 227 * 1024
+            assert ctas * (smem + 1024) <= 228 * 1024
+            threads = bm * bn // (8 * tn)
+            assert threads * ctas <= 2048
+            tiles[(bm, bn)] = ctas
+        assert sorted(tiles) == sorted(CTA_TILES)
+        for bm, bn in CTA_TILES:
+            unit = f"{_build.CSRC}/matmul_tile_{bm}x{bn}.cu"
+            assert os.path.exists(unit)
+            assert f"REPRO_K1_TILE(Tile{bm}x{bn})" in open(unit).read()
+            assert f"Cta<{bm}, {bn}>" in src
+        assert tiles[DEFAULT_CTA_TILE] == 2
+        assert "__launch_bounds__(T::THREADS, T::CTAS)" in body
 
 
 class TestTrsm:
