@@ -173,11 +173,11 @@
    13.1: starcoder2-3b at full width, fp32, depth 2, S 2304, global
    batch 2, two AdamW steps from one seed on one numpy batch, on
    (1, 2, 2) (tensor-parallel attention and MLP, KV 2 -> 1 a rank) and
-   (1, 1, 4) (the KV leaves gathered), each against the unsharded
+   on (1, 1, 4) (the 2 KV heads' leaves gathered), against the unsharded
    ``Trainer`` on the card: loss < 1e-5 relative, every rank's block of
    every parameter < 1e-4 of the whole parameter's largest entry.
    13.2: starcoder2-3b bf16 at full width on (1, 2, 2), S 2304, global
-   batch 2, remat, AdamW (ZeRO-1 moments), at the most layers (up to 4)
+   batch 2, remat, AdamW (ZeRO-1 moments), at the most layers (up to 2)
    four ranks' estimated bytes fit on the card (``rank_bytes``): a cold and a
    warm step, the slowest rank's wall, each rank's peak memory (below the
    unsharded run's), the staged bytes and host seconds in the group
@@ -188,7 +188,7 @@
    gathered payloads and the new error within 1e-6).  13.4:
    ``launch/train.py --smoke --mesh 1,2,2 --steps 3`` as a subprocess.
    13.5, the expert-parallel layout: qwen2-moe-a2.7b in fp32 at full
-   width, depth 2, S 2304, global batch 2, on (1, 1, 4) (60 experts
+   width, depth 1, S 2304, global batch 2, on (1, 1, 4) (60 experts
    divide 4: every bank "ep"), two AdamW steps against
    the unsharded run on the card with 13.1's bars, K4 in every rank, and
    no all-gather over ``model`` of a bank's block; arctic-480b's forward
@@ -201,7 +201,21 @@
    one-token steps: every step's logits within 1e-5 of the largest of
    the unsharded decode on the card, the same argmax, and each rank's
    bytes of the cache leaves the specs cut a quarter of the whole's.
-   The kernels line adds every rank's launches of 13.1, 13.2 and 13.5.
+   13.7, the reference's other sharding profiles (the mesh under
+   ``rules_for(arch, profile)``), fp32 at full width, depth 2, each
+   against its unsharded run on the card: starcoder2-3b under ``dp_sp``
+   on (1, 2, 2), S 2304, global batch 4 (one row a rank, no tensor
+   parallelism, ZeRO-1 over data and model); starcoder2-3b under
+   ``seq_sp`` on (1, 1, 4) with 13.1's batch (576 positions a rank
+   between blocks, 13.1's unsharded run); xlstm-350m under ``seq_sp`` on
+   (1, 1, 4), S 1024, global batch 2: loss < 1e-5 relative, every rank's
+   block of every parameter after two AdamW steps < 1e-4 of its largest
+   entry, and of every first-step gradient < 1e-5 of its largest entry
+   (a key bias's, zero in exact arithmetic, of its weight's); K4 (for
+   xlstm K5, K6 and K6's backward) in every rank, no plain version on a
+   CUDA tensor; each rank's peak memory and the collective bytes by kind
+   reported.  The kernels line adds every rank's launches of 13.1, 13.2,
+   13.5 and 13.7.
 14. The dry run (``repro_torch.launch.dryrun``, ``launch/specs.py``,
    ``core/roofline.py``): rank 0 of the (16, 16) ``data, model`` mesh,
    its collectives counted and not sent (``counting_mesh``).  14.1: the
@@ -220,8 +234,10 @@
    decode_32k (8 rows, 2048 of the 32768 slots a rank) and
    xlstm-350m@long_500k (one row), rank 0 of the same mesh, on meta and
    then on the card at full depth, with 14.2's gates on the counts and
-   the peak (no kernel: decode reaches none).  The kernels line adds
-   §14's launches.
+   the peak (no kernel: decode reaches none).  14.4: the train cell under
+   the ``dp_sp`` and ``seq_sp`` profiles (``--profile``), on meta and then
+   on the card at the depth 14.2's rule gives, with 14.2's gates.  The
+   kernels line adds §14's launches.
 
 The line before the last is ``{"kernels": [...]}``, after each section's
 wall time (``{"sections_s": ...}``) and the script's (``{"script_s":
@@ -3223,7 +3239,7 @@ def obs_report(res):
 # -- 13. sharded training: a mesh of gloo ranks on cuda:0 ---------------------
 
 SHARD_ARCH = "starcoder2-3b"
-#: 13.1's meshes: the tensor-parallel path (KV 2 -> 1 a rank), then the
+#: 13.1's meshes: the tensor-parallel path (KV 2 -> 1 a rank), and the
 #: gather path for the KV leaves (2 KV heads over model = 4)
 SHARD_EXACT = ((1, 2, 2), (1, 1, 4))
 #: 13.1's and 13.2's sequence (above the 2048 at which attention takes
@@ -3236,9 +3252,9 @@ SHARD_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10, eps=1e-3)
 SHARD_LOSS_TOL, SHARD_PARAM_TOL = 1e-5, 1e-4
 #: 13.2: bf16 at full width on (1, 2, 2), remat, AdamW, at most this many
 #: layers (the script's time: 28 layers took 32 s cold and 22 s warm, 8
-#: layers 15.7 and 5.9)
+#: layers 15.7 and 5.9, 4 layers 19.1 and 6.9)
 SHARD_PATH_MESH = (1, 2, 2)
-SHARD_PATH_MAX_LAYERS = 4
+SHARD_PATH_MAX_LAYERS = 2
 SHARD_PATH_OPT = dict(lr=3e-4, warmup_steps=20, total_steps=100)
 #: 13.3's mesh
 SHARD_POD_MESH = (2, 1, 2)
@@ -3285,21 +3301,21 @@ def shard_config(dtype, layers, remat=None):
     return check_config(SHARD_ARCH, dtype, changes)
 
 
-def shard_batch(cfg, seq):
-    """SHARD_BATCH rows of tokens and next-token labels, drawn with numpy."""
+def shard_batch(cfg, seq, rows=SHARD_BATCH):
+    """``rows`` rows of tokens and next-token labels, drawn with numpy."""
     import numpy as np
     rng = np.random.default_rng(SEED + 13)
-    tok = rng.integers(0, cfg.vocab_size,
-                       (SHARD_BATCH, seq + 1)).astype(np.int32)
+    tok = rng.integers(0, cfg.vocab_size, (rows, seq + 1)).astype(np.int32)
     return {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
 
 
-def shard_trainer(cfg, seq, opt, mesh=None, device="cuda"):
+def shard_trainer(cfg, seq, opt, mesh=None, device="cuda",
+                  rows=SHARD_BATCH):
     from repro_torch.training import (AdamWConfig, DataConfig, TrainConfig,
                                       Trainer)
     return Trainer(TrainConfig(
         model=cfg, opt=AdamWConfig(**opt),
-        data=DataConfig(cfg.vocab_size, seq, SHARD_BATCH, seed=SEED),
+        data=DataConfig(cfg.vocab_size, seq, rows, seed=SEED),
         n_steps=2), mesh=mesh, seed=SEED, device=device)
 
 
@@ -3374,10 +3390,11 @@ def sharded_training(torch):
     os.makedirs(root)
     t_start = time.perf_counter()
     layers, est, whole_walls, whole_peak = path_unsharded(torch)
-    want_losses, want_file = exact_unsharded(torch, root)
+    want_losses, want_file = exact_unsharded(torch, root, grads=True)
     ep_losses, ep_file = exact_unsharded(torch, root, ep_config(),
                                          "ep_want.pt")
     decode_file = decode_unsharded(torch, root)
+    profiles_unsharded(torch, root)
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -3393,7 +3410,7 @@ def sharded_training(torch):
     try:
         rs = spawn(shard_rank, SHARD_WORLD, device_of_rank=on_first_card,
                    init_dir=os.path.join(root, "world"), timeout_s=900,
-                   args=(want_file, layers, ep_file, decode_file))
+                   args=(want_file, layers, ep_file, decode_file, root))
     finally:
         if saved is None:
             del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
@@ -3412,6 +3429,7 @@ def sharded_training(torch):
                                      ep_losses))
     add_counts(totals, arctic_report([r["arctic"] for r in rs]))
     decode_report([r["decode"] for r in rs])
+    add_counts(totals, profiles_report([r["profiles"] for r in rs], root))
     shard_launcher(torch)
     check(os.stat(so).st_mtime_ns == built,
           "§13: a rank rebuilt the extension in build/torch_ext/")
@@ -3420,28 +3438,38 @@ def sharded_training(torch):
     return totals
 
 
-def exact_unsharded(torch, root, cfg=None, name="exact_want.pt"):
-    """13.1's (13.5's, with ``cfg``) reference: two unsharded fp32 steps
-    on the card.  Returns the losses and the file that holds the whole
-    parameters after them (``{"params": {leaf path: fp32 tensor},
-    "scale": {leaf path: its largest magnitude}}``), which each rank reads
-    in place."""
+def exact_unsharded(torch, root, cfg=None, name="exact_want.pt",
+                    seq=SHARD_SEQ, rows=SHARD_BATCH, grads=False):
+    """13.1's (13.5's, with ``cfg``; 13.7's) reference: two unsharded fp32
+    steps on the card, on ``rows`` rows of ``seq`` tokens (with
+    ``grads``, the first one's gradients kept).  Returns the losses and
+    the file that holds the whole parameters after them (``{"params":
+    {leaf path: fp32 tensor}, "scale": {leaf path: its largest
+    magnitude}}``, and ``"grads"``, ``"grad_scale"`` alike), which each
+    rank reads in place."""
     cfg = cfg or shard_config("float32", 2)
-    batch = shard_batch(cfg, SHARD_SEQ)
-    tr = shard_trainer(cfg, SHARD_SEQ, SHARD_OPT)
-    losses = []
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in shard_batch(cfg, seq, rows).items()}
+    tr = shard_trainer(cfg, seq, SHARD_OPT, rows=rows)
+    kept = {}
     with RoutingLog() as routing:
-        for _ in range(2):
-            m = tr.train_step({k: torch.from_numpy(v).cuda()
-                               for k, v in batch.items()})
-            losses.append(float(m["loss"]))
+        if grads:
+            loss, whole = first_step(tr, batch)
+            kept["grads"] = {p: torch.from_numpy(v.copy())
+                             for p, v in whole.items()}
+            kept["grad_scale"] = grad_scales(kept["grads"])
+            losses = [loss, float(tr.train_step(batch)["loss"])]
+        else:
+            losses = [float(tr.train_step(batch)["loss"]) for _ in range(2)]
     want = {p: torch.from_numpy(v.copy())
             for p, v in tr._whole_leaves()[0].items()}
     del tr
     path = os.path.join(root, name)
     torch.save({"params": want,
                 "scale": {p: float(w.abs().max()) for p, w in want.items()},
-                "routing": [idx for idx, _ in routing.calls]}, path)
+                "routing": [idx for idx, _ in routing.calls], **kept}, path)
+    with open(path + ".losses.json", "w") as f:
+        json.dump(losses, f)
     return losses, path
 
 
@@ -3581,11 +3609,11 @@ def shard_launcher(torch):
 
 
 def shard_rank(rank, world, device, want_file, layers, ep_file,
-               decode_file):
+               decode_file, root):
     """One rank of §13's world: 13.2 (first, on a fresh allocator: it
     fills the card), 13.1 on each SHARD_EXACT mesh, 13.3, 13.5 on each
-    EP_MESHES mesh and arctic-480b's forward, then 13.6, each on a mesh of
-    its own over the world."""
+    EP_MESHES mesh and arctic-480b's forward, 13.6, then 13.7, each on a
+    mesh of its own over the world."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.launch.mesh import make_mesh
@@ -3614,6 +3642,11 @@ def shard_rank(rank, world, device, want_file, layers, ep_file,
     gc.collect()
     torch.cuda.empty_cache()
     out["decode"] = decode_rank(torch, make_mesh(*DECODE_MESH), decode_file)
+    gc.collect()
+    torch.cuda.empty_cache()
+    meshes = {shape: make_mesh(*shape)
+              for shape in sorted({run[1] for run in PROFILE_RUNS})}
+    out["profiles"] = profile_rank(torch, meshes, root)
     return out
 
 
@@ -3750,7 +3783,8 @@ def shard_rank_pods(torch, mesh):
 
 # -- 13.5 the expert-parallel step, 13.6 the sharded decode ------------------
 
-#: 13.5: qwen2-moe at full width in fp32, depth 2, S and batch as 13.1's;
+#: 13.5: qwen2-moe at full width in fp32, depth 1 (2 until its two
+#: steps' 21 s were cut for the script's time), S and batch as 13.1's;
 #: its 60 experts divide model = 4, so the banks take "ep".  (1, 2, 2)
 #: was cut for the script's time (two steps took 38 s there)
 EP_ARCH = "qwen2-moe-a2.7b"
@@ -3771,7 +3805,7 @@ MESH_DECODE_TOL = 1e-5
 
 
 def ep_config():
-    return check_config(EP_ARCH, "float32", {"n_layers": 2})
+    return check_config(EP_ARCH, "float32", {"n_layers": 1})
 
 
 class ModelGathers:
@@ -4073,6 +4107,212 @@ def decode_report(rs):
                   for x in a), f"§13.6 {arch}: a rank's cut cache bytes "
               f"are not 1/{m} of the whole's")
 
+# -- 13.7 the reference's dp_sp and seq_sp profiles -----------------------------
+
+#: 13.7: (profile, mesh, arch, sequence, global batch), each fp32 at full
+#: width, depth 2, on its own mesh of §13's world: starcoder2-3b under
+#: dp_sp, one row a rank; under seq_sp with 13.1's batch (576 positions a
+#: rank, the reference 13.1's own run); xlstm-350m under seq_sp at S 1024
+#: (its mLSTM and sLSTM run whole on the gathered sequence: K5, K6 and
+#: K6's backward)
+PROFILE_RUNS = (("dp_sp", (1, 2, 2), "starcoder2-3b", SHARD_SEQ, 4),
+                ("seq_sp", (1, 1, 4), "starcoder2-3b", SHARD_SEQ,
+                 SHARD_BATCH),
+                ("seq_sp", (1, 1, 4), "xlstm-350m", 1024, SHARD_BATCH))
+#: each leaf's first-step gradient against the unsharded one's, relative
+#: to its largest entry
+PROFILE_GRAD_TOL = 1e-5
+#: leaves whose gradient is zero in exact arithmetic, and the leaf whose
+#: gradient gives their scale: a bias on the keys adds q . b to every
+#: score of a query's row, which the softmax cancels, so either side's
+#: gradient is rounding noise of the size of its weight's gradient's
+#: rounding, and against its own largest entry it compares noise to noise
+ZERO_GRADIENT_SCALE = {"attn/wk/b": "attn/wk/w"}
+
+
+def first_step(tr, batch):
+    """The trainer's first step on ``batch`` (this rank's rows), as
+    ``train_step`` takes it, with its gradients kept on the way: (the
+    loss, the gradients as whole leaves on the host, gathered)."""
+    from repro_torch.training.trainer import apply_update, step_gradients
+    means, grads = step_gradients(tr.model, tr.net, batch, tr.layout)
+    whole = tr.whole(grads)
+    tr.opt_state, _ = apply_update(tr.cfg.opt, tr.net, grads, tr.opt_state,
+                                   tr.layout)
+    return float(means["loss"]), whole
+
+
+def grad_scales(grads):
+    """Each leaf's scale for its gradient's error: its largest entry
+    (ZERO_GRADIENT_SCALE's leaves: their weight's)."""
+    out = {p: float(g.abs().max()) for p, g in grads.items()}
+    for p in grads:
+        for tail, other in ZERO_GRADIENT_SCALE.items():
+            if p.endswith(tail):
+                out[p] = out[p[:-len(tail)] + other]
+    return out
+
+
+def profile_file(root, run):
+    """The file of a 13.7 run's unsharded reference."""
+    _, _, arch, seq, rows = run
+    if (arch, seq, rows) == (SHARD_ARCH, SHARD_SEQ, SHARD_BATCH):
+        return os.path.join(root, "exact_want.pt")     # 13.1's
+    return os.path.join(root, f"profile_want_{arch}_{seq}_{rows}.pt")
+
+
+def profiles_unsharded(torch, root):
+    """13.7's references that 13.1's is not: two unsharded steps (and
+    the first step's gradients) of each other (arch, seq, rows)."""
+    for run in PROFILE_RUNS:
+        _, _, arch, seq, rows = run
+        path = profile_file(root, run)
+        if not os.path.exists(path):
+            exact_unsharded(torch, root, check_config(
+                arch, "float32", {"n_layers": 2}), os.path.basename(path),
+                seq, rows, grads=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+
+
+def profile_rank(torch, world_mesh, root):
+    """13.7 on this rank: each PROFILE_RUNS run on a view of its mesh
+    under the profile's rules, two steps (the first through its parts,
+    ``step_gradients`` then ``apply_update``, as ``train_step`` runs
+    them): the first step's gradient blocks and the parameter blocks
+    after two steps against the unsharded run's, the losses, the peak
+    memory, the collectives by kind, the launches."""
+    from repro_torch import kernels
+    from repro_torch.distributed import (collective_stats,
+                                         reset_collective_stats)
+    from repro_torch.distributed.sharding import shard_of
+    from repro_torch.launch.specs import rules_for
+    from repro_torch.models.convert import reference_leaves
+    from repro_torch.training.trainer import apply_update, step_gradients
+    out = []
+    for run in PROFILE_RUNS:
+        profile, shape, arch, seq, rows = run
+        mesh = world_mesh[shape].with_rules(rules_for(arch, profile))
+        cfg = check_config(arch, "float32", {"n_layers": 2})
+        want_file = profile_file(root, run)
+        want = torch.load(want_file, mmap=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tr = shard_trainer(cfg, seq, SHARD_OPT, mesh=mesh, rows=rows)
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in tr.rows(shard_batch(cfg, seq, rows)).items()}
+        kernels.reset_launches()
+        reset_collective_stats()
+        with PlainK4Calls() as plain, PlainK6Calls() as plain_k6:
+            # the first step as train_step takes it, its gradient blocks
+            # compared on the way
+            t0 = time.perf_counter()
+            means, grads = step_gradients(tr.model, tr.net, batch,
+                                          tr.layout)
+            gerrs = {}
+            for path, leaf in reference_leaves(tr.net).items():
+                blk = [grads[n].float() for n in leaf.names]
+                got = torch.stack(blk) if leaf.stacked else blk[0]
+                w = shard_of(want["grads"][path], tr.layout.specs[path],
+                             tr.mesh).to(got.device)
+                gerrs[path] = (float((got - w).abs().max())
+                               / max(want["grad_scale"][path], 1e-30))
+                del blk, got, w
+            tr.opt_state, _ = apply_update(tr.cfg.opt, tr.net, grads,
+                                           tr.opt_state, tr.layout)
+            losses = [float(means["loss"])]
+            torch.cuda.synchronize()
+            walls = [time.perf_counter() - t0]
+            t0 = time.perf_counter()
+            losses.append(float(tr.train_step(batch)["loss"]))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        counts = kernels.launches()
+        stats = collective_stats()
+        errs, leaves_match = block_errors(torch, tr, want_file)
+        out.append({"losses": losses, "grad_errs": gerrs, "errs": errs,
+                    "leaves_match": leaves_match,
+                    "peak": torch.cuda.max_memory_allocated(),
+                    "step_wall_s": walls, "launches": counts,
+                    "k4_plain": plain.calls,
+                    "k6_plain": sum(plain_k6.calls.values()),
+                    "bytes_by_kind": stats["bytes_by_kind"],
+                    "calls_by_kind": stats["calls_by_kind"],
+                    "staged_bytes": stats["staged_bytes"],
+                    "batch_axes": tr.mesh.batch_axes,
+                    "rows": batch["tokens"].shape[0],
+                    "on_card": on_card(tr)})
+        del tr, batch, grads
+    return out
+
+
+def profiles_report(rs, root):
+    """13.7's gates on each run's ranks: loss within SHARD_LOSS_TOL
+    relative, every block of every parameter within SHARD_PARAM_TOL and
+    of every first-step gradient within PROFILE_GRAD_TOL of the unsharded
+    run's; K4 (starcoder2-3b) or K5, K6 and K6's backward (xlstm) launched
+    in every rank, no plain version on a CUDA tensor."""
+    totals = {}
+    for j, run in enumerate(PROFILE_RUNS):
+        profile, shape, arch, seq, rows = run
+        tag = f"§13.7 {profile} {arch} {'x'.join(map(str, shape))}"
+        a = [r[j] for r in rs]
+        want_losses = unsharded_losses(root, run)
+        errs, gerrs = {}, {}
+        for x in a:
+            for p, e in x["errs"].items():
+                errs[p] = max(errs.get(p, 0.0), e)
+            for p, e in x["grad_errs"].items():
+                gerrs[p] = max(gerrs.get(p, 0.0), e)
+        worst, gworst = max(errs, key=errs.get), max(gerrs, key=gerrs.get)
+        loss_err = max(abs(l - w) / abs(w) for x in a
+                       for l, w in zip(x["losses"], want_losses))
+        need = (("flash_attention_cuda",) if arch == SHARD_ARCH else
+                ("ssm_scan_cuda", "slstm_scan_cuda", "slstm_scan_bwd_cuda"))
+        emit({"shard_profile": profile, "arch": arch, "mesh": shape,
+              "seq": seq, "global_batch": rows, "layers": 2,
+              "batch_axes": a[0]["batch_axes"],
+              "rows_by_rank": [x["rows"] for x in a],
+              "losses": a[0]["losses"], "unsharded_losses": want_losses,
+              "loss_rel_err": loss_err, "param_rel_err_max": errs[worst],
+              "param_worst": worst, "grad_rel_err_max": gerrs[gworst],
+              "grad_worst": gworst,
+              "peak_by_rank": [x["peak"] for x in a],
+              "step_wall_s_slowest": [max(x["step_wall_s"][i] for x in a)
+                                      for i in range(2)],
+              "collective_bytes_by_kind_rank0": a[0]["bytes_by_kind"],
+              "collective_calls_by_kind_rank0": a[0]["calls_by_kind"],
+              "staged_bytes_rank0": a[0]["staged_bytes"],
+              "launches_by_rank": [{k: x["launches"][k] for k in need}
+                                   for x in a],
+              "k4_plain_on_cuda_by_rank": [x["k4_plain"] for x in a],
+              "k6_plain_on_cuda_by_rank": [x["k6_plain"] for x in a]})
+        check(loss_err < SHARD_LOSS_TOL, f"{tag}: loss rel err "
+              f"{loss_err:.3e}")
+        check(errs[worst] < SHARD_PARAM_TOL,
+              f"{tag}: {worst} rel err {errs[worst]:.3e}")
+        check(gerrs[gworst] < PROFILE_GRAD_TOL,
+              f"{tag}: {gworst}'s gradient rel err {gerrs[gworst]:.3e}")
+        check(all(x["leaves_match"] for x in a), f"{tag}: leaves differ")
+        for rank, x in enumerate(a):
+            check(x["on_card"], f"{tag}: a rank's tensors left the card")
+            for k in need:
+                check(x["launches"][k] > 0,
+                      f"{tag}: {k} never launched in rank {rank}")
+            check(x["k4_plain"] == 0 and x["k6_plain"] == 0,
+                  f"{tag}: a plain version ran on the card in rank {rank}")
+            add_counts(totals, x["launches"])
+    return totals
+
+
+def unsharded_losses(root, run):
+    """The unsharded losses of a 13.7 run (``exact_unsharded`` keeps
+    them beside its file)."""
+    with open(profile_file(root, run) + ".losses.json") as f:
+        return json.load(f)
+
+
 # -- 14. the dry run ------------------------------------------------------------
 
 DRY_ARCH = "starcoder2-3b"
@@ -4083,6 +4323,9 @@ DRY_DECODE = (("starcoder2-3b", "decode_32k"), ("xlstm-350m", "long_500k"))
 DRY_TRAIN_BYTES = 60e9
 DRY_COUNT_TOL = 1e-9
 DRY_PEAK_TOL = 0.30
+#: 14.4: DRY_ARCH's train_4k cell under the reference's other profiles,
+#: rank 0 of DRY_MESH on meta, then on the card at 14.2's depth rule
+DRY_PROFILES = ("dp_sp", "seq_sp")
 
 
 def dry_run(torch):
@@ -4098,11 +4341,13 @@ def dry_run(torch):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
-    def cell(shape, device, layers=None, arch=DRY_ARCH):
-        tag = f"{device}-{layers or 'full'}"
+    def cell(shape, device, layers=None, arch=DRY_ARCH,
+             profile="baseline"):
+        tag = f"{profile}-{device}-{layers or 'full'}"
         return run_cell(arch, shape, mesh, "pod",
                         os.path.join(out_dir, tag), force=True,
-                        verbose=False, device=device, layers=layers)
+                        verbose=False, device=device, layers=layers,
+                        profile=profile)
 
     meta = {shape: cell(shape, "meta") for shape in ("train_4k",
                                                      "prefill_32k")}
@@ -4111,6 +4356,16 @@ def dry_run(torch):
     for r in list(meta.values()) + list(decode.values()):
         emit({"dryrun_meta": dry_terms(r)})
     layers, train_meta = dry_train_depth(cell, meta["train_4k"])
+    # 14.4: the train cell under each other profile, its depth by 14.2's
+    # rule on its own meta counts
+    profiled = []
+    for profile in DRY_PROFILES:
+        full = cell("train_4k", "meta", profile=profile)
+        emit({"dryrun_meta": dry_terms(full), "profile": profile})
+        depth, want = dry_train_depth(
+            lambda shape, device, layers=None, arch=DRY_ARCH:
+            cell(shape, device, layers, arch, profile), full)
+        profiled.append((profile, want, depth))
     totals = {name: 0 for name in kernels.launches()}
     # the train step's predicted peak is 72 of the card's 79 GiB: after
     # §1-§13 fixed segments left 12.9 GiB reserved but unallocated in it
@@ -4120,14 +4375,17 @@ def dry_run(torch):
         "memory_reserved": torch.cuda.memory_reserved()}})
     torch.cuda.memory._set_allocator_settings("expandable_segments:True")
     try:
-        runs = [(DRY_ARCH, "prefill_32k", meta["prefill_32k"], None),
-                (DRY_ARCH, "train_4k", train_meta, layers)]
-        runs += [(arch, shape, want, None)
+        runs = [(DRY_ARCH, "prefill_32k", meta["prefill_32k"], None,
+                 "baseline"),
+                (DRY_ARCH, "train_4k", train_meta, layers, "baseline")]
+        runs += [(arch, shape, want, None, "baseline")
                  for (arch, shape), want in decode.items()]
-        for arch, shape, want, depth in runs:
+        runs += [(DRY_ARCH, "train_4k", want, depth, profile)
+                 for profile, want, depth in profiled]
+        for arch, shape, want, depth, profile in runs:
             kernels.reset_launches()
             with PlainK4Calls() as plain:
-                got = cell(shape, "cuda", depth, arch)
+                got = cell(shape, "cuda", depth, arch, profile)
             counts = kernels.launches()
             add_counts(totals, counts)
             gc.collect()
@@ -4150,7 +4408,8 @@ def dry_train_depth(cell, full):
     n = full["layers"]
     per_layer = max((pf - p2) / (n - 2), 1.0)
     layers = int(max(2, min(n, 2 + (DRY_TRAIN_BYTES - p2) // per_layer)))
-    at = two if layers == 2 else cell("train_4k", "meta", layers)
+    at = (two if layers == 2 else full if layers == n
+          else cell("train_4k", "meta", layers))
     emit({"dryrun_train_depth": layers, "predicted_peak_at_2": p2,
           "predicted_peak_full": pf, "predicted_peak": at[
               "memory_analysis"]["total_bytes"], "limit": DRY_TRAIN_BYTES,
@@ -4175,7 +4434,7 @@ def dry_report(got, want, counts, plain_calls):
     """14.2's (14.3's) gates on one card run against its meta count; a
     decode step launches no kernel (as the reference's decode reaches no
     Pallas kernel)."""
-    tag = f"§14 {got['arch']}@{got['shape']}"
+    tag = f"§14 {got['arch']}@{got['shape']} {got['profile']}"
     pairs = {"memory_bytes": (got["memory_bytes"], want["memory_bytes"])}
     for key in ("flops_by_type", "collective_breakdown", "collective_counts"):
         check(set(got[key]) == set(want[key]),
@@ -4188,7 +4447,8 @@ def dry_report(got, want, counts, plain_calls):
         want["memory_analysis"]["total_bytes"]
     gap = (peak - predicted) / predicted
     bound = max(want["compute_term"], want["memory_term"])
-    emit({"dryrun_card": dry_terms(got), "layers": got["layers"],
+    emit({"dryrun_card": dry_terms(got), "profile": got["profile"],
+          "layers": got["layers"],
           "count_rel_err": worst, "tol": DRY_COUNT_TOL,
           "max_memory_allocated": peak, "predicted_peak": predicted,
           "peak_gap": gap, "peak_tol": DRY_PEAK_TOL,

@@ -4,11 +4,15 @@ terms and the dominant bottleneck of each.  The terms are a spec-sheet
 model of the H100 (``core/roofline.py``), not measurements.
 
     python -m repro_torch.benchmarks.roofline_table
+    python -m repro_torch.benchmarks.roofline_table artifacts/dryrun_torch_dp_sp
+
+(the second: the records a profile's dry run wrote under its ``--out``).
 """
 
 import glob
 import json
 import os
+import sys
 
 from .common import ART
 
@@ -73,6 +77,7 @@ def main(base: str = None) -> dict:
 
 
 if __name__ == "__main__":
-    print(json.dumps(main()))
+    base = sys.argv[1] if len(sys.argv) > 1 else None
+    print(json.dumps(main(base)))
     for mesh in ("pod", "multipod"):
-        print(f"\n{mesh}:\n" + markdown_table(load_cells(mesh)))
+        print(f"\n{mesh}:\n" + markdown_table(load_cells(mesh, base)))

@@ -51,6 +51,28 @@ of the mean over the batch ranks (a reduce-scatter over ``data``, a sum
 over ``pod``), which the trainer does not average again.  This is what
 the reference's partitioner computes for those specs.
 
+The rules travel with the mesh (``Mesh.rules``; ``mesh.with_rules(...)``
+puts a profile's dict over ``DEFAULT_RULES``): ``use_mesh(mesh)``
+activates them, and every
+layout decision reads them, so a rank built on a ``dp_sp`` mesh runs what
+the reference's step runs under ``use_mesh(mesh, rules=...)``.  The batch
+axes are the rules' ``batch`` axes, kept by ``valid_spec`` where they
+divide the global batch (``Mesh.for_batch``); FSDP and ZeRO-1 cut over the
+rules' ``zero`` axes (:func:`leaf_zero_spec`, ``Placement.fsdp_axes``).
+
+Where the rules cut ``seq`` over ``model`` (the reference's ``seq_sp``,
+Megatron-SP) and the sequence divides it (:func:`seq_tp`), the residual
+stream between blocks is the rank's rows of the sequence.  A
+tensor-parallel block takes the whole sequence through :func:`seq_enter`
+(an all-gather; its gradient reduce-scattered) and gives its rows through
+:func:`seq_exit` (a reduce-scatter of the partial sums; its gradient
+all-gathered).  A block that runs whole on every rank takes the sequence
+through :func:`tp_gather` (its gradient the rank's rows) and gives its
+rows through :func:`seq_rows` (its gradient all-gathered).  The layers
+choose between the two at their call sites (:func:`on_sequence`).  A leaf used on
+the rank's rows (the norms, the LM head in the loss) gets those rows'
+share of its gradient: ``placed(p, rows=tp)`` sums it over ``model``.
+
 ``constrain`` is the identity: the port has no partitioner to hint.
 """
 
@@ -113,16 +135,21 @@ class Mesh:
     """Mesh axes laid over the ranks of a group, row-major: the last axis
     varies fastest.  ``shape`` is ``{axis: size}`` in the axes' order,
     ``coords`` this rank's ``{axis: index}``; ``groups`` holds one
-    subgroup for each axis and one for ``("pod", "data")`` (the batch
-    axes), None where that subgroup has one rank (nothing to communicate).
-    A mesh made with ``groups=None`` computes blocks but communicates
-    nothing (one process, a checkpoint cut to another mesh's shape)."""
+    subgroup for each axis of more than one rank and for each combination
+    of such axes that a profile's batch or ZeRO axes name
+    (``launch/mesh.py::COMBINED_AXES``), keyed in the mesh's order.  ``rules`` are the logical-axis rules the mesh runs under:
+    ``DEFAULT_RULES``, each fixed to the mesh's axes; :meth:`with_rules`
+    gives the same rank under a profile's (:func:`use_mesh` takes them
+    when given none).  A mesh made with ``groups=None`` computes blocks
+    but communicates nothing (one process, a checkpoint cut to another
+    mesh's shape)."""
 
     def __init__(self, shape: Dict[str, int], rank: int = 0,
                  groups: Optional[Dict] = None):
         self.shape = dict(shape)
         self.rank = rank
         self.groups = groups
+        self.rules = fixed_rules(self.shape)
         n = math.prod(self.shape.values())
         if not 0 <= rank < n:
             raise ValueError(f"rank {rank} is not in a mesh of {n}")
@@ -147,10 +174,11 @@ class Mesh:
         return i
 
     def group(self, axes):
-        """The subgroup of ``axes`` (one axis, or the batch axes), None
-        when it has one rank."""
-        key = tuple(a for a in _axes(axes) if a in self.shape)
-        if self.axis_size(key) == 1:
+        """The subgroup of ``axes`` (one axis or several, in the mesh's
+        order), None when it has one rank."""
+        key = tuple(a for a in self.shape
+                    if a in _axes(axes) and self.shape[a] > 1)
+        if not key:
             return None
         if self.groups is None:
             raise RuntimeError(f"{self!r} has no process groups: it cannot "
@@ -159,7 +187,32 @@ class Mesh:
 
     @property
     def batch_axes(self) -> Tuple[str, ...]:
-        return tuple(a for a in ("pod", "data") if a in self.shape)
+        """The rules' ``batch`` axes (reduced to those that divide the
+        global batch by :meth:`for_batch`)."""
+        return _axes(self.rules.get("batch"))
+
+    @property
+    def zero_axes(self) -> Tuple[str, ...]:
+        """The rules' ``zero`` axes: what ZeRO-1 and FSDP cut over."""
+        return _axes(self.rules.get("zero"))
+
+    def _view(self, rules: dict) -> "Mesh":
+        view = Mesh(self.shape, self.rank, self.groups)
+        view.rules = rules
+        return view
+
+    def with_rules(self, rules: Optional[dict]) -> "Mesh":
+        """This rank of this mesh (its groups shared) under ``rules``, a
+        profile's dict over ``DEFAULT_RULES``."""
+        return self._view(fixed_rules(self.shape, rules))
+
+    def for_batch(self, global_batch: int) -> "Mesh":
+        """This mesh with its batch axes those of the rules' ``batch``
+        axes that ``valid_spec`` keeps on ``global_batch`` rows (the
+        reference's batch specs): an axis that does not divide what is
+        left holds the same rows on each of its ranks."""
+        spec = valid_spec(P(self.batch_axes or None), (global_batch,), self)
+        return self._view(dict(self.rules, batch=spec[0]))
 
     def subgroup_ranks(self, axes) -> Dict[Tuple[int, ...], list]:
         """Every subgroup along ``axes``: {the other axes' coordinates:
@@ -200,14 +253,11 @@ def mesh_axes(mesh) -> set:
     return set(mesh.shape.keys())
 
 
-@contextlib.contextmanager
-def use_mesh(mesh, rules: Optional[dict] = None):
-    """Activate (mesh, rules) for :func:`param_spec` and the model code's
-    mesh-aware steps."""
-    prev = _state.ctx
-    rules = dict(DEFAULT_RULES, **(rules or {}))
-    # drop references to axes the mesh doesn't have (single-pod: no 'pod')
-    names = mesh_axes(mesh)
+def fixed_rules(shape, rules: Optional[dict] = None) -> dict:
+    """``DEFAULT_RULES`` updated by ``rules``, each value's mesh axes
+    those of ``shape`` (single-pod: no ``pod``), None where none is
+    left."""
+    names = set(shape)
 
     def fix(v):
         if isinstance(v, tuple):
@@ -215,7 +265,18 @@ def use_mesh(mesh, rules: Optional[dict] = None):
             return t if t else None
         return v if (v is None or v in names) else None
 
-    _state.ctx = (mesh, {k: fix(v) for k, v in rules.items()})
+    return {k: fix(v) for k, v in dict(DEFAULT_RULES, **(rules or {})).items()}
+
+
+@contextlib.contextmanager
+def use_mesh(mesh, rules: Optional[dict] = None):
+    """Activate (mesh, rules) for :func:`param_spec` and the model code's
+    mesh-aware steps; without ``rules``, the mesh's own
+    (``Mesh.rules``)."""
+    prev = _state.ctx
+    if rules is None:
+        rules = getattr(mesh, "rules", None)
+    _state.ctx = (mesh, fixed_rules(mesh_axes(mesh), rules))
     try:
         yield
     finally:
@@ -422,11 +483,21 @@ def leaf_spec(path: str, shape: Sequence[int], mesh) -> P:
 
 def leaf_zero_spec(path: str, shape: Sequence[int], mesh) -> P:
     """The ZeRO-1 spec of the moments of the leaf ``path``: the leaf's
-    spec with the rules' ``zero`` axes (``data``) added."""
-    with use_mesh(mesh):
-        zero = active()[1].get("zero") or ("data",)
+    spec with the rules' ``zero`` axes (``data``; ``dp_sp``: ``("data",
+    "model")``) added."""
     return zero_spec(leaf_spec(path, shape, mesh), tuple(shape), mesh,
-                     data_axes=_axes(zero))
+                     data_axes=mesh.zero_axes or ("data",))
+
+
+def zero_cut(spec: P, zspec: P, mesh) -> Optional[Tuple[int, Tuple[str, ...]]]:
+    """(dimension, mesh axes) that ``zspec`` (a ZeRO-1 or FSDP spec) cuts
+    beyond ``spec``, the axes of one rank left out; None where it cuts
+    nothing more."""
+    for i, (a, b) in enumerate(itertools.zip_longest(spec, zspec)):
+        if a != b:
+            axes = tuple(x for x in _axes(b) if mesh.shape.get(x, 1) > 1)
+            return (i, axes) if axes else None
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -476,65 +547,74 @@ def gather(block: torch.Tensor, spec: P, mesh) -> torch.Tensor:
 
 class Placement(NamedTuple):
     """How a per-layer parameter (or a decode cache) of the port is held
-    under a mesh: its dimension cut over ``model`` (None: whole over
-    ``model``), its use (``"tp"``: the block is used as it is, between
-    :func:`tp_enter` and :func:`tp_exit`; ``"ep"``: an expert bank's own
-    experts, used alike; ``"gather"``: gathered where used;
-    ``"kv_seq"``: a KV cache's slots; None), the mesh, and its dimension
-    cut over ``data`` under FSDP (None: whole over ``data``)."""
+    under a mesh: its dimension cut over ``model`` by the tensor-parallel
+    rules (None: whole over ``model``), its use (``"tp"``: the block is
+    used as it is, between :func:`tp_enter` and :func:`tp_exit`; ``"ep"``:
+    an expert bank's own experts, used alike; ``"gather"``: gathered where
+    used; ``"kv_seq"``: a KV cache's slots; None), the mesh, its dimension
+    cut under FSDP (None: no FSDP block) and the axes of that cut (the
+    rules' ``zero`` axes that divide it)."""
     dim: Optional[int]
     mode: Optional[str]
     mesh: Mesh
     fsdp: Optional[int] = None
+    fsdp_axes: Tuple[str, ...] = ("data",)
 
 
 def fsdp_spec(path: str, shape: Sequence[int], mesh, stacked: bool) -> P:
     """The FSDP spec of the leaf ``path``: :func:`leaf_zero_spec`, the
-    ``data`` axis added to the leaf's spec.  The port keeps one module a
-    layer, so where that spec cuts the layer axis of a stacked leaf (an
-    (L, X) norm scale or bias with L a multiple of ``data``) the ``data``
-    axis goes on the per-layer leaf's own first free dimension instead:
+    rules' ``zero`` axes added to the leaf's spec.  The port keeps one
+    module a layer, so where that spec cuts the layer axis of a stacked
+    leaf (an (L, X) norm scale or bias with L a multiple of ``data``) the
+    zero axes go on the per-layer leaf's own first free dimension instead:
     the same bytes a rank."""
     spec = leaf_zero_spec(path, shape, mesh)
-    if not (stacked and 0 in dims_over(spec, "data")):
+    cut = zero_cut(leaf_spec(path, shape, mesh), spec, mesh)
+    if not (stacked and cut is not None and cut[0] == 0):
         return spec
     rest = zero_spec(P(*spec[1:]), tuple(shape[1:]), mesh,
-                     data_axes=("data",))
+                     data_axes=mesh.zero_axes or ("data",))
     return P(None, *rest)
 
 
 class _GatherData(torch.autograd.Function):
-    """An FSDP parameter's ``data`` block gathered along ``dim``; the
-    gradient is this rank's block of its mean over the batch ranks."""
+    """An FSDP parameter's block gathered over its ``axes`` along ``dim``;
+    the gradient is this rank's block of its mean over the batch ranks: a
+    reduce-scatter over ``axes``, a sum over the batch axes that are not
+    among them, over the ranks of both."""
 
     @staticmethod
-    def forward(ctx, block, dim, mesh):
-        ctx.dim, ctx.mesh = dim, mesh
-        return pg.all_gather(block, mesh.group("data"), dim=dim)
+    def forward(ctx, block, dim, mesh, axes):
+        ctx.dim, ctx.mesh, ctx.axes = dim, mesh, axes
+        return pg.all_gather(block, mesh.group(axes), dim=dim)
 
     @staticmethod
     def backward(ctx, grad):
-        mesh = ctx.mesh
-        g = pg.reduce_scatter(grad.contiguous(), mesh.group("data"),
+        mesh, axes = ctx.mesh, ctx.axes
+        g = pg.reduce_scatter(grad.contiguous(), mesh.group(axes),
                               dim=ctx.dim)
-        pods = mesh.group("pod")
-        if pods is not None:
-            g = pg.all_reduce(g, pods)
-        return g / mesh.axis_size(mesh.batch_axes), None, None
+        rest = tuple(a for a in mesh.batch_axes if a not in axes)
+        if mesh.group(rest) is not None:
+            g = pg.all_reduce(g, mesh.group(rest))
+        return g / mesh.axis_size(axes + rest), None, None, None
 
 
-def placed(p: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-    """``p`` as the forward uses it: an FSDP parameter gathered over
-    ``data``; a ``"gather"`` parameter's whole tensor, gathered over
-    ``model``; anything else as it is."""
+def placed(p: Optional[torch.Tensor], rows: Optional["TP"] = None
+           ) -> Optional[torch.Tensor]:
+    """``p`` as the forward uses it: an FSDP parameter gathered over its
+    zero axes; a ``"gather"`` parameter's whole tensor, gathered over
+    ``model``; anything else as it is.  ``rows`` (the ``model`` axis of a
+    sequence cut over it, :func:`seq_tp`) marks a use on the rank's rows:
+    the gradient, those rows' share, is summed over ``model`` (the
+    gathered leaf's reduce-scattered)."""
     where = getattr(p, "placement", None)
-    if where is None:
-        return p
-    if where.fsdp is not None:
-        p = _GatherData.apply(p, where.fsdp, where.mesh)
-    if where.mode == "gather":
-        p = tp_gather(p, tp_of(where.mesh), where.dim)
-    return p
+    if where is not None and where.fsdp is not None:
+        p = _GatherData.apply(p, where.fsdp, where.mesh, where.fsdp_axes)
+    if where is not None and where.mode == "gather":
+        tp = tp_of(where.mesh)
+        return (tp_gather(p, tp, where.dim) if rows is None
+                else _GatherSum.apply(p, where.dim, tp))
+    return p if rows is None else tp_enter(p, rows)
 
 
 def vocab_block(p: torch.Tensor):
@@ -548,7 +628,7 @@ def vocab_block(p: torch.Tensor):
             or torch.is_grad_enabled()):
         return None
     if where.fsdp is not None:
-        p = _GatherData.apply(p, where.fsdp, where.mesh)
+        p = _GatherData.apply(p, where.fsdp, where.mesh, where.fsdp_axes)
     return p, tp_of(where.mesh), where.dim
 
 
@@ -640,6 +720,109 @@ def tp_gather(x: torch.Tensor, tp: TP, dim: int) -> torch.Tensor:
     return _GatherModel.apply(x, dim, tp)
 
 
+class _GatherSum(torch.autograd.Function):
+    """Every ``model`` rank's block concatenated along ``dim``; the
+    gradient, each rank's partial sum, reduce-scattered."""
+
+    @staticmethod
+    def forward(ctx, x, dim, tp):
+        ctx.dim, ctx.group = dim, tp.group
+        return pg.all_gather(x, tp.group, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (pg.reduce_scatter(grad.contiguous(), ctx.group, dim=ctx.dim),
+                None, None)
+
+
+class _ScatterSum(torch.autograd.Function):
+    """This rank's block along ``dim`` of the sum over the ``model``
+    ranks; the gradient all-gathered."""
+
+    @staticmethod
+    def forward(ctx, x, dim, tp):
+        ctx.dim, ctx.group = dim, tp.group
+        return pg.reduce_scatter(x.contiguous(), tp.group, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return pg.all_gather(grad, ctx.group, dim=ctx.dim), None, None
+
+
+class _Rows(torch.autograd.Function):
+    """This rank's block along ``dim`` of a tensor the ``model`` ranks
+    hold alike; the gradient, of the rank's block, all-gathered."""
+
+    @staticmethod
+    def forward(ctx, x, dim, tp):
+        ctx.dim, ctx.group = dim, tp.group
+        size = x.shape[dim] // tp.size
+        return x.narrow(dim, tp.index * size, size).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return pg.all_gather(grad, ctx.group, dim=ctx.dim), None, None
+
+
+def seq_tp(seq: int) -> Optional[TP]:
+    """The ``model`` axis as a :class:`TP` where the active rules cut the
+    sequence over it (``seq_sp``) and it divides ``seq`` positions (as
+    ``valid_spec`` keeps it on ``("batch", "seq", "dmodel")``); None
+    otherwise.  The residual stream is then the rank's rows."""
+    ctx = active()
+    if ctx is None:
+        return None
+    mesh, rules = ctx
+    axes = tuple(a for a in _axes(rules.get("seq"))
+                 if a not in _axes(rules.get("batch"))
+                 and mesh.shape.get(a, 1) > 1)
+    if not axes:
+        return None
+    if axes != ("model",):
+        raise NotImplementedError(f"the sequence cut over {axes}: the port "
+                                  f"cuts it over 'model' only")
+    tp = tp_of(mesh)
+    return tp if seq % tp.size == 0 else None
+
+
+def seq_rows(x: torch.Tensor, tp: TP) -> torch.Tensor:
+    """The rank's rows (dim 1) of a sequence every ``model`` rank holds
+    alike (the output of a block run whole); the gradient all-gathered."""
+    return _Rows.apply(x, 1, tp)
+
+
+def seq_enter(x: torch.Tensor, tp: TP) -> torch.Tensor:
+    """The input of a tensor-parallel block from the ranks' rows: the
+    whole sequence; its gradient, partial over the rank's heads or
+    columns, reduce-scattered."""
+    return _GatherSum.apply(x, 1, tp)
+
+
+def seq_exit(y: torch.Tensor, tp: TP) -> torch.Tensor:
+    """The output of a row-parallel block as the rank's rows: the partial
+    sums reduce-scattered; the gradient all-gathered."""
+    return _ScatterSum.apply(y, 1, tp)
+
+
+def on_sequence(block, h: torch.Tensor, sp: Optional[TP],
+                tp: Optional[TP] = None):
+    """``block`` on ``h``, under ``sp`` (:func:`seq_tp`) the rank's rows of
+    the sequence; without ``sp``, ``block(h)``.  A tensor-parallel block
+    (its ``tp`` given) takes the rows, ``block(h, sp=sp)``, and enters and
+    leaves the sequence itself (:func:`seq_enter`, :func:`seq_exit`).  Any
+    other runs whole on every rank, on the gathered sequence, and gives
+    the rank's rows of its output (of a tuple's first: the MoE's
+    ``(y, aux)``)."""
+    if sp is None:
+        return block(h)
+    if tp is not None:
+        return block(h, sp=sp)
+    out = block(tp_gather(h, sp, 1))
+    if isinstance(out, tuple):
+        return (seq_rows(out[0], sp),) + out[1:]
+    return seq_rows(out, sp)
+
+
 def tp_of(mesh) -> Optional[TP]:
     """The ``model`` axis of ``mesh`` as a :class:`TP`, None where it has
     one rank."""
@@ -678,15 +861,15 @@ def cache_block_spec(path: str, shape: Sequence[int], mesh) -> P:
 
 
 def batch_mean(x: torch.Tensor) -> torch.Tensor:
-    """``x`` averaged over the active mesh's batch axes (``pod``,
-    ``data``): the statistic the reference takes over the whole batch,
+    """``x`` averaged over the active mesh's batch axes (``Mesh.
+    batch_axes``): the statistic the reference takes over the whole batch,
     from each rank's mean over its equal share of the rows.  The identity
     without a mesh or with one batch rank."""
     ctx = active()
     if ctx is None:
         return x
     mesh = ctx[0]
-    group = mesh.group(mesh.batch_axes) if mesh.batch_axes else None
+    group = mesh.group(mesh.batch_axes)
     if group is None:
         return x
     return _BatchMean.apply(x, group)

@@ -18,9 +18,13 @@ second run, with the measured peak memory and both walls in the record.
 It never falls back to the CPU.  A decode cell counts one serving step
 (one new token a row) against the rank's blocks of its caches.
 
-Records go to ``artifacts/dryrun_torch/<mesh>/<arch>@<shape>.json``
-(``$REPRO_ARTIFACTS`` in place of ``artifacts``); existing ones are kept
-unless ``--force``.  Every number in them is a spec-sheet model of the
+``--profile dp_sp`` / ``seq_sp`` count the cell under the reference's other
+sharding profiles (``launch/specs.py::PROFILES``), with the record's
+``profile`` saying which.  Records go to
+``--out``/``<mesh>/<arch>@<shape>.json`` (default
+``artifacts/dryrun_torch``, ``$REPRO_ARTIFACTS`` in place of ``artifacts``);
+existing ones are kept unless ``--force``, so a profile's run takes an
+``--out`` of its own.  Every number in them is a spec-sheet model of the
 card (``H100_SXM``), not a measurement, but for ``measured``.
 """
 
@@ -37,9 +41,8 @@ import torch
 from ..configs import ALL_CELLS, SHAPES
 from ..core import roofline as rl
 from ..core.machine import H100_SXM
-from ..distributed.sharding import use_mesh
 from .mesh import counting_mesh, mesh_chips
-from .specs import rules_for, step_and_specs
+from .specs import PROFILES, rules_for, step_and_specs
 
 ARTDIR = os.environ.get("REPRO_ARTIFACTS", "artifacts")
 #: the reference's production meshes
@@ -67,9 +70,10 @@ def run_cell(arch: str, shape: str, mesh, mesh_name: str, out_dir: str,
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    with use_mesh(mesh, rules=rules_for(arch, profile)):
-        step_fn, args, model_flops, meta = step_and_specs(
-            arch, shape, mesh, device=dev, layers=layers)
+    # the profile's rules travel with the mesh into the rank's step
+    mesh = mesh.with_rules(rules_for(arch, profile))
+    step_fn, args, model_flops, meta = step_and_specs(
+        arch, shape, mesh, device=dev, layers=layers)
     t_build = time.perf_counter() - t0
     chips = mesh_chips(mesh)
     if dev.type == "cuda":
@@ -138,7 +142,7 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--profile", type=str, default="baseline",
-                    choices=("baseline",))
+                    choices=tuple(PROFILES))
     ap.add_argument("--device", type=str, default="meta",
                     choices=("meta", "cuda"))
     ap.add_argument("--out", type=str,

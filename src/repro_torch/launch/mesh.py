@@ -12,8 +12,11 @@ reference does.  ``counting_mesh(shape, rank)`` is one rank of such a mesh
 with no group at all: its subgroups are ``process_group.CountingGroup``
 stand-ins, so a step run on it records its collectives and sends nothing
 (the dry run, ``launch/dryrun.py``).  Every rank of the group must call these functions in the
-same order: each builds the mesh's subgroups (one for each axis, one for
-``("pod", "data")``), and ``torch.distributed.new_group`` is collective.
+same order: each builds the mesh's subgroups (one for each axis and one
+for each combination of axes that a profile's batch or ZeRO rules name),
+and ``torch.distributed.new_group`` is collective.  A mesh runs under the
+default rules; ``mesh.with_rules(rules_for(arch, profile))`` is the same
+ranks and groups under a profile's (``launch/specs.py``).
 A group whose size is not the product of the axes raises ``ValueError``.
 """
 
@@ -28,11 +31,22 @@ from ..distributed.process_group import GROUP_TIMEOUT_S, CountingGroup
 from ..distributed.sharding import Mesh
 
 
-def _subgroup_keys(axes: Sequence[str]) -> list:
-    """The mesh's subgroups: one for each axis, one for the batch axes."""
-    keys = list(axes)
-    if "pod" in axes:
-        keys.append(("pod", "data"))
+#: the combinations of axes that the profiles' batch and ZeRO rules name
+#: (``launch/specs.py::PROFILES``): baseline's batch, dp_sp's ZeRO axes
+#: and its batch
+COMBINED_AXES = (("pod", "data"), ("data", "model"), ("pod", "data", "model"))
+
+
+def _subgroup_keys(shape: Dict[str, int]) -> list:
+    """The mesh's subgroups, in one order on every rank: one for each axis
+    of more than one rank, then one for each of ``COMBINED_AXES`` that
+    keeps more than one such axis (in the mesh's order; on (2, 1, 2)
+    ``("pod", "data", "model")`` is ``("pod", "model")``)."""
+    keys = [a for a, n in shape.items() if n > 1]
+    for combo in COMBINED_AXES:
+        key = tuple(a for a in combo if shape.get(a, 1) > 1)
+        if len(key) > 1 and key not in keys:
+            keys.append(key)
     return keys
 
 
@@ -50,9 +64,7 @@ def _mesh_over_group(shape: Sequence[int], axes: Sequence[str]) -> Mesh:
     mesh = Mesh(dict(zip(axes, shape)), rank)
     groups: Dict = {}
     timeout = datetime.timedelta(seconds=GROUP_TIMEOUT_S)
-    for key in _subgroup_keys(axes):
-        if mesh.axis_size(key) == 1:
-            continue
+    for key in _subgroup_keys(mesh.shape):
         for ranks in mesh.subgroup_ranks(key).values():
             group = dist.new_group(ranks, timeout=timeout)   # collective
             if rank in ranks:
@@ -92,8 +104,7 @@ def counting_mesh(shape, rank: int = 0) -> Mesh:
     mesh = Mesh(shape, rank)
     mesh.groups = {key: CountingGroup(mesh.axis_size(key),
                                       mesh.axis_index(key))
-                   for key in _subgroup_keys(list(shape))
-                   if mesh.axis_size(key) > 1}
+                   for key in _subgroup_keys(mesh.shape)}
     return mesh
 
 

@@ -24,6 +24,8 @@ import numpy as np
 import torch
 
 from ..configs import get
+from ..distributed import process_group as pg
+from ..distributed.sharding import seq_tp
 from ..models import Model, build_model
 from ..models.encdec import encdec_forward_train
 from ..models.layers import dtype_of
@@ -56,7 +58,9 @@ def stub_inputs(cfg, batch: int, *, seed: int = 0,
 def make_prefill_step(model: Model):
     """``prefill_step(net, tokens, frames=None, images=None)``: tokens
     (B, S) int, and the stub inputs the architecture takes -> the last
-    position's logits (B, 1, V), no gradient kept."""
+    position's logits (B, 1, V), no gradient kept.  Under a mesh whose
+    rules cut the sequence over ``model`` (``seq_sp``) every rank returns
+    that position's logits, as without a mesh."""
     cfg = model.cfg
     needs = set(stub_shapes(cfg))
 
@@ -74,7 +78,13 @@ def make_prefill_step(model: Model):
         else:
             hidden, _ = decoder_forward_train(
                 net, cfg, tokens, memory=model.encode_memory(net, batch))
-        return lm_logits(net, cfg, hidden[:, -1:, :])
+        last = hidden[:, -1:, :]
+        sp = seq_tp(tokens.shape[1])
+        if sp is not None:
+            # the hidden states are the rank's rows of the sequence: its
+            # last position is the last model rank's last row
+            last = pg.all_gather(last, sp.group, dim=1)[:, -1:]
+        return lm_logits(net, cfg, last)
 
     return prefill_step
 

@@ -20,14 +20,23 @@ for a windowed arch, as the reference's) and one new token a row of its
 batch, with the cross-attention memory (the encoder's states, the image
 embeddings; rows over the batch axes) where the arch has one.
 
-Profiles: ``baseline`` only.  The reference's ``dp_sp`` and ``seq_sp`` take
-their batch axes from the rules and keep activations sequence-sharded; the
-port's mesh fixes its batch axes to ``("pod", "data")``.
+Profiles (:data:`PROFILES`, the reference's dicts): the mesh carries the
+profile's rules (``Mesh.rules``; the dry run builds its mesh with
+``rules_for(arch, profile)``), and the rank's layout and step follow them.
+``baseline`` is tensor (and expert) parallelism over ``model`` with the
+batch over ``("pod", "data")``; ``dp_sp`` cuts nothing over ``model`` but
+the batch (over ``("pod", "data", "model")`` where it divides) and the
+ZeRO-1 / FSDP blocks (over ``("data", "model")``), with FSDP required
+where the whole parameters take more than 4 GB a rank; ``seq_sp`` is the
+baseline with the residual stream cut on the sequence over ``model``
+between blocks (Megatron-SP; a decode step's one position does not divide
+and runs as under ``baseline``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Optional
 
 import torch
@@ -68,14 +77,23 @@ def choose_fsdp(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
         return required
 
 
-#: sharding profiles (the reference's names); the port has the baseline
-PROFILES = {"baseline": lambda cfg: {}}
+#: sharding profiles (the reference's), applied as a mesh's rules
+PROFILES = {
+    # the default TP(+EP) x DP layout
+    "baseline": lambda cfg: {},
+    # pure data / fully-sharded parallelism: no tensor parallelism; the
+    # batch over every axis, the ZeRO-1 (and FSDP) blocks over data and
+    # model
+    "dp_sp": lambda cfg: {"batch": ("pod", "data", "model"), "heads": None,
+                          "kv_heads": None, "ff": None, "vocab": None,
+                          "experts": None, "zero": ("data", "model")},
+    # Megatron-SP: the residual stream sequence-cut over 'model' between
+    # blocks, the whole sequence gathered into each block
+    "seq_sp": lambda cfg: {"seq": "model"},
+}
 
 
 def rules_for(arch: str, profile: str = "baseline") -> dict:
-    if profile not in PROFILES:
-        raise ValueError(f"profile {profile!r} is not ported (the port "
-                         f"has {sorted(PROFILES)})")
     return PROFILES[profile](get(arch))
 
 
@@ -108,8 +126,11 @@ def cell_meta(cfg: ModelConfig, shape: ShapeConfig, mesh):
     ``step_and_specs`` records, without building anything."""
     meta: Dict[str, Any] = {"arch": cfg.name, "shape": shape.name,
                             "kind": shape.kind}
-    meta["fsdp"] = choose_fsdp(cfg, shape, mesh,
-                               required=wants_fsdp(cfg, mesh))
+    # without tensor parallelism (dp_sp) every rank holds the whole
+    # parameters: FSDP where they take more than 4 GB
+    no_tp = mesh.rules.get("heads") is None
+    meta["fsdp"] = choose_fsdp(cfg, shape, mesh, required=wants_fsdp(
+        cfg, mesh) or (no_tp and cfg.param_count() * 2 > 4e9))
     n_active = cfg.active_param_count()
     tokens = shape.global_batch * shape.seq_len
     if shape.kind == "train":
@@ -130,12 +151,11 @@ def cell_meta(cfg: ModelConfig, shape: ShapeConfig, mesh):
 
 
 def batch_rows(shape: ShapeConfig, mesh) -> int:
-    """This rank's rows of the global batch: split over the batch axes
-    where they divide it, else every row (replicated, as ``valid_spec``
-    leaves an indivisible batch)."""
-    n = mesh.axis_size(mesh.batch_axes)
-    b = shape.global_batch
-    return b // n if b % n == 0 else b
+    """This rank's rows of the global batch: split over the rules' batch
+    axes that ``valid_spec`` keeps on it (``Mesh.for_batch``), the others
+    holding the same rows."""
+    rows = mesh.for_batch(shape.global_batch)
+    return shape.global_batch // rows.axis_size(rows.batch_axes)
 
 
 def rank_batch(cfg: ModelConfig, shape: ShapeConfig, mesh, device
@@ -159,13 +179,14 @@ def rank_batch(cfg: ModelConfig, shape: ShapeConfig, mesh, device
 def step_and_specs(arch: str, shape_name: str, mesh, *, device="meta",
                    layers: Optional[int] = None):
     """(step_fn, args, model_flops, meta) of rank ``mesh.rank``'s step of
-    the cell (module docstring).  ``layers`` cuts the depth (the record
-    says so in ``meta["layers"]``)."""
+    the cell (module docstring), under the mesh's rules.  ``layers`` cuts
+    the depth (the record says so in ``meta["layers"]``)."""
     cfg = get(arch)
     if layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=layers)
     shape = SHAPES[shape_name]
     meta, model_flops = cell_meta(cfg, shape, mesh)
+    mesh = mesh.for_batch(shape.global_batch)
     meta["layers"] = cfg.n_layers
     model = build_model(cfg)
     device = torch.device(device)
@@ -178,8 +199,12 @@ def step_and_specs(arch: str, shape_name: str, mesh, *, device="meta",
     if shape.kind == "train":
         accum = (torch.bfloat16 if opt_cfg.state_dtype == "bfloat16"
                  else None)
+        # the reference's microbatches split the global batch; the rank
+        # runs as many as divide its rows (dp_sp: one row, one microbatch)
+        meta["microbatches_run"] = math.gcd(meta["microbatches"],
+                                            meta["batch_rows"])
         train = make_train_step(model, opt_cfg,
-                                microbatches=meta["microbatches"],
+                                microbatches=meta["microbatches_run"],
                                 accum_dtype=accum)
 
         def step_fn(net, opt_state, batch):

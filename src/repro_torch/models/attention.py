@@ -25,7 +25,11 @@ divide too) and the rows of ``wo`` of its own heads, runs the attention
 (K4 included) on them, and the ``model`` ranks sum ``wo``'s partial
 outputs.  KV leaves cut within a head are gathered whole
 (``sharding.placed``); each rank then takes the KV heads its query heads
-read.
+read.  Under a sequence cut over ``model`` (``seq_sp``) the tensor-parallel
+block takes the ranks' rows whole (``seq_enter``) and gives the rank's rows
+of the summed output (``seq_exit``); RoPE takes the whole sequence's
+positions.  Any other block runs on the gathered sequence
+(``sharding.on_sequence``, at the layers' call sites).
 
 Decode (``attention_decode``) runs ``_sdpa`` over the whole KV ring buffer,
 as the reference's does: no kernel.  Under a mesh the cache follows the
@@ -50,7 +54,8 @@ import torch
 from torch import nn
 
 from ..distributed import process_group as pg
-from ..distributed.sharding import tp_enter, tp_exit
+from ..distributed.sharding import (seq_enter, seq_exit, tp_enter, tp_exit,
+                                    tp_gather)
 from ..kernels.flash_attention import flash_attention
 from .layers import Linear, apply_rope, dtype_of
 
@@ -204,9 +209,12 @@ def _rank_kv(k, v, tp, h: int, kv: int):
 
 
 def attention_train(p: Attention, cfg, x, positions, *, causal: bool = True,
-                    window: int = 0):
+                    window: int = 0, sp=None):
     """Full-sequence attention (train / prefill); tensor-parallel when
-    ``p.tp`` is set."""
+    ``p.tp`` is set, and then ``sp`` (``sharding.seq_tp``, through
+    ``sharding.on_sequence``): ``x`` and the output are the rank's rows of
+    a sequence cut over ``model``, ``positions`` the whole sequence's, and
+    the heads attend over the whole sequence."""
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     tp = p.tp
     if tp is None:
@@ -214,7 +222,7 @@ def attention_train(p: Attention, cfg, x, positions, *, causal: bool = True,
         k = _split_heads(p.wk(x), kv, hd)
         v = _split_heads(p.wv(x), kv, hd)
     else:
-        xt = tp_enter(x, tp)
+        xt = tp_enter(x, tp) if sp is None else seq_enter(x, sp)
         q = _split_heads(p.wq(xt), h // tp.size, hd)
         if p.kv_tp:
             k = _split_heads(p.wk(xt), kv // tp.size, hd)
@@ -222,15 +230,17 @@ def attention_train(p: Attention, cfg, x, positions, *, causal: bool = True,
         else:
             # whole KV, computed alike on every model rank; each rank's
             # heads feed only part of their gradient, summed by tp_enter
-            k = _split_heads(tp_enter(p.wk(x), tp), kv, hd)
-            v = _split_heads(tp_enter(p.wv(x), tp), kv, hd)
+            # (under sp from the whole sequence, its gradient replicated)
+            xk = x if sp is None else tp_gather(x, sp, 1)
+            k = _split_heads(tp_enter(p.wk(xk), tp), kv, hd)
+            v = _split_heads(tp_enter(p.wv(xk), tp), kv, hd)
             k, v = _rank_kv(k, v, tp, h, kv)
     if cfg.positions == "rope":
         q = apply_rope(q.transpose(1, 2), positions,
                        cfg.rope_theta).transpose(1, 2)
         k = apply_rope(k.transpose(1, 2), positions,
                        cfg.rope_theta).transpose(1, 2)
-    sq = x.shape[1]
+    sq = q.shape[2]
     if sq > CHUNKED_ATTN_THRESHOLD and not window:
         o = flash_attention_site(q, k, v, causal=causal)
     elif sq > CHUNKED_ATTN_THRESHOLD:
@@ -240,7 +250,9 @@ def attention_train(p: Attention, cfg, x, positions, *, causal: bool = True,
         mask = causal_mask(sq, sq, window, device=x.device) if causal else None
         o = _sdpa(q, k, v, mask, hd ** -0.5)
     o = p.wo(_merge_heads(o))
-    return o if tp is None else tp_exit(o, tp)
+    if tp is None:
+        return o
+    return tp_exit(o, tp) if sp is None else seq_exit(o, sp)
 
 
 def cross_attention(p: Attention, cfg, x, memory):

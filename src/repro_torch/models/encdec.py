@@ -11,11 +11,13 @@ the caches' lengths.
 
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..distributed.sharding import placed
+from ..distributed.sharding import on_sequence, placed, seq_rows, seq_tp
 from .attention import (Attention, attention_decode, attention_train,
                         cross_attention, init_kv_cache)
 from .layers import REMAT, MLP, Embedding, Linear, RMSNorm, _param, dtype_of
@@ -83,32 +85,42 @@ def encdec_forward_train(net: EncDec, cfg, frames: torch.Tensor,
                          tokens: torch.Tensor):
     """Returns (hidden after the decoder's final norm, aux = 0).  With
     ``cfg.remat``, where a graph is built, each decoder layer is
-    checkpointed, as the reference checkpoints them (not the encoder's)."""
+    checkpointed, as the reference checkpoints them (not the encoder's).
+    Under the ``seq_sp`` rules the decoder's hidden states are the rank's
+    rows of the sequence (``sharding.seq_tp``); the encoder runs whole."""
     memory = encode(net, cfg, frames)
     x = net.embed(tokens)
     b, s = x.shape[:2]
     x = x + placed(net.pos_table)[None, :s]
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    sp = seq_tp(s)
+    if sp is not None:
+        x = seq_rows(x, sp)
     remat = cfg.remat and torch.is_grad_enabled()
     for p in net.dec_layers:
         if remat:
             x = checkpoint(_dec_layer_train, p, cfg, x, positions, memory,
-                           **REMAT)
+                           sp, **REMAT)
             continue
         # inline (not through _dec_layer_train), so that the layer's input
         # is freed after its first residual add, as without a graph
-        x = x + attention_train(p.attn, cfg, p.norm1(x), positions,
-                                causal=True)
-        x = x + cross_attention(p.cross, cfg, p.norm_x(x), memory)
-        x = x + p.mlp(p.norm2(x))
-    return (net.final_norm(x),
+        x = x + on_sequence(partial(attention_train, p.attn, cfg,
+                                    positions=positions, causal=True),
+                            p.norm1(x, sp), sp, p.attn.tp)
+        x = x + on_sequence(partial(cross_attention, p.cross, cfg,
+                                    memory=memory), p.norm_x(x, sp), sp)
+        x = x + on_sequence(p.mlp, p.norm2(x, sp), sp, p.mlp.tp)
+    return (net.final_norm(x, sp),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
-def _dec_layer_train(p: DecoderLayer, cfg, x, positions, memory):
-    x = x + attention_train(p.attn, cfg, p.norm1(x), positions, causal=True)
-    x = x + cross_attention(p.cross, cfg, p.norm_x(x), memory)
-    return x + p.mlp(p.norm2(x))
+def _dec_layer_train(p: DecoderLayer, cfg, x, positions, memory, sp=None):
+    x = x + on_sequence(partial(attention_train, p.attn, cfg,
+                                positions=positions, causal=True),
+                        p.norm1(x, sp), sp, p.attn.tp)
+    x = x + on_sequence(partial(cross_attention, p.cross, cfg,
+                                memory=memory), p.norm_x(x, sp), sp)
+    return x + on_sequence(p.mlp, p.norm2(x, sp), sp, p.mlp.tp)
 
 
 def init_encdec_cache(cfg, batch: int, max_len: int, device=None):

@@ -15,7 +15,9 @@ rank's block: ``Linear`` and ``Embedding`` gather a ``"gather"`` block where
 they use it (an ``Embedding`` that builds no graph for fewer tokens than
 its rows looks up its own rows instead, summed over ``model``), and an
 ``MLP`` whose ``tp`` is set runs tensor-parallel, its ``up`` / ``gate``
-cut by columns and ``down`` by rows.
+cut by columns and ``down`` by rows.  Under a sequence cut over ``model``
+(``seq_sp``) a norm takes the rank's rows, and a tensor-parallel MLP
+takes and gives them (``seq_enter``, ``seq_exit``).
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..distributed import process_group as pg
-from ..distributed.sharding import placed, tp_enter, tp_exit, vocab_block
+from ..distributed.sharding import (placed, seq_enter, seq_exit, tp_enter,
+                                    tp_exit, vocab_block)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -94,11 +97,13 @@ class RMSNorm(nn.Module):
         self.eps = eps
         self.scale = _param((d,), dtype, device, None, fill=1.0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rows=None) -> torch.Tensor:
+        """``rows``: ``x`` is the rank's rows of a sequence cut over
+        ``model`` (``sharding.seq_tp``); the scale's gradient is summed."""
         xf = x.to(torch.float32)
         var = torch.mean(xf * xf, dim=-1, keepdim=True)
         y = xf * torch.rsqrt(var + self.eps)
-        return (y * placed(self.scale).to(torch.float32)).to(x.dtype)
+        return (y * placed(self.scale, rows).to(torch.float32)).to(x.dtype)
 
 
 class Embedding(nn.Module):
@@ -147,16 +152,22 @@ class MLP(nn.Module):
         self.down = Linear(d_ff, d, dtype, **kw)
         self.gate = Linear(d, d_ff, dtype, **kw) if gated else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, sp=None) -> torch.Tensor:
+        """``sp`` (``sharding.seq_tp``, a tensor-parallel MLP's, through
+        ``sharding.on_sequence``): ``x`` and the output are the rank's rows
+        of a sequence cut over ``model``; the MLP runs on the whole
+        sequence, between ``seq_enter`` and ``seq_exit``."""
         if self.tp is not None:
-            x = tp_enter(x, self.tp)
+            x = seq_enter(x, sp) if sp is not None else tp_enter(x, self.tp)
         h = self.up(x)
         if self.gate is not None:
             h = h * self.act(self.gate(x))
         else:
             h = self.act(h)
         y = self.down(h)
-        return y if self.tp is None else tp_exit(y, self.tp)
+        if self.tp is None:
+            return y
+        return seq_exit(y, sp) if sp is not None else tp_exit(y, self.tp)
 
 
 # ---------------------------------------------------------------------------

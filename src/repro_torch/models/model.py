@@ -26,11 +26,13 @@ go on the current GPU, and without a GPU ``init`` and ``init_cache`` raise:
 the caller names the CPU to run the plain versions.
 
 Under a mesh, ``Model.shard(net, mesh, fsdp=)`` cuts the network's
-parameters to this rank's blocks (``distributed/sharding.py``; with
-``fsdp`` over ``data`` too) and sets the dense blocks' tensor parallelism
-and the MoE layers' expert (or expert-``ff``) parallelism; ``loss`` then
-gives the rank's mean over its own rows of the batch, which the trainer
-averages over the batch ranks.  ``init_cache(..., mesh=)`` builds the
+parameters to this rank's blocks (``distributed/sharding.py``, under the
+mesh's rules; with ``fsdp`` over the rules' ``zero`` axes too) and sets
+the dense blocks' tensor parallelism and the MoE layers' expert (or
+expert-``ff``) parallelism; ``loss`` then gives the rank's mean over its
+own rows of the batch, which the trainer averages over the batch ranks
+(under ``seq_sp`` the mean over the rows' whole sequences: the ``model``
+ranks' totals summed).  ``init_cache(..., mesh=)`` builds the
 rank's blocks of the decode caches, on which ``decode_step`` runs under
 ``use_mesh(mesh)``.
 """
@@ -45,8 +47,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..devices import canonical, default_devices
+from ..distributed import process_group as pg
 from ..distributed.sharding import (P, Placement, dims_over, fsdp_spec,
-                                    leaf_spec, tp_of, use_mesh)
+                                    leaf_spec, seq_tp, shard_of, tp_exit,
+                                    tp_of, use_mesh, zero_cut)
 from . import encdec as ed
 from . import transformer as tf
 from .attention import Attention
@@ -67,19 +71,22 @@ def _ce_chunk(net, cfg, h, y, w):
     return torch.sum((logz - gold) * valid), torch.sum(valid)
 
 
-def _chunked_ce(net, cfg, hidden, labels, chunk: int):
+def _chunked_ce(net, cfg, hidden, labels, chunk: int, sp=None):
     """Mean cross-entropy over the valid tokens, chunk by chunk along the
     sequence: the chunk is ``chunk or S``, at most S, halved until it
     divides S; each chunk's body is recomputed in the backward.  The LM
     head's weight is taken once for every chunk (under a mesh, one gather
-    a loss: the recomputed chunks reuse it)."""
+    a loss: the recomputed chunks reuse it).  ``sp``
+    (``sharding.seq_tp``): ``hidden`` and ``labels`` are the rank's rows
+    of the sequence; the ranks' totals and counts are summed over
+    ``model`` before the division (each rank's backward takes its rows)."""
     s = hidden.shape[1]
     chunk = min(chunk or s, s)
     while s % chunk != 0:
         chunk //= 2
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     count = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    w = tf.lm_head_weight(net, cfg)
+    w = tf.lm_head_weight(net, cfg, sp)
     for c0 in range(0, s, chunk):
         h, y = hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk].long()
         if torch.is_grad_enabled():
@@ -87,6 +94,9 @@ def _chunked_ce(net, cfg, hidden, labels, chunk: int):
         else:
             t, n = _ce_chunk(net, cfg, h, y, w)
         total, count = total + t, count + n
+    if sp is not None:
+        total = tp_exit(total, sp)
+        count = pg.all_reduce(count, sp.group)
     return total / torch.clamp(count, min=1.0)
 
 
@@ -113,7 +123,8 @@ class Model:
         ``mesh`` and return ``{reference leaf path: spec}``.
 
         A leaf's spec is :func:`sharding.leaf_spec` of the reference's
-        stacked leaf, or with ``fsdp`` its :func:`sharding.fsdp_spec`.  The
+        stacked leaf under the mesh's rules, or with ``fsdp`` its
+        :func:`sharding.fsdp_spec` (cut over the rules' ``zero`` axes too).  The
         self-attention blocks (``attn``) whose ``wq`` / ``wo`` are cut on
         whole query heads run tensor-parallel, with ``wk`` / ``wv`` too
         where the KV heads divide; the MLPs whose ``up`` / ``gate`` /
@@ -125,20 +136,23 @@ class Model:
         FSDP.  Each cut parameter carries its ``placement``."""
         m = mesh.shape.get("model", 1)
         params = dict(net.named_parameters())
-        specs, cut, fcut = {}, {}, {}
+        specs, cut, fcut, layer_spec = {}, {}, {}, {}
         for path, leaf in reference_leaves(net).items():
             p0 = params[leaf.names[0]]
             shape = (len(leaf.names),) * leaf.stacked + tuple(p0.shape)
+            tspec = leaf_spec(path, shape, mesh)
             specs[path] = spec = (
                 fsdp_spec(path, shape, mesh, leaf.stacked) if fsdp
-                else leaf_spec(path, shape, mesh))
-            # an axis of one rank cuts nothing
-            dims = dims_over(spec, "model") if m > 1 else ()
-            fdims = (dims_over(spec, "data")
-                     if mesh.shape.get("data", 1) > 1 else ())
+                else tspec)
+            # the tensor-parallel cut over model (an axis of one rank cuts
+            # nothing), and FSDP's over the zero axes
+            dims = dims_over(tspec, "model") if m > 1 else ()
+            zc = zero_cut(tspec, spec, mesh)
             for name in leaf.names:
                 cut[name] = dims[0] - leaf.stacked if dims else None
-                fcut[name] = fdims[0] - leaf.stacked if fdims else None
+                fcut[name] = (None if zc is None
+                              else (zc[0] - leaf.stacked, zc[1]))
+                layer_spec[name] = P(*spec[leaf.stacked:])
         mode = {}
         if m > 1:
             tp = tp_of(mesh)
@@ -177,18 +191,13 @@ class Model:
                         mode.update((pre + b, mod.mode) for b in banks)
         with torch.no_grad():
             for name, p in params.items():
-                dim, fdim = cut[name], fcut[name]
-                if dim is None and fdim is None:
+                dim, fz = cut[name], fcut[name]
+                if dim is None and fz is None:
                     continue
-                x = p.data
-                for d, axis in ((dim, "model"), (fdim, "data")):
-                    if d is not None:
-                        size = x.shape[d] // mesh.shape[axis]
-                        x = x.narrow(d, mesh.coords[axis] * size, size)
-                p.data = x.clone()
+                p.data = shard_of(p.data, layer_spec[name], mesh)
                 p.placement = Placement(
                     dim, None if dim is None else mode.get(name, "gather"),
-                    mesh, fdim)
+                    mesh, *(() if fz is None else fz))
         return specs
 
     def loss(self, net, batch: Mapping[str, torch.Tensor]):
@@ -203,7 +212,13 @@ class Model:
             hidden, aux = tf.decoder_forward_train(
                 net, cfg, batch["tokens"],
                 memory=self.encode_memory(net, batch))
-        ce = _chunked_ce(net, cfg, hidden, batch["labels"], cfg.logits_chunk)
+        labels = batch["labels"]
+        sp = seq_tp(labels.shape[1])
+        if sp is not None:
+            # the hidden states are the rank's rows of the sequence
+            n = labels.shape[1] // sp.size
+            labels = labels[:, sp.index * n:(sp.index + 1) * n]
+        ce = _chunked_ce(net, cfg, hidden, labels, cfg.logits_chunk, sp)
         return ce + aux, {"ce": ce, "aux": aux}
 
     def encode_memory(self, net, batch: Mapping[str, torch.Tensor]

@@ -24,11 +24,14 @@ Under a mesh (``distributed/sharding.py``, ``Model.shard``) the dense
 blocks' attention and MLP run tensor-parallel where their leaves are cut on
 whole heads or on ``d_ff`` columns; every other leaf cut over ``model`` is
 gathered where it is used, inside the remat unit, so the recompute gathers
-it again.
+it again.  Under the ``seq_sp`` rules (``sharding.seq_tp``) the residual
+stream between blocks is the rank's rows of the sequence (Megatron-SP):
+the norms run on the rows, each block on the whole sequence.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict, List
 
 import torch
@@ -36,7 +39,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..distributed import process_group as pg
-from ..distributed.sharding import placed, vocab_block
+from ..distributed.sharding import (on_sequence, placed, seq_rows, seq_tp,
+                                    vocab_block)
 from .attention import (Attention, attention_decode, attention_train,
                         cross_attention, init_kv_cache)
 from .layers import (REMAT, MLP, Embedding, Linear, RMSNorm, _param,
@@ -87,36 +91,44 @@ class Layer(nn.Module):
                            **kw)
 
 
-def apply_layer_train(p: Layer, cfg, kind: str, x, positions, memory=None):
+def apply_layer_train(p: Layer, cfg, kind: str, x, positions, memory=None,
+                      sp=None):
     """Returns (x, aux_loss).  ``memory`` (B, M, D) is what a cross layer
-    attends to."""
+    attends to.  ``sp`` (``sharding.seq_tp``): ``x`` is the rank's rows of
+    a sequence cut over ``model`` (``seq_sp``), ``positions`` the whole
+    sequence's; the norms and the residual adds run on the rows, every
+    block on the whole sequence (``sharding.on_sequence``)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    window = cfg.sliding_window
+    if kind in ("dense", "vlm_self", "moe", "hymba"):
+        attend = partial(attention_train, p.attn, cfg, positions=positions,
+                         causal=True, window=cfg.sliding_window)
     if kind in ("dense", "vlm_self", "moe"):
-        x = x + attention_train(p.attn, cfg, p.norm1(x), positions,
-                                causal=True, window=window)
-        h2 = p.norm2(x)
+        x = x + on_sequence(attend, p.norm1(x, sp), sp, p.attn.tp)
+        h2 = p.norm2(x, sp)
         if kind == "moe":
-            y, aux = moe_block(p.moe, cfg, h2)
+            # the routing groups whole: the MoE on the gathered sequence
+            y, aux = on_sequence(partial(moe_block, p.moe, cfg), h2, sp)
         else:
-            y = p.mlp(h2)
+            y = on_sequence(p.mlp, h2, sp, p.mlp.tp)
         x = x + y
     elif kind == "mlstm":
-        x = x + mlstm_train(p.mlstm, cfg, p.norm1(x))
+        x = x + on_sequence(partial(mlstm_train, p.mlstm, cfg),
+                            p.norm1(x, sp), sp)
     elif kind == "slstm":
-        x = x + slstm_train(p.slstm, cfg, p.norm1(x))
+        x = x + on_sequence(partial(slstm_train, p.slstm, cfg),
+                            p.norm1(x, sp), sp)
     elif kind == "hymba":
-        h2 = p.norm1(x)
-        attn_out = attention_train(p.attn, cfg, h2, positions, causal=True,
-                                   window=window)
-        ssd_out = ssd_train(p.ssd, cfg, h2)
+        h2 = p.norm1(x, sp)
+        attn_out = on_sequence(attend, h2, sp, p.attn.tp)
+        ssd_out = on_sequence(partial(ssd_train, p.ssd, cfg), h2, sp)
         x = x + 0.5 * (attn_out + ssd_out)         # hymba head fusion (mean)
-        x = x + p.mlp(p.norm2(x))
+        x = x + on_sequence(p.mlp, p.norm2(x, sp), sp, p.mlp.tp)
     elif kind == "cross":
         if memory is None:
             raise ValueError("a cross layer needs the memory it attends to")
-        x = x + cross_attention(p.cross, cfg, p.norm1(x), memory)
-        x = x + p.mlp(p.norm2(x))
+        x = x + on_sequence(partial(cross_attention, p.cross, cfg,
+                                    memory=memory), p.norm1(x, sp), sp)
+        x = x + on_sequence(p.mlp, p.norm2(x, sp), sp, p.mlp.tp)
     else:
         raise ValueError(f"unknown block kind {kind!r}")
     return x, aux
@@ -218,43 +230,54 @@ def decoder_forward_train(net: Decoder, cfg, tokens: torch.Tensor, *,
                           memory=None):
     """tokens: (B, S) int; memory: (B, M, D), what the cross layers attend
     to.  Returns (hidden after the final norm, aux), aux the MoE layers'
-    load-balance losses summed."""
+    load-balance losses summed.  Where the active rules cut the sequence
+    over ``model`` (``sharding.seq_tp``), the hidden states are the rank's
+    rows of the sequence."""
     x = net.embed(tokens)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     if net.pos_table is not None:
         x = x + placed(net.pos_table)[:s][None]
+    sp = seq_tp(s)
+    if sp is not None:
+        # embedded whole (the tables' gradients whole on every rank), the
+        # residual stream the rank's rows
+        x = seq_rows(x, sp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if not (cfg.remat and torch.is_grad_enabled()):
         # layer by layer: each layer's input is freed as the next one runs
         for kind, layer in zip(net.kinds, net.layers):
-            x, a = apply_layer_train(layer, cfg, kind, x, positions, memory)
+            x, a = apply_layer_train(layer, cfg, kind, x, positions, memory,
+                                     sp)
             aux = aux + a
-        return net.final_norm(x), aux
+        return net.final_norm(x, sp), aux
     start = 0
     for _, n, kinds in stack_plan(cfg):
         for _ in range(n):
             unit = net.layers[start:start + len(kinds)]
             start += len(kinds)
             x, a = checkpoint(_unit_train, unit, cfg, kinds, x, positions,
-                              memory, **REMAT)
+                              memory, sp, **REMAT)
             aux = aux + a
-    return net.final_norm(x), aux
+    return net.final_norm(x, sp), aux
 
 
-def _unit_train(unit, cfg, kinds, x, positions, memory):
+def _unit_train(unit, cfg, kinds, x, positions, memory, sp=None):
     """The layers of one ``stack_plan`` unit in order: (x, their aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, layer in zip(kinds, unit):
-        x, a = apply_layer_train(layer, cfg, kind, x, positions, memory)
+        x, a = apply_layer_train(layer, cfg, kind, x, positions, memory, sp)
         aux = aux + a
     return x, aux
 
 
-def lm_head_weight(net: Decoder, cfg) -> torch.Tensor:
+def lm_head_weight(net: Decoder, cfg, rows=None) -> torch.Tensor:
     """The weight the logits take: the tied embeddings (V, D) or the LM
-    head's (D, V), whole (gathered over ``model`` under a mesh)."""
-    return placed(net.embed.w if cfg.tie_embeddings else net.lm_head.w)
+    head's (D, V), whole (gathered over ``model`` under a mesh).  ``rows``
+    (``sharding.seq_tp``): the logits are taken of the rank's rows, and
+    the weight's gradient is summed over ``model``."""
+    return placed(net.embed.w if cfg.tie_embeddings else net.lm_head.w,
+                  rows)
 
 
 def lm_logits(net: Decoder, cfg, x: torch.Tensor, weight=None

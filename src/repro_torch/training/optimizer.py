@@ -17,11 +17,11 @@ of a leaf at a time, which rounds as the whole leaf would and bounds its
 fp32 temporaries.
 
 ZeRO-1 under a mesh (the reference's ``_zero_constrain``): AdamW's moments
-are kept per ``zero_spec`` of the stacked leaf's spec, the ``data`` axis
-added on one replicated dimension, so each rank holds its ``data`` slice of
-its ``model`` block (:func:`zero_slice`); the update runs on that slice and
-the updated parameter slices are all-gathered over ``data``
-(:func:`zero_unslice`).  Adafactor's statistics are not reached by the
+are kept per ``zero_spec`` of the stacked leaf's spec, the rules' ``zero``
+axes (``data``; under ``dp_sp`` ``data`` and ``model``) added on one
+replicated dimension, so each rank holds its slice of its block
+(:func:`zero_slice`); the update runs on that slice and the updated
+parameter slices are all-gathered over those axes (:func:`zero_unslice`).  Adafactor's statistics are not reached by the
 reference's constraint and stay whole on every rank; its update runs on
 the rank's block (:func:`adafactor_leaf`).
 :func:`sharded_global_norm` counts each leaf's distinct blocks once.
@@ -37,7 +37,7 @@ from typing import (Any, Iterable, Mapping, NamedTuple, Optional, Tuple,
 import torch
 
 from ..distributed import process_group as pg
-from ..distributed.sharding import Mesh, P, dims_over, gather, shard_of
+from ..distributed.sharding import Mesh, P, gather, shard_of
 
 _STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 #: elements of a leaf that AdamW's math takes at once (whole rows)
@@ -114,66 +114,47 @@ def global_norm(tensors: Union[Mapping[str, torch.Tensor],
                           for x in tensors))
 
 
-def sharded_global_norm(blocks: Iterable[Tuple[torch.Tensor, bool, bool]],
+def sharded_global_norm(blocks: Iterable[Tuple[torch.Tensor, Tuple[str, ...]]],
                         mesh) -> torch.Tensor:
     """The global norm of a model held in blocks: ``blocks`` yields (a
-    gradient block, whether its leaf is cut over ``model``, whether over
-    ``data`` (FSDP)).  The squares of a leaf replicated over ``model`` are
-    counted on the first ``model`` rank only; those of the FSDP blocks are
-    summed over ``data`` (the other ``data`` ranks hold the same averaged
-    gradients of every other leaf); then the sum is all-reduced over
-    ``model``."""
-    first = mesh.coords.get("model", 0) == 0
-    sums = [None, None]                       # [whole over data, FSDP]
-    has_fsdp = False
-    for g, cut, fsdp in blocks:
-        has_fsdp |= bool(fsdp)
-        if sums[0] is None:
-            sums[0] = g.new_zeros((), dtype=torch.float32)
-        if not (cut or first):
-            continue
+    gradient block, the mesh axes its leaf is cut over).  Every rank holds
+    the same gradient of a leaf's block as the ranks that differ from it
+    only on other axes (the batch ranks' average), so the squares of the
+    blocks cut over the same axes are summed over those axes' subgroup,
+    each block counted once, and the sums added."""
+    sums: dict = {}
+    for g, axes in blocks:
         sq = torch.sum(torch.square(g.to(torch.float32)))
-        sums[fsdp] = sq if sums[fsdp] is None else sums[fsdp] + sq
-    if sums[0] is None:
+        sums[axes] = sq if axes not in sums else sums[axes] + sq
+    if not sums:
         raise ValueError("no gradient blocks")
-    total = sums[0]
-    if has_fsdp:
-        part = sums[1] if sums[1] is not None else torch.zeros_like(total)
-        group = mesh.group("data")
-        total = total + (part if group is None
-                         else pg.all_reduce(part, group))
-    group = mesh.group("model")
-    if group is not None:
-        total = pg.all_reduce(total, group)
+    total = None
+    for axes in sorted(sums):
+        group = mesh.group(axes)
+        part = sums[axes] if group is None else pg.all_reduce(sums[axes],
+                                                              group)
+        total = part if total is None else total + part
     return torch.sqrt(total)
 
 
-def zero_dim(zspec) -> Optional[int]:
-    """The dimension a ZeRO-1 spec cuts over ``data``, or None."""
-    dims = dims_over(zspec, "data")
-    return dims[0] if dims else None
-
-
-def zero_slice(x: torch.Tensor, zspec, mesh) -> torch.Tensor:
-    """This rank's ``data`` slice of ``x`` (its ``model`` block of a
-    stacked leaf) under the ZeRO-1 spec ``zspec``: a view, ``x`` itself
-    where the spec does not cut over ``data``."""
-    dim = zero_dim(zspec)
-    if dim is None:
+def zero_slice(x: torch.Tensor, cut, mesh) -> torch.Tensor:
+    """This rank's ZeRO-1 slice of ``x`` (its block of a stacked leaf):
+    ``cut`` is ``sharding.zero_cut`` of the leaf's spec and its moments'
+    (the dimension and the zero axes that cut it); a view, ``x`` itself
+    where ``cut`` is None."""
+    if cut is None:
         return x
-    n = mesh.shape["data"]
-    size = x.shape[dim] // n
-    return x.narrow(dim, mesh.coords["data"] * size, size)
+    dim, axes = cut
+    size = x.shape[dim] // mesh.axis_size(axes)
+    return x.narrow(dim, mesh.axis_index(axes) * size, size)
 
 
-def zero_unslice(part: torch.Tensor, zspec, mesh) -> torch.Tensor:
-    """The ``model`` block from every ``data`` rank's slice: the inverse
-    of :func:`zero_slice`, an all-gather over ``data``."""
-    dim = zero_dim(zspec)
-    group = mesh.group("data") if dim is not None else None
-    if group is None:
+def zero_unslice(part: torch.Tensor, cut, mesh) -> torch.Tensor:
+    """The block from every rank's slice: the inverse of
+    :func:`zero_slice`, an all-gather over the zero axes."""
+    if cut is None:
         return part
-    return pg.all_gather(part, group, dim=dim)
+    return pg.all_gather(part, mesh.group(cut[1]), dim=cut[0])
 
 
 class AdamStep(NamedTuple):

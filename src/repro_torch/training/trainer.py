@@ -16,22 +16,25 @@ updates them, and writes the rows back.
 With a mesh (``launch/mesh.py::make_mesh`` over a ``torch.distributed``
 group), ``Trainer(cfg, mesh=mesh)`` draws the whole network from the seed,
 as without one, then cuts it to this rank's blocks (``Model.shard``), so a
-sharded and an unsharded run start from the same weights.  Each rank takes
-the batch rows at its ``("pod", "data")`` coordinate; the gradients are
-averaged over those ranks at full precision (as the reference's trainer,
-this one does not compress them), and over those only: a block's
-gradient (``"tp"``, ``"ep"``: an expert bank's own experts, ``"gather"``)
-is already this rank's block of the whole gradient, and takes no sum
-over ``model``; AdamW's moments are ZeRO-1 slices
-(``optimizer.zero_slice``), and the updated slices are all-gathered over
-``data``.  Checkpoints hold the reference's whole leaves: ``save``
+sharded and an unsharded run start from the same weights.  The mesh's
+rules (``Mesh.rules``: a profile of the reference's, ``launch/specs.py::
+rules_for``) decide the layout.  Each rank takes the batch rows at its
+coordinate on the rules' batch axes that divide the global batch
+(``Mesh.for_batch``; ``baseline``: ``("pod", "data")``, ``dp_sp``: also
+``model``); the gradients are averaged over those ranks at full precision
+(as the reference's trainer, this one does not compress them), and over
+those only: a block's gradient (``"tp"``, ``"ep"``: an expert bank's own
+experts, ``"gather"``) is already this rank's block of the whole
+gradient, and takes no sum over ``model``; AdamW's moments are ZeRO-1
+slices over the rules' ``zero`` axes (``optimizer.zero_slice``), and the
+updated slices are all-gathered over them.  Checkpoints hold the reference's whole leaves: ``save``
 gathers them (rank 0 writes), ``restore`` cuts them to the current mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, NamedTuple, Optional
+from typing import Any, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,9 +43,10 @@ import torch.distributed as dist
 from ..configs.base import ModelConfig
 from ..devices import canonical, default_devices
 from ..distributed import process_group as pg
-from ..distributed.sharding import (P, Mesh, block_shape, dims_over,
-                                    gather, is_fsdp, leaf_zero_spec,
-                                    shard_of, use_mesh)
+from ..distributed.sharding import (P, Mesh, _axes, block_shape,
+                                    dims_over, gather, is_fsdp, leaf_spec,
+                                    leaf_zero_spec, shard_of, use_mesh,
+                                    zero_cut)
 from ..models import build_model, moe
 from ..models.convert import (host_array, load_leaves, nest,
                               reference_leaves, write_rows)
@@ -69,20 +73,30 @@ class TrainConfig:
 class Layout(NamedTuple):
     """A network's layout on a mesh: the mesh, and for each reference
     leaf path its whole (stacked) shape, its spec and its moments' ZeRO-1
-    spec."""
+    spec; under FSDP (``tp``) its spec without the zero axes."""
     mesh: Any
     shapes: Dict[str, tuple]
     specs: Dict[str, P]
     zero: Dict[str, P]
+    tp: Optional[Dict[str, P]] = None
 
     def cut(self, path: str) -> bool:
-        """True when the leaf is cut over ``model``."""
-        return bool(dims_over(self.specs[path], "model"))
+        """True when the leaf is cut over ``model`` by the tensor-parallel
+        rules."""
+        spec = self.specs if self.tp is None else self.tp
+        return bool(dims_over(spec[path], "model"))
 
     def fsdp(self, path: str) -> bool:
-        """True when the leaf's parameters are cut over ``data`` (FSDP):
-        its moments are the parameters' own blocks."""
-        return bool(dims_over(self.specs[path], "data"))
+        """True when the leaf's parameters are cut over the zero axes
+        (FSDP): its moments are the parameters' own blocks."""
+        return self.tp is not None and self.tp[path] != self.specs[path]
+
+    def axes(self, path: str) -> Tuple[str, ...]:
+        """The mesh axes of more than one rank that cut the leaf's
+        parameters, in the mesh's order."""
+        named = {a for part in self.specs[path] for a in _axes(part)}
+        return tuple(a for a, n in self.mesh.shape.items()
+                     if a in named and n > 1)
 
 
 def whole_layout(net) -> Layout:
@@ -107,8 +121,9 @@ def leaf_templates(net) -> Dict[str, torch.Tensor]:
 
 def _gradients(model, net, batch, microbatches: int, accum_dtype):
     """(loss, {"ce", "aux"}, {name: gradient}) of the batch, split into
-    ``microbatches`` on the leading axis with the gradients summed in an
-    accumulator (fp32 for bf16 parameters unless ``accum_dtype``)."""
+    ``microbatches`` on the leading axis (which they must divide) with the
+    gradients summed in an accumulator (fp32 for bf16 parameters unless
+    ``accum_dtype``)."""
     names, params = zip(*net.named_parameters())
     device = params[0].device
 
@@ -123,10 +138,14 @@ def _gradients(model, net, batch, microbatches: int, accum_dtype):
               for p, g in zip(params, gs)]
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, gs
 
+    rows = next(iter(batch.values())).shape[0]
+    if rows % microbatches:
+        raise ValueError(f"{microbatches} microbatches do not divide the "
+                         f"rank's {rows} rows")
     if microbatches == 1:
         loss, metrics, gs = grads_of(batch)
         return loss, metrics, dict(zip(names, gs))
-    n = next(iter(batch.values())).shape[0] // microbatches
+    n = rows // microbatches
     acc = [torch.zeros(p.shape, device=p.device, dtype=accum_dtype or (
         torch.float32 if p.dtype == torch.bfloat16 else p.dtype))
         for p in params]
@@ -162,7 +181,7 @@ def apply_update(opt_cfg: AdamWConfig, net, grads: Dict[str, torch.Tensor],
     params = dict(net.named_parameters())
     leaves = reference_leaves(net)
     gnorm = sharded_global_norm(
-        ((grads[n], layout.cut(path), layout.fsdp(path))
+        ((grads[n], layout.axes(path))
          for path, leaf in leaves.items() for n in leaf.names), mesh)
     if opt_cfg.kind == "adafactor":
         step, lr, b2 = adafactor_begin(opt_cfg, state)
@@ -179,15 +198,13 @@ def apply_update(opt_cfg: AdamWConfig, net, grads: Dict[str, torch.Tensor],
         if opt_cfg.kind == "adafactor":
             adafactor_leaf(opt_cfg, lr, b2, p, g, state.nu[path],
                             layout.specs[path], mesh)
-        elif layout.fsdp(path):
-            # the rank's block is its ZeRO-1 slice already
-            adamw_leaf(opt_cfg, st, p, g, state.mu[path], state.nu[path])
         else:
-            zspec = layout.zero[path]
-            part = zero_slice(p, zspec, mesh)
-            adamw_leaf(opt_cfg, st, part, zero_slice(g, zspec, mesh),
+            # an FSDP block is its ZeRO-1 slice already (no cut)
+            cut = zero_cut(layout.specs[path], layout.zero[path], mesh)
+            part = zero_slice(p, cut, mesh)
+            adamw_leaf(opt_cfg, st, part, zero_slice(g, cut, mesh),
                        state.mu[path], state.nu[path])
-            p = zero_unslice(part, zspec, mesh)
+            p = zero_unslice(part, cut, mesh)
         # an unstacked leaf updated in place is the parameter already
         if leaf.stacked or p is not held:
             write_rows(params, leaf, p)
@@ -248,21 +265,31 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, microbatches: int = 1,
     def train_step(net, opt_state: AdamState, batch: Mapping[str, Any],
                    layout: Optional[Layout] = None):
         layout = layout or whole_layout(net)
-        mesh = layout.mesh
-        with use_mesh(mesh):
-            loss, metrics, grads = _gradients(model, net, batch,
-                                              microbatches, accum_dtype)
-        group = mesh.group(mesh.batch_axes)
-        fsdp = {n for n, p in net.named_parameters() if is_fsdp(p)}
-        grads = {**average_over({n: g for n, g in grads.items()
-                                 if n not in fsdp}, group),
-                 **{n: grads[n] for n in fsdp}}
-        means = average_over({"loss": loss, **metrics}, group)
+        means, grads = step_gradients(model, net, batch, layout,
+                                      microbatches, accum_dtype)
         opt_state, opt_metrics = apply_update(opt_cfg, net, grads, opt_state,
                                               layout)
         return net, opt_state, {**means, **opt_metrics}
 
     return train_step
+
+
+def step_gradients(model, net, batch: Mapping[str, Any], layout: Layout,
+                   microbatches: int = 1, accum_dtype=None):
+    """({"loss", "ce", "aux"} averaged over the batch ranks, {parameter
+    name: gradient}) of a step on ``batch`` (this rank's rows) under the
+    mesh's rules: each gradient this rank's block of the batch mean (an
+    FSDP block's averaged by its backward already)."""
+    mesh = layout.mesh
+    with use_mesh(mesh):
+        loss, metrics, grads = _gradients(model, net, batch, microbatches,
+                                          accum_dtype)
+    group = mesh.group(mesh.batch_axes)
+    fsdp = {n for n, p in net.named_parameters() if is_fsdp(p)}
+    grads = {**average_over({n: g for n, g in grads.items()
+                             if n not in fsdp}, group),
+             **{n: grads[n] for n in fsdp}}
+    return average_over({"loss": loss, **metrics}, group), grads
 
 
 def _expanded(shape, dtype, device) -> torch.Tensor:
@@ -285,10 +312,12 @@ def rank_state(model, opt_cfg: Optional[AdamWConfig], mesh=None, *,
     templates = leaf_templates(net)
     shapes = {path: tuple(t.shape) for path, t in templates.items()}
     specs = model.shard(net, mesh, fsdp=fsdp)
-    zero = {path: specs[path] if dims_over(specs[path], "data")
+    tp = ({path: leaf_spec(path, shape, mesh)
+           for path, shape in shapes.items()} if fsdp else None)
+    zero = {path: specs[path] if fsdp and tp[path] != specs[path]
             else leaf_zero_spec(path, shape, mesh)
             for path, shape in shapes.items()}
-    layout = Layout(mesh, shapes, specs, zero)
+    layout = Layout(mesh, shapes, specs, zero, tp)
     if opt_cfg is None:
         return net, layout, None
     whole = opt_cfg.kind == "adafactor"
@@ -317,11 +346,13 @@ class Trainer:
                        else canonical(device))
         self.model = build_model(cfg.model)
         self.data = DataPipeline(cfg.data)
-        self.mesh = Mesh({}) if mesh is None else mesh
+        # the rules' batch axes that divide the global batch
+        self.mesh = (Mesh({}) if mesh is None else mesh).for_batch(
+            cfg.data.global_batch)
         #: the reference's expert-parallel test on the mesh given (MoE only)
         self.ep_works = None
         if mesh is not None and cfg.model.moe:
-            with use_mesh(mesh):
+            with use_mesh(self.mesh):
                 self.ep_works = moe.ep_works(cfg.model)
         self.net, self.layout, self.opt_state = rank_state(
             self.model, cfg.opt, self.mesh, seed=seed, device=self.device,
@@ -416,8 +447,9 @@ class Trainer:
                 for k, v in self.rows(self.data.batch_at(step)).items()}
 
     def rows(self, batch: Mapping[str, Any]) -> Dict[str, Any]:
-        """This rank's share of a global batch: the rows at its
-        ``("pod", "data")`` coordinate (all of them without a mesh)."""
+        """This rank's share of a global batch: the rows at its coordinate
+        on the batch axes (``Mesh.batch_axes``; all of them without a
+        mesh)."""
         if not self.mesh.batch_axes:
             return dict(batch)
         axes = self.mesh.batch_axes
@@ -429,6 +461,19 @@ class Trainer:
                                  f"over {n} batch ranks")
             size = v.shape[0] // n
             out[k] = v[i * size:(i + 1) * size]
+        return out
+
+    def whole(self, tensors: Mapping[str, torch.Tensor]
+              ) -> Dict[str, np.ndarray]:
+        """``{parameter name: this rank's block}`` (gradients, say) as
+        ``{reference leaf path: numpy array}`` of whole leaves, gathered
+        over the mesh (every rank takes part)."""
+        lay, out = self.layout, {}
+        for path, leaf in reference_leaves(self.net).items():
+            spec = lay.specs[path][leaf.stacked:]
+            rows = [host_array(gather(tensors[n].detach(), spec, lay.mesh))
+                    for n in leaf.names]
+            out[path] = np.stack(rows) if leaf.stacked else rows[0]
         return out
 
     def train_step(self, batch: Mapping[str, torch.Tensor]) -> dict:

@@ -39,6 +39,7 @@ from repro_torch.distributed import spawn
 from repro_torch.kernels import (flash_attention_cuda, slstm_scan_bwd_cuda,
                                  slstm_scan_cuda, ssm_scan_cuda)
 from repro_torch.kernels import launches, reset_launches
+from repro_torch.launch.specs import rules_for
 from repro_torch.training import AdamWConfig, DataConfig, TrainConfig, Trainer
 
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
@@ -206,6 +207,11 @@ CASES = [("starcoder2-3b", False), ("qwen2-moe-a2.7b", False),
          ("starcoder2-3b", True)]
 
 
+#: one train cell a profile of the reference's other two: the dense arch
+#: (remat) on the profile's rules
+PROFILE_CASES = ("dp_sp", "seq_sp")
+
+
 def _trainer(arch, mesh, fsdp):
     cfg = dataclasses.replace(get(arch).reduced(),
                               remat=arch == "starcoder2-3b")
@@ -261,6 +267,18 @@ def _count_rank(rank, world, device, shape):
         out[f"decode-{arch}-{s1}"] = [
             _decode_stats(arch, s1, mesh)
             for mesh in (real, counting_mesh(shape, rank))]
+    for profile in PROFILE_CASES:
+        rules = rules_for("starcoder2-3b", profile)
+        seen = []
+        for mesh in (real.with_rules(rules),
+                     counting_mesh(shape, rank).with_rules(rules)):
+            tr = _trainer("starcoder2-3b", mesh, False)
+            batch = tr.batch_at(0)
+            pg.reset_collective_stats()
+            tr.train_step(batch)
+            st = pg.collective_stats()
+            seen.append((st["calls_by_kind"], st["bytes_by_kind"]))
+        out[f"profile-{profile}"] = seen
     return out
 
 
@@ -282,6 +300,25 @@ def test_counting_mesh_counts_what_the_world_sends(counted_world, case,
     assert set(calls) >= {"all-reduce", "all-gather"}
     if case.endswith("fsdp"):
         assert calls.get("reduce-scatter", 0) > 0
+    assert all(v > 0 for v in nbytes.values())
+
+
+@pytest.mark.parametrize("rank", range(4))
+@pytest.mark.parametrize("profile", PROFILE_CASES)
+def test_counting_mesh_counts_what_a_profile_sends(counted_world, profile,
+                                                   rank):
+    """A train step of the dense arch on the (1, 2, 2) world under
+    ``dp_sp`` (the gradients averaged over both axes, ZeRO-1 over both)
+    and ``seq_sp`` (the rows gathered into each block, the blocks' partial
+    sums reduce-scattered) sends what the counting mesh records."""
+    real, counted = counted_world[rank][f"profile-{profile}"]
+    assert real == counted
+    calls, nbytes = real
+    assert calls["all-reduce"] > 0 and calls["all-gather"] > 0
+    if profile == "seq_sp":
+        assert calls["reduce-scatter"] > 0
+    else:
+        assert "reduce-scatter" not in calls
     assert all(v > 0 for v in nbytes.values())
 
 
@@ -395,6 +432,20 @@ def test_the_cli_writes_a_record_without_jax(tmp_path):
     assert "| whisper-tiny | train_4k |" in table
     agg = roofline_table.main(str(tmp_path / "out"))
     assert agg["pod"]["n_cells"] == 1
+
+
+def test_the_cli_writes_a_profile_record_without_jax(tmp_path):
+    """``--profile seq_sp`` counts the cell under the reference's
+    Megatron-SP rules and says so in the record, with JAX absent."""
+    res = _cli(tmp_path, "--arch", "whisper-tiny", "--shape", "train_4k",
+               "--mesh", "pod", "--profile", "seq_sp", "--out",
+               str(tmp_path / "seq"))
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "JAX_IMPORTED False EXIT 0" in res.stdout
+    with open(tmp_path / "seq" / "pod" / "whisper-tiny@train_4k.json") as f:
+        rec = json.load(f)
+    assert rec["profile"] == "seq_sp" and rec["lowered"]
+    assert rec["collective_bytes"] > 0
 
 
 def test_the_roofline_bench_emits_the_records(tmp_path, monkeypatch,

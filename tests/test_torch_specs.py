@@ -51,6 +51,9 @@ MULTIPOD = [("qwen1.5-110b", "train_4k"), ("arctic-480b", "train_4k"),
 MESHES = {"pod": (16, 16), "multipod": (2, 16, 16)}
 KEYS = ("fsdp", "microbatches", "grad_accum_dtype", "opt_state_dtype",
         "cache_len", "params", "active_params", "kind")
+#: the reference's other sharding profiles; their cells' keys are
+#: "<profile>/<mesh>/<arch>@<shape>" (the baseline's "<mesh>/...")
+PROFILES = ("dp_sp", "seq_sp")
 
 REFERENCE = textwrap.dedent(r"""
     import json, sys
@@ -63,10 +66,17 @@ REFERENCE = textwrap.dedent(r"""
     out = {}
     for name, multi in (("pod", False), ("multipod", True)):
         mesh = make_production_mesh(multi_pod=multi)
-        for arch, shape in (ALL_CELLS if not multi else sample):
-            with shd.use_mesh(mesh, rules=rules_for(arch)):
-                _, _, flops, meta = step_and_specs(arch, shape, mesh)
-            out[f"{name}/{arch}@{shape}"] = dict(meta, model_flops=flops)
+        for profile in ("baseline", "dp_sp", "seq_sp"):
+            pre = "" if profile == "baseline" else profile + "/"
+            for arch, shape in (ALL_CELLS if not multi else sample):
+                with shd.use_mesh(mesh, rules=rules_for(arch, profile)):
+                    _, args, flops, meta = step_and_specs(arch, shape, mesh)
+                # the rank's rows: the tokens' block under their sharding
+                tok = (args[1] if meta["kind"] == "decode" else
+                       args[-1]["tokens"])
+                rows = tok.sharding.shard_shape(tok.shape)[0]
+                out[f"{pre}{name}/{arch}@{shape}"] = dict(
+                    meta, model_flops=flops, rows=rows)
     print(json.dumps(out))
 """)
 
@@ -94,12 +104,17 @@ def port_meta(tmp_path_factory):
     tuner_mod.default_tuner = lambda: tuner
     try:
         out = {}
-        for name, shape in MESHES.items():
-            mesh = counting_mesh(shape)
-            cells = ALL_CELLS if name == "pod" else MULTIPOD
-            for arch, s in cells:
-                meta, flops = specs.cell_meta(get(arch), SHAPES[s], mesh)
-                out[f"{name}/{arch}@{s}"] = dict(meta, model_flops=flops)
+        for profile in ("baseline",) + PROFILES:
+            pre = "" if profile == "baseline" else profile + "/"
+            for name, shape in MESHES.items():
+                cells = ALL_CELLS if name == "pod" else MULTIPOD
+                for arch, s in cells:
+                    mesh = counting_mesh(shape).with_rules(
+                        specs.rules_for(arch, profile))
+                    meta, flops = specs.cell_meta(get(arch), SHAPES[s], mesh)
+                    out[f"{pre}{name}/{arch}@{s}"] = dict(
+                        meta, model_flops=flops,
+                        rows=specs.batch_rows(SHAPES[s], mesh))
         return out
     finally:
         tuner_mod.default_tuner = saved
@@ -110,16 +125,21 @@ def test_every_cell_is_sampled():
     assert set(MULTIPOD) <= set(ALL_CELLS)
 
 
+_CELL_KEYS = ([f"pod/{a}@{s}" for a, s in ALL_CELLS]
+              + [f"multipod/{a}@{s}" for a, s in MULTIPOD])
+
+
 @pytest.mark.parametrize(
-    "key", [f"pod/{a}@{s}" for a, s in ALL_CELLS]
-    + [f"multipod/{a}@{s}" for a, s in MULTIPOD])
+    "key", _CELL_KEYS + [f"{p}/{k}" for p in PROFILES for k in _CELL_KEYS])
 def test_meta_equals_the_references(reference_meta, port_meta, key):
     """``fsdp``, ``microbatches``, ``grad_accum_dtype``,
-    ``opt_state_dtype``, ``cache_len``, ``params``, ``active_params`` and
-    ``model_flops``, exactly."""
+    ``opt_state_dtype``, ``cache_len``, ``params``, ``active_params``, the
+    rank's rows of the batch and ``model_flops``, exactly, under the
+    baseline's rules and the ``dp_sp`` and ``seq_sp`` profiles'."""
     want, got = reference_meta[key], port_meta[key]
     for k in KEYS:
         assert got.get(k) == want.get(k), k
+    assert got["rows"] == want["rows"]
     assert got["model_flops"] == want["model_flops"]
 
 
@@ -198,10 +218,60 @@ def test_depth_cut():
     assert flops == 2.0 * cfg.param_count() * 32 * 32768
 
 
-def test_other_profiles_are_refused():
-    assert specs.rules_for("starcoder2-3b") == {}
-    with pytest.raises(ValueError, match="not ported"):
-        specs.rules_for("starcoder2-3b", "dp_sp")
+RULES = textwrap.dedent(r"""
+    import json, sys
+    sys.path.insert(0, sys.argv[1])
+    from repro.configs import ARCHS
+    from repro.distributed import sharding as shd
+    from repro.launch.mesh import make_production_mesh
+    from repro.launch.specs import PROFILES, rules_for
+    out = {"profiles": sorted(PROFILES)}
+    for name, multi in (("pod", False), ("multipod", True)):
+        mesh = make_production_mesh(multi_pod=multi)
+        for profile in PROFILES:
+            for arch in ARCHS:
+                given = rules_for(arch, profile)
+                with shd.use_mesh(mesh, rules=given):
+                    fixed = shd.active()[1]
+                out[f"{profile}/{arch}"] = given
+                out[f"{name}/{profile}/{arch}"] = fixed
+    print(json.dumps(out))
+""")
+
+
+@pytest.fixture(scope="module")
+def reference_rules():
+    env = dict(os.environ)
+    env.update(XLA_FLAGS="--xla_force_host_platform_device_count=512",
+               JAX_PLATFORMS="cpu")
+    res = subprocess.run([sys.executable, "-c", RULES, SRC],
+                         capture_output=True, text=True, env=env,
+                         timeout=600)
+    assert res.returncode == 0, res.stderr[-4000:]
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def _as_json(rules):
+    return json.loads(json.dumps(rules))
+
+
+@pytest.mark.parametrize("profile", ["baseline", "dp_sp", "seq_sp"])
+def test_profiles_are_the_references(reference_rules, profile):
+    """``rules_for`` gives the reference's dict for every arch, and the
+    rules a mesh runs under (``Mesh.rules``, as ``use_mesh`` fixes them
+    to the mesh's axes) equal the reference's ``use_mesh``'s on (16, 16)
+    and (2, 16, 16)."""
+    from repro_torch.configs import ARCHS
+    assert sorted(specs.PROFILES) == reference_rules["profiles"]
+    for arch in ARCHS:
+        rules = specs.rules_for(arch, profile)
+        assert _as_json(rules) == reference_rules[f"{profile}/{arch}"]
+        for name, shape in MESHES.items():
+            mesh = counting_mesh(shape).with_rules(rules)
+            assert _as_json(mesh.rules) == \
+                reference_rules[f"{name}/{profile}/{arch}"], (name, arch)
+            with shd.use_mesh(mesh):
+                assert shd.active()[1] == mesh.rules
 
 
 def test_fsdp_spec_keeps_the_layer_axis_whole():
