@@ -107,8 +107,9 @@
    against the CPU with one state dict and one numpy batch, for
    starcoder2-3b (K4 at S = 2304), hymba-1.5b (K5 and its windowed loop),
    xlstm-350m (K5 at 256 x 257 and K6), qwen2-moe-a2.7b (the aux loss,
-   its routing compared: gated only where it agrees), whisper-tiny and
-   llama-3.2-vision-11b: loss < 1e-4 relative, each gradient < 1e-3 of
+   its routing compared: gated only where it agrees; 256 tokens),
+   whisper-tiny and llama-3.2-vision-11b (256 tokens): loss < 1e-4
+   relative, each gradient < 1e-3 of
    its largest entry; starcoder2-3b also with remat against without on
    the card.  10.2: starcoder2-3b bf16 at full width and depth, one
    prompt of 4096 tokens, remat, AdamW with fp32 moments, four steps
@@ -214,8 +215,17 @@
    (a key bias's, zero in exact arithmetic, of its weight's); K4 (for
    xlstm K5, K6 and K6's backward) in every rank, no plain version on a
    CUDA tensor; each rank's peak memory and the collective bytes by kind
-   reported.  The kernels line adds every rank's launches of 13.1, 13.2,
-   13.5 and 13.7.
+   reported.  13.8, the head-parallel blocks under the baseline rules,
+   with 13.7's gates and reports: xlstm-350m at depth 2 on (1, 1, 4)
+   with 13.7's xlstm batch and unsharded run (the mLSTM on 1 of its 4
+   heads a rank, the sLSTM on 256 of its 1024 features; K5, K6 and K6's
+   backward in every rank), and whisper-tiny at full depth on (1, 2, 2),
+   S 2304, global batch 2 (3 of its 6 heads a rank in the encoder's and
+   the decoder's self-attention and the cross-attention; K4 in every
+   rank), each against its unsharded run on the card; every attention,
+   SSM and xLSTM block tensor-parallel and no all-gather over ``model``
+   of a ``"tp"`` leaf, in every rank.  The kernels line adds every
+   rank's launches of 13.1, 13.2, 13.5, 13.7 and 13.8.
 14. The dry run (``repro_torch.launch.dryrun``, ``launch/specs.py``,
    ``core/roofline.py``): rank 0 of the (16, 16) ``data, model`` mesh,
    its collectives counted and not sent (``counting_mesh``).  14.1: the
@@ -2355,9 +2365,10 @@ def batch_against_single(torch):
 # remat off (checked on and off on the card for starcoder2-3b below):
 # (arch, config changes, tokens, the launches each kernel makes in the
 # card's forward).  S = 2304 takes K4 (starcoder2-3b, whisper-tiny's
-# decoder) and hymba-1.5b's windowed loop; K5 and K6 take any S >= 128.
-# Loss within 1e-4 relative, each parameter's gradient within 1e-3 of its
-# largest entry: only summation orders differ (fp32 products with IEEE
+# decoder) and hymba-1.5b's windowed loop; K5 and K6 take any S >= 128;
+# qwen2-moe-a2.7b and the VLM take no kernel and run 256 tokens (512
+# before they were cut for the script's time).  Loss within 1e-4
+# relative, each parameter's gradient within 1e-3 of its largest entry: only summation orders differ (fp32 products with IEEE
 # fp32, the kernels' forward, K4's and K5's twins' backward and K6's
 # backward kernel against its plain version)
 TRAIN_CHECKS = (
@@ -2365,9 +2376,9 @@ TRAIN_CHECKS = (
     ("hymba-1.5b", {"n_layers": 1}, 2304, {"ssm_scan_cuda": 1}),
     ("xlstm-350m", {"n_layers": 2}, 1024,
      {"ssm_scan_cuda": 1, "slstm_scan_cuda": 1, "slstm_scan_bwd_cuda": 1}),
-    ("qwen2-moe-a2.7b", {"n_layers": 2}, 512, {}),
+    ("qwen2-moe-a2.7b", {"n_layers": 2}, 256, {}),
     ("whisper-tiny", {}, 2304, {"flash_attention_cuda": 4}),
-    ("llama-3.2-vision-11b", {"n_layers": 2, "cross_attn_every": 2}, 512, {}),
+    ("llama-3.2-vision-11b", {"n_layers": 2, "cross_attn_every": 2}, 256, {}),
 )
 TRAIN_LOSS_TOL = 1e-4
 TRAIN_GRAD_TOL = 1e-3
@@ -3302,11 +3313,17 @@ def shard_config(dtype, layers, remat=None):
 
 
 def shard_batch(cfg, seq, rows=SHARD_BATCH):
-    """``rows`` rows of tokens and next-token labels, drawn with numpy."""
+    """``rows`` rows of tokens and next-token labels, and the stub inputs
+    the arch takes (whisper's frames), drawn with numpy."""
     import numpy as np
+    from repro_torch.launch.prefill import stub_shapes
     rng = np.random.default_rng(SEED + 13)
     tok = rng.integers(0, cfg.vocab_size, (rows, seq + 1)).astype(np.int32)
-    return {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    out = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    for name, shape in stub_shapes(cfg).items():
+        out[name] = (rng.standard_normal((rows,) + shape) * 0.1).astype(
+            np.float32)
+    return out
 
 
 def shard_trainer(cfg, seq, opt, mesh=None, device="cuda",
@@ -3430,6 +3447,8 @@ def sharded_training(torch):
     add_counts(totals, arctic_report([r["arctic"] for r in rs]))
     decode_report([r["decode"] for r in rs])
     add_counts(totals, profiles_report([r["profiles"] for r in rs], root))
+    add_counts(totals, profiles_report([r["heads"] for r in rs], root,
+                                       HEAD_RUNS, "13.8"))
     shard_launcher(torch)
     check(os.stat(so).st_mtime_ns == built,
           "§13: a rank rebuilt the extension in build/torch_ext/")
@@ -3612,8 +3631,8 @@ def shard_rank(rank, world, device, want_file, layers, ep_file,
                decode_file, root):
     """One rank of §13's world: 13.2 (first, on a fresh allocator: it
     fills the card), 13.1 on each SHARD_EXACT mesh, 13.3, 13.5 on each
-    EP_MESHES mesh and arctic-480b's forward, 13.6, then 13.7, each on a
-    mesh of its own over the world."""
+    EP_MESHES mesh and arctic-480b's forward, 13.6, then 13.7 and 13.8,
+    each on a mesh of its own over the world."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.launch.mesh import make_mesh
@@ -3644,9 +3663,10 @@ def shard_rank(rank, world, device, want_file, layers, ep_file,
     out["decode"] = decode_rank(torch, make_mesh(*DECODE_MESH), decode_file)
     gc.collect()
     torch.cuda.empty_cache()
-    meshes = {shape: make_mesh(*shape)
-              for shape in sorted({run[1] for run in PROFILE_RUNS})}
-    out["profiles"] = profile_rank(torch, meshes, root)
+    meshes = {shape: make_mesh(*shape) for shape in sorted(
+        {run[1] for run in PROFILE_RUNS + HEAD_RUNS})}
+    out["profiles"] = profile_rank(torch, meshes, root, PROFILE_RUNS)
+    out["heads"] = profile_rank(torch, meshes, root, HEAD_RUNS)
     return out
 
 
@@ -3809,14 +3829,14 @@ def ep_config():
 
 
 class ModelGathers:
-    """Records, while installed, the operand shape of every all-gather
-    over the ``model`` axis of ``mesh`` (the collectives of the sharding
-    module and the models)."""
+    """Records, while installed, the operand shape and storage of every
+    all-gather over the ``model`` axis of ``mesh`` (the collectives of the
+    sharding module and the models)."""
 
     def __init__(self, mesh):
         self.group = (mesh.group("model") if mesh.shape.get("model", 1) > 1
                       else None)
-        self.shapes = []
+        self.shapes, self.ptrs = [], set()
 
     def __enter__(self):
         from repro_torch.distributed import process_group as pg
@@ -3825,6 +3845,7 @@ class ModelGathers:
         def recorded(x, group=None, *, dim=0):
             if group is not None and group is self.group:
                 self.shapes.append(tuple(x.shape))
+                self.ptrs.add(x.data_ptr())
             return self._orig(x, group, dim=dim)
 
         pg.all_gather = recorded
@@ -4109,16 +4130,32 @@ def decode_report(rs):
 
 # -- 13.7 the reference's dp_sp and seq_sp profiles -----------------------------
 
-#: 13.7: (profile, mesh, arch, sequence, global batch), each fp32 at full
-#: width, depth 2, on its own mesh of §13's world: starcoder2-3b under
+#: 13.7: (profile, mesh, arch, sequence, global batch, layers), each fp32
+#: at full width on its own mesh of §13's world: starcoder2-3b under
 #: dp_sp, one row a rank; under seq_sp with 13.1's batch (576 positions a
 #: rank, the reference 13.1's own run); xlstm-350m under seq_sp at S 1024
-#: (its mLSTM and sLSTM run whole on the gathered sequence: K5, K6 and
-#: K6's backward)
-PROFILE_RUNS = (("dp_sp", (1, 2, 2), "starcoder2-3b", SHARD_SEQ, 4),
+#: (its mLSTM on 1 of the 4 heads a rank and its sLSTM on 256 of the 1024
+#: features, each on the gathered sequence: K5, K6 and K6's backward)
+PROFILE_RUNS = (("dp_sp", (1, 2, 2), "starcoder2-3b", SHARD_SEQ, 4, 2),
                 ("seq_sp", (1, 1, 4), "starcoder2-3b", SHARD_SEQ,
-                 SHARD_BATCH),
-                ("seq_sp", (1, 1, 4), "xlstm-350m", 1024, SHARD_BATCH))
+                 SHARD_BATCH, 2),
+                ("seq_sp", (1, 1, 4), "xlstm-350m", 1024, SHARD_BATCH, 2))
+#: 13.8, the head-parallel blocks under the baseline rules, as 13.7's
+#: runs: xlstm-350m at depth 2 on (1, 1, 4), 13.7's xlstm batch and
+#: unsharded run (the mLSTM on 1 of its 4 heads a rank, the sLSTM on 256
+#: of its 1024 features); whisper-tiny at full depth (None) on (1, 2, 2),
+#: S 2304 (the decoder's self-attention takes K4): 3 of its 6 heads a rank
+#: in the encoder's and the decoder's self-attention and in the
+#: cross-attention
+HEAD_RUNS = (("baseline", (1, 1, 4), "xlstm-350m", 1024, SHARD_BATCH, 2),
+             ("baseline", (1, 2, 2), "whisper-tiny", SHARD_SEQ,
+              SHARD_BATCH, None))
+#: the kernels each arch's runs in 13.7 and 13.8 must launch in every rank
+PROFILE_KERNELS = {
+    "starcoder2-3b": ("flash_attention_cuda",),
+    "whisper-tiny": ("flash_attention_cuda",),
+    "xlstm-350m": ("ssm_scan_cuda", "slstm_scan_cuda",
+                   "slstm_scan_bwd_cuda")}
 #: each leaf's first-step gradient against the unsharded one's, relative
 #: to its largest entry
 PROFILE_GRAD_TOL = 1e-5
@@ -4153,47 +4190,59 @@ def grad_scales(grads):
     return out
 
 
+def profile_config(run):
+    """The fp32 config of a 13.7 or 13.8 run: full width, its depth."""
+    _, _, arch, _, _, layers = run
+    return check_config(arch, "float32",
+                        {} if layers is None else {"n_layers": layers})
+
+
 def profile_file(root, run):
-    """The file of a 13.7 run's unsharded reference."""
-    _, _, arch, seq, rows = run
-    if (arch, seq, rows) == (SHARD_ARCH, SHARD_SEQ, SHARD_BATCH):
+    """The file of a 13.7 or 13.8 run's unsharded reference."""
+    _, _, arch, seq, rows, layers = run
+    if (arch, seq, rows, layers) == (SHARD_ARCH, SHARD_SEQ, SHARD_BATCH, 2):
         return os.path.join(root, "exact_want.pt")     # 13.1's
-    return os.path.join(root, f"profile_want_{arch}_{seq}_{rows}.pt")
+    return os.path.join(root,
+                        f"profile_want_{arch}_{seq}_{rows}_{layers}.pt")
 
 
 def profiles_unsharded(torch, root):
-    """13.7's references that 13.1's is not: two unsharded steps (and
-    the first step's gradients) of each other (arch, seq, rows)."""
-    for run in PROFILE_RUNS:
-        _, _, arch, seq, rows = run
+    """13.7's and 13.8's references that 13.1's is not: two unsharded
+    steps (and the first step's gradients) of each other (arch, seq,
+    rows, layers)."""
+    for run in PROFILE_RUNS + HEAD_RUNS:
         path = profile_file(root, run)
         if not os.path.exists(path):
-            exact_unsharded(torch, root, check_config(
-                arch, "float32", {"n_layers": 2}), os.path.basename(path),
-                seq, rows, grads=True)
+            exact_unsharded(torch, root, profile_config(run),
+                            os.path.basename(path), run[3], run[4],
+                            grads=True)
             gc.collect()
             torch.cuda.empty_cache()
 
 
-def profile_rank(torch, world_mesh, root):
-    """13.7 on this rank: each PROFILE_RUNS run on a view of its mesh
+def profile_rank(torch, world_mesh, root, runs):
+    """13.7 (13.8) on this rank: each of ``runs`` on a view of its mesh
     under the profile's rules, two steps (the first through its parts,
     ``step_gradients`` then ``apply_update``, as ``train_step`` runs
     them): the first step's gradient blocks and the parameter blocks
     after two steps against the unsharded run's, the losses, the peak
-    memory, the collectives by kind, the launches."""
+    memory, the collectives by kind, the launches; the tensor-parallel
+    modules among the attention, SSM and xLSTM blocks, and the
+    ``"tp"`` leaves that an all-gather over ``model`` took."""
     from repro_torch import kernels
     from repro_torch.distributed import (collective_stats,
                                          reset_collective_stats)
     from repro_torch.distributed.sharding import shard_of
     from repro_torch.launch.specs import rules_for
+    from repro_torch.models.attention import Attention
     from repro_torch.models.convert import reference_leaves
+    from repro_torch.models.ssm import MLSTM, SLSTM, SSD
     from repro_torch.training.trainer import apply_update, step_gradients
     out = []
-    for run in PROFILE_RUNS:
-        profile, shape, arch, seq, rows = run
+    for run in runs:
+        profile, shape, arch, seq, rows, _ = run
         mesh = world_mesh[shape].with_rules(rules_for(arch, profile))
-        cfg = check_config(arch, "float32", {"n_layers": 2})
+        cfg = profile_config(run)
         want_file = profile_file(root, run)
         want = torch.load(want_file, mmap=True)
         gc.collect()
@@ -4204,7 +4253,8 @@ def profile_rank(torch, world_mesh, root):
                  for k, v in tr.rows(shard_batch(cfg, seq, rows)).items()}
         kernels.reset_launches()
         reset_collective_stats()
-        with PlainK4Calls() as plain, PlainK6Calls() as plain_k6:
+        with PlainK4Calls() as plain, PlainK6Calls() as plain_k6, \
+                ModelGathers(mesh) as gathers:
             # the first step as train_step takes it, its gradient blocks
             # compared on the way
             t0 = time.perf_counter()
@@ -4231,7 +4281,19 @@ def profile_rank(torch, world_mesh, root):
         counts = kernels.launches()
         stats = collective_stats()
         errs, leaves_match = block_errors(torch, tr, want_file)
+        tp_leaves = {n: p for n, p in tr.net.named_parameters()
+                     if getattr(p, "placement", None) is not None
+                     and p.placement.mode == "tp"}
         out.append({"losses": losses, "grad_errs": gerrs, "errs": errs,
+                    "blocks": sorted(
+                        n for n, m in tr.net.named_modules()
+                        if isinstance(m, (Attention, MLSTM, SLSTM, SSD))),
+                    "tp": sorted(n for n, m in tr.net.named_modules()
+                                 if getattr(m, "tp", None) is not None),
+                    "tp_leaves": len(tp_leaves),
+                    "tp_leaf_gathers": sorted(
+                        n for n, p in tp_leaves.items()
+                        if p.data_ptr() in gathers.ptrs),
                     "leaves_match": leaves_match,
                     "peak": torch.cuda.max_memory_allocated(),
                     "step_wall_s": walls, "launches": counts,
@@ -4247,16 +4309,18 @@ def profile_rank(torch, world_mesh, root):
     return out
 
 
-def profiles_report(rs, root):
-    """13.7's gates on each run's ranks: loss within SHARD_LOSS_TOL
-    relative, every block of every parameter within SHARD_PARAM_TOL and
-    of every first-step gradient within PROFILE_GRAD_TOL of the unsharded
-    run's; K4 (starcoder2-3b) or K5, K6 and K6's backward (xlstm) launched
-    in every rank, no plain version on a CUDA tensor."""
+def profiles_report(rs, root, runs=PROFILE_RUNS, section="13.7"):
+    """13.7's (13.8's) gates on each run's ranks: loss within
+    SHARD_LOSS_TOL relative, every block of every parameter within
+    SHARD_PARAM_TOL and of every first-step gradient within
+    PROFILE_GRAD_TOL of the unsharded run's; PROFILE_KERNELS launched in
+    every rank, no plain version on a CUDA tensor.  13.8's also: every
+    attention, SSM and xLSTM block tensor-parallel, and no all-gather over
+    ``model`` of a ``"tp"`` leaf, in every rank."""
     totals = {}
-    for j, run in enumerate(PROFILE_RUNS):
-        profile, shape, arch, seq, rows = run
-        tag = f"§13.7 {profile} {arch} {'x'.join(map(str, shape))}"
+    for j, run in enumerate(runs):
+        profile, shape, arch, seq, rows, layers = run
+        tag = f"§{section} {profile} {arch} {'x'.join(map(str, shape))}"
         a = [r[j] for r in rs]
         want_losses = unsharded_losses(root, run)
         errs, gerrs = {}, {}
@@ -4268,10 +4332,14 @@ def profiles_report(rs, root):
         worst, gworst = max(errs, key=errs.get), max(gerrs, key=gerrs.get)
         loss_err = max(abs(l - w) / abs(w) for x in a
                        for l, w in zip(x["losses"], want_losses))
-        need = (("flash_attention_cuda",) if arch == SHARD_ARCH else
-                ("ssm_scan_cuda", "slstm_scan_cuda", "slstm_scan_bwd_cuda"))
-        emit({"shard_profile": profile, "arch": arch, "mesh": shape,
-              "seq": seq, "global_batch": rows, "layers": 2,
+        need = PROFILE_KERNELS[arch]
+        emit({"shard_profile" if section == "13.7" else "shard_heads":
+              profile, "arch": arch, "mesh": shape, "seq": seq,
+              "global_batch": rows, "layers": layers or "full",
+              "tp_modules": a[0]["tp"],
+              "tp_leaves_by_rank": [x["tp_leaves"] for x in a],
+              "tp_leaf_gathers_over_model_by_rank": [
+                  len(x["tp_leaf_gathers"]) for x in a],
               "batch_axes": a[0]["batch_axes"],
               "rows_by_rank": [x["rows"] for x in a],
               "losses": a[0]["losses"], "unsharded_losses": want_losses,
@@ -4296,6 +4364,12 @@ def profiles_report(rs, root):
               f"{tag}: {gworst}'s gradient rel err {gerrs[gworst]:.3e}")
         check(all(x["leaves_match"] for x in a), f"{tag}: leaves differ")
         for rank, x in enumerate(a):
+            if section == "13.8":
+                check(x["tp"] and set(x["blocks"]) <= set(x["tp"]),
+                      f"{tag}: blocks not tensor-parallel in rank {rank}: "
+                      f"{sorted(set(x['blocks']) - set(x['tp']))}")
+                check(not x["tp_leaf_gathers"], f"{tag}: rank {rank} "
+                      f"gathered tp leaves {x['tp_leaf_gathers']}")
             check(x["on_card"], f"{tag}: a rank's tensors left the card")
             for k in need:
                 check(x["launches"][k] > 0,
@@ -4307,8 +4381,8 @@ def profiles_report(rs, root):
 
 
 def unsharded_losses(root, run):
-    """The unsharded losses of a 13.7 run (``exact_unsharded`` keeps
-    them beside its file)."""
+    """The unsharded losses of a 13.7 or 13.8 run (``exact_unsharded``
+    keeps them beside its file)."""
     with open(profile_file(root, run) + ".losses.json") as f:
         return json.load(f)
 

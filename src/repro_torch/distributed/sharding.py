@@ -18,12 +18,15 @@ gives this rank's block of a whole tensor under a spec, and
 :func:`gather` is its inverse over the spec's axes.  ``shard_module``
 cuts a network's parameters to their blocks and marks how each is used:
 
-* ``"tp"``: a leaf of a dense block whose spec cuts on whole heads or on
-  the ``d_ff`` columns, or an MoE expert bank cut on the experts' ``ff``
-  dimension (the experts do not divide ``model``).  The block's forward
-  runs on the rank's block between :func:`tp_enter` (identity forward,
-  all-reduced gradient) and :func:`tp_exit` (all-reduced forward,
-  identity gradient).
+* ``"tp"``: a leaf of a block whose spec cuts on whole heads (self- and
+  cross-attention, the mLSTM, the SSD head), on the sLSTM's features or
+  on the ``d_ff`` columns, or an MoE expert bank cut on the experts'
+  ``ff`` dimension (the experts do not divide ``model``).  The block's
+  forward runs on the rank's block between :func:`tp_enter` (identity
+  forward, all-reduced gradient) and :func:`tp_exit` (all-reduced
+  forward, identity gradient) (:func:`block_enter`, :func:`block_exit`);
+  a gate leaf the rules keep whole (``wf``, ``wdt``) is used on the
+  rank's columns (:func:`rank_columns`).
 * ``"ep"``: an MoE expert bank cut on its experts (they divide
   ``model``): the rank runs its own experts, between the same pair.
 * ``"gather"``: every other leaf the spec shards over ``model``.  It is
@@ -802,6 +805,37 @@ def seq_exit(y: torch.Tensor, tp: TP) -> torch.Tensor:
     """The output of a row-parallel block as the rank's rows: the partial
     sums reduce-scattered; the gradient all-gathered."""
     return _ScatterSum.apply(y, 1, tp)
+
+
+def block_enter(x: torch.Tensor, tp: Optional[TP],
+                sp: Optional[TP] = None) -> torch.Tensor:
+    """The input of a block run tensor-parallel on ``tp``:
+    :func:`tp_enter`, or under ``sp`` (:func:`seq_tp`) the ranks' rows put
+    whole (:func:`seq_enter`); ``x`` itself where ``tp`` is None."""
+    if tp is None:
+        return x
+    return tp_enter(x, tp) if sp is None else seq_enter(x, sp)
+
+
+def block_exit(y: torch.Tensor, tp: Optional[TP],
+               sp: Optional[TP] = None) -> torch.Tensor:
+    """The output of a block run tensor-parallel on ``tp``: the partial
+    sums added (:func:`tp_exit`), or under ``sp`` the rank's rows of them
+    (:func:`seq_exit`); ``y`` itself where ``tp`` is None."""
+    if tp is None:
+        return y
+    return tp_exit(y, tp) if sp is None else seq_exit(y, sp)
+
+
+def rank_columns(p: torch.Tensor, tp: TP, width: int) -> torch.Tensor:
+    """This rank's ``width`` columns (the block of the last dimension at
+    its ``model`` index) of a leaf that every ``model`` rank holds whole:
+    a gate of a tensor-parallel block, whose columns are the block's heads
+    or features.  The rank's use gives the gradient of its own columns
+    only; :func:`tp_enter` sums it over ``model``, so that every rank
+    holds the whole leaf's gradient, as the trainer takes a replicated
+    leaf's."""
+    return tp_enter(placed(p), tp).narrow(-1, tp.index * width, width)
 
 
 def on_sequence(block, h: torch.Tensor, sp: Optional[TP],

@@ -11,7 +11,9 @@ Three routes, chosen as the reference chooses them:
   loop over KV chunks. K4 has no window, as the TPU kernel has none.
 
 Cross-attention (the VLM's image layers, whisper's decoder) takes ``_sdpa``
-with no mask at every length, as in the reference.
+with no mask at every length, as in the reference; under a mesh it runs
+tensor-parallel as the self-attention does, against the memory that
+every ``model`` rank holds whole.
 
 K4 has no backward.  Where a graph is built (training), the K4 site goes
 through ``FlashAttention``: its forward launches K4, its backward recomputes
@@ -54,8 +56,8 @@ import torch
 from torch import nn
 
 from ..distributed import process_group as pg
-from ..distributed.sharding import (seq_enter, seq_exit, tp_enter, tp_exit,
-                                    tp_gather)
+from ..distributed.sharding import (block_enter, block_exit, tp_enter,
+                                    tp_exit, tp_gather)
 from ..kernels.flash_attention import flash_attention
 from .layers import Linear, apply_rope, dtype_of
 
@@ -71,7 +73,7 @@ KV_CHUNK = 1024
 class Attention(nn.Module):
     """The projections wq, wk, wv (optional bias) and wo, of a self- or a
     cross-attention block alike.  ``tp`` (a ``sharding.TP``) is set where
-    the self-attention runs tensor-parallel; ``kv_tp`` when ``wk`` / ``wv``
+    the block runs tensor-parallel; ``kv_tp`` when ``wk`` / ``wv``
     are cut on whole KV heads too."""
 
     tp = None
@@ -222,19 +224,12 @@ def attention_train(p: Attention, cfg, x, positions, *, causal: bool = True,
         k = _split_heads(p.wk(x), kv, hd)
         v = _split_heads(p.wv(x), kv, hd)
     else:
-        xt = tp_enter(x, tp) if sp is None else seq_enter(x, sp)
+        xt = block_enter(x, tp, sp)
         q = _split_heads(p.wq(xt), h // tp.size, hd)
-        if p.kv_tp:
-            k = _split_heads(p.wk(xt), kv // tp.size, hd)
-            v = _split_heads(p.wv(xt), kv // tp.size, hd)
-        else:
-            # whole KV, computed alike on every model rank; each rank's
-            # heads feed only part of their gradient, summed by tp_enter
-            # (under sp from the whole sequence, its gradient replicated)
-            xk = x if sp is None else tp_gather(x, sp, 1)
-            k = _split_heads(tp_enter(p.wk(xk), tp), kv, hd)
-            v = _split_heads(tp_enter(p.wv(xk), tp), kv, hd)
-            k, v = _rank_kv(k, v, tp, h, kv)
+        # without kv_tp under sp, the KV from the whole sequence, its
+        # gradient replicated
+        k, v = _rank_kv_heads(p, cfg, xt, lambda: (
+            x if sp is None else tp_gather(x, sp, 1)))
     if cfg.positions == "rope":
         q = apply_rope(q.transpose(1, 2), positions,
                        cfg.rope_theta).transpose(1, 2)
@@ -249,21 +244,46 @@ def attention_train(p: Attention, cfg, x, positions, *, causal: bool = True,
     else:
         mask = causal_mask(sq, sq, window, device=x.device) if causal else None
         o = _sdpa(q, k, v, mask, hd ** -0.5)
-    o = p.wo(_merge_heads(o))
-    if tp is None:
-        return o
-    return tp_exit(o, tp) if sp is None else seq_exit(o, sp)
+    return block_exit(p.wo(_merge_heads(o)), tp, sp)
 
 
-def cross_attention(p: Attention, cfg, x, memory):
+def _rank_kv_heads(p: Attention, cfg, xt, whole):
+    """The keys and values that this rank's query heads read, in a block
+    run tensor-parallel: its own KV heads, projected from ``xt`` (the
+    block's entered input), where they divide ``model`` (``p.kv_tp``);
+    else every KV head, projected from ``whole()`` (the input as every
+    ``model`` rank holds it) alike on every rank, each rank's heads
+    feeding only part of their gradient, summed by ``tp_enter``."""
+    tp, kv, hd = p.tp, cfg.n_kv_heads, cfg.hd
+    if p.kv_tp:
+        return (_split_heads(p.wk(xt), kv // tp.size, hd),
+                _split_heads(p.wv(xt), kv // tp.size, hd))
+    src = whole()
+    k = _split_heads(tp_enter(p.wk(src), tp), kv, hd)
+    v = _split_heads(tp_enter(p.wv(src), tp), kv, hd)
+    return _rank_kv(k, v, tp, cfg.n_heads, kv)
+
+
+def cross_attention(p: Attention, cfg, x, memory, sp=None):
     """x: (B, S, D) attends to memory (B, M, D) (encoder states or image
-    patch embeddings), with no positions on q or k and no mask."""
+    patch embeddings), with no positions on q or k and no mask.  With
+    ``p.tp`` tensor-parallel, as ``attention_train``: the rank's query
+    heads (and KV heads, with ``kv_tp``, from the memory entered by
+    ``tp_enter``: every ``model`` rank holds it whole), ``wo``'s rows; and
+    then ``sp``: ``x`` and the output are the rank's rows of the
+    sequence."""
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = _split_heads(p.wq(x), h, hd)
-    k = _split_heads(p.wk(memory), kvh, hd)
-    v = _split_heads(p.wv(memory), kvh, hd)
+    tp = p.tp
+    if tp is None:
+        q = _split_heads(p.wq(x), h, hd)
+        k = _split_heads(p.wk(memory), kvh, hd)
+        v = _split_heads(p.wv(memory), kvh, hd)
+    else:
+        q = _split_heads(p.wq(block_enter(x, tp, sp)), h // tp.size, hd)
+        mt = tp_enter(memory, tp) if p.kv_tp else memory
+        k, v = _rank_kv_heads(p, cfg, mt, lambda: memory)
     o = _sdpa(q, k, v, None, hd ** -0.5)
-    return p.wo(_merge_heads(o))
+    return block_exit(p.wo(_merge_heads(o)), tp, sp)
 
 
 # ---------------------------------------------------------------------------

@@ -108,7 +108,8 @@ def encdec_forward_train(net: EncDec, cfg, frames: torch.Tensor,
                                     positions=positions, causal=True),
                             p.norm1(x, sp), sp, p.attn.tp)
         x = x + on_sequence(partial(cross_attention, p.cross, cfg,
-                                    memory=memory), p.norm_x(x, sp), sp)
+                                    memory=memory), p.norm_x(x, sp), sp,
+                            p.cross.tp)
         x = x + on_sequence(p.mlp, p.norm2(x, sp), sp, p.mlp.tp)
     return (net.final_norm(x, sp),
             torch.zeros((), dtype=torch.float32, device=x.device))
@@ -119,7 +120,8 @@ def _dec_layer_train(p: DecoderLayer, cfg, x, positions, memory, sp=None):
                                 positions=positions, causal=True),
                         p.norm1(x, sp), sp, p.attn.tp)
     x = x + on_sequence(partial(cross_attention, p.cross, cfg,
-                                memory=memory), p.norm_x(x, sp), sp)
+                                memory=memory), p.norm_x(x, sp), sp,
+                        p.cross.tp)
     return x + on_sequence(p.mlp, p.norm2(x, sp), sp, p.mlp.tp)
 
 

@@ -30,8 +30,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..distributed import process_group as pg
-from ..distributed.sharding import (placed, seq_enter, seq_exit, tp_enter,
-                                    tp_exit, vocab_block)
+from ..distributed.sharding import (block_enter, block_exit, placed,
+                                    vocab_block)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -157,17 +157,13 @@ class MLP(nn.Module):
         ``sharding.on_sequence``): ``x`` and the output are the rank's rows
         of a sequence cut over ``model``; the MLP runs on the whole
         sequence, between ``seq_enter`` and ``seq_exit``."""
-        if self.tp is not None:
-            x = seq_enter(x, sp) if sp is not None else tp_enter(x, self.tp)
+        x = block_enter(x, self.tp, sp)
         h = self.up(x)
         if self.gate is not None:
             h = h * self.act(self.gate(x))
         else:
             h = self.act(h)
-        y = self.down(h)
-        if self.tp is None:
-            return y
-        return seq_exit(y, sp) if sp is not None else tp_exit(y, self.tp)
+        return block_exit(self.down(h), self.tp, sp)
 
 
 # ---------------------------------------------------------------------------

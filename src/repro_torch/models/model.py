@@ -28,8 +28,9 @@ the caller names the CPU to run the plain versions.
 Under a mesh, ``Model.shard(net, mesh, fsdp=)`` cuts the network's
 parameters to this rank's blocks (``distributed/sharding.py``, under the
 mesh's rules; with ``fsdp`` over the rules' ``zero`` axes too) and sets
-the dense blocks' tensor parallelism and the MoE layers' expert (or
-expert-``ff``) parallelism; ``loss`` then gives the rank's mean over its
+the tensor parallelism of the blocks whose heads (the sLSTM's features)
+divide ``model`` and the MoE layers' expert (or expert-``ff``)
+parallelism; ``loss`` then gives the rank's mean over its
 own rows of the batch, which the trainer averages over the batch ranks
 (under ``seq_sp`` the mean over the rows' whole sequences: the ``model``
 ranks' totals summed).  ``init_cache(..., mesh=)`` builds the
@@ -57,6 +58,20 @@ from .attention import Attention
 from .convert import reference_leaves, shard_caches
 from .layers import MLP, REMAT
 from .moe import MoE, ep_works
+from .ssm import MLSTM, SLSTM, SSD
+
+#: the SSM and xLSTM blocks run tensor-parallel: (the units a rank holds
+#: whole: the heads, or the sLSTM's features, its recurrence one scalar a
+#: feature; the leaves cut on the dimension given, columns 1 and rows 0).
+#: Their gates ``wf`` / ``wdt`` stay whole on every rank
+_HEAD_CUTS = {
+    MLSTM: (lambda cfg: cfg.n_heads,
+            {"wq": 1, "wk": 1, "wv": 1, "wo_gate": 1, "wi": 1, "wo": 0}),
+    SSD: (lambda cfg: cfg.ssm.n_ssm_heads or cfg.n_heads,
+          {"wB": 1, "wC": 1, "wx": 1, "wo": 0}),
+    SLSTM: (lambda cfg: cfg.n_heads * cfg.hd,
+            {"wz": 1, "wi": 1, "wog": 1, "wo": 0}),
+}
 
 
 def _ce_chunk(net, cfg, h, y, w):
@@ -125,15 +140,17 @@ class Model:
         A leaf's spec is :func:`sharding.leaf_spec` of the reference's
         stacked leaf under the mesh's rules, or with ``fsdp`` its
         :func:`sharding.fsdp_spec` (cut over the rules' ``zero`` axes too).  The
-        self-attention blocks (``attn``) whose ``wq`` / ``wo`` are cut on
+        self- and cross-attention blocks whose ``wq`` / ``wo`` are cut on
         whole query heads run tensor-parallel, with ``wk`` / ``wv`` too
         where the KV heads divide; the MLPs whose ``up`` / ``gate`` /
-        ``down`` are cut on ``d_ff`` run tensor-parallel; the MoE layers
-        whose expert banks are cut on their experts run expert-parallel
-        (``"ep"``), and those cut on the experts' ``ff`` dimension
-        tensor-parallel (``"tp"``); every other leaf cut over ``model`` is
-        gathered where it is used, as is every leaf's ``data`` block under
-        FSDP.  Each cut parameter carries its ``placement``."""
+        ``down`` are cut on ``d_ff``, the mLSTM and SSD blocks whose
+        projections are cut on whole heads and the sLSTM blocks whose
+        projections are cut on the features (``_HEAD_CUTS``) run
+        tensor-parallel; the MoE layers whose expert banks are cut on
+        their experts run expert-parallel (``"ep"``), and those cut on
+        the experts' ``ff`` dimension tensor-parallel (``"tp"``); every
+        other leaf cut over ``model`` is gathered where it is used, as is
+        every leaf's ``data`` block under FSDP.  Each cut parameter carries its ``placement``."""
         m = mesh.shape.get("model", 1)
         params = dict(net.named_parameters())
         specs, cut, fcut, layer_spec = {}, {}, {}, {}
@@ -158,7 +175,7 @@ class Model:
             tp = tp_of(mesh)
             for mname, mod in net.named_modules():
                 pre = f"{mname}." if mname else ""
-                if isinstance(mod, Attention) and mname.endswith("attn"):
+                if isinstance(mod, Attention):
                     q_whole = (cut[pre + "wq.w"] == 1
                                and cut[pre + "wo.w"] == 0
                                and self.cfg.n_heads % m == 0)
@@ -178,6 +195,13 @@ class Model:
                     if all(cut[f"{pre}{n}.w"] == want[n] for n in lins):
                         mod.tp = tp
                         mode.update((f"{pre}{n}.w", "tp") for n in lins)
+                elif type(mod) in _HEAD_CUTS:
+                    units, want = _HEAD_CUTS[type(mod)]
+                    if (units(self.cfg) % m == 0
+                            and all(cut[f"{pre}{n}.w"] == d
+                                    for n, d in want.items())):
+                        mod.tp = tp
+                        mode.update((f"{pre}{n}.w", "tp") for n in want)
                 elif isinstance(mod, MoE):
                     banks = ["w_up", "w_down"] + (
                         ["w_gate"] if mod.w_gate is not None else [])

@@ -29,10 +29,22 @@ reference's does: ``decayed_linear_attention_step`` (the SSD head),
 (``kernels/slstm/ref.py::slstm_step``).  Neither K5 nor K6 is launched for
 one token: a single step has no time loop to keep on the device.  The
 states carry one row a request of the batch, with one length a row.
-Under a mesh whose ``model`` axis divides the heads, a state holds this
-rank's heads (the reference's ``("batch", "heads", ...)`` cache rules):
-the projections run as the layout gives them, the rank updates its heads
-and all-gathers their outputs over ``model`` before the out projection.
+
+Under a mesh whose rules cut a block's projections on whole heads (the
+sLSTM's on any block of its features: its recurrence is one scalar a
+feature), the block runs tensor-parallel (``tp``, set by
+``Model.shard``), as attention does: it enters by ``tp_enter`` (under
+``seq_sp`` by ``seq_enter``), projects the rank's heads, runs K5 or K6
+on them, and leaves through its rows of ``wo`` by ``tp_exit`` (or
+``seq_exit``).  Its gates ``wf`` / ``wdt``, which the rules keep whole,
+are used on the rank's columns (``sharding.rank_columns``).  Where the
+heads do not divide, the projections are gathered whole and every rank
+runs every head.  A decode state holds this rank's heads where
+``model`` divides them (the reference's ``("batch", "heads", ...)``
+cache rules): a tensor-parallel block's projections are those heads and
+its outputs go through its rows of ``wo``; else the rank slices its
+heads from the whole projections and all-gathers their outputs over
+``model`` before the whole out projection.
 """
 
 from __future__ import annotations
@@ -45,11 +57,12 @@ from torch import nn
 from torch.autograd.function import once_differentiable
 
 from ..distributed import process_group as pg
-from ..distributed.sharding import active_tp
+from ..distributed.sharding import (active_tp, block_enter, block_exit,
+                                    rank_columns, tp_exit)
 from ..kernels.slstm import slstm_scan, slstm_scan_bwd_cuda, slstm_scan_cuda
 from ..kernels.slstm.ref import slstm_step
 from ..kernels.ssm_scan import ssm_scan
-from .layers import Linear, dtype_of
+from .layers import Linear, dtype_of, promoted_matmul
 
 
 def _heads(x: torch.Tensor, h: int, hd: int) -> torch.Tensor:
@@ -194,6 +207,23 @@ def _chunk(cfg) -> int:
     return cfg.ssm.chunk if cfg.ssm else 256
 
 
+def _held(n: int, tp) -> int:
+    """The heads (or features) of ``n`` that a block runs: this rank's
+    share where it runs tensor-parallel on ``tp``, else all."""
+    return n if tp is None else n // tp.size
+
+
+def _gate(lin: Linear, x: torch.Tensor, tp, n: int) -> torch.Tensor:
+    """The projection of ``x`` by a gate leaf every ``model`` rank holds
+    whole (``wf``, ``wdt``): in a block run tensor-parallel on ``tp``, the
+    rank's ``n`` columns of it, which are its heads or features
+    (``sharding.rank_columns``: the leaf's gradient summed over
+    ``model``)."""
+    if tp is None:
+        return lin(x)
+    return promoted_matmul(x, rank_columns(lin.w, tp, n))
+
+
 def decayed_linear_attention_step(q, k, v, log_a, state):
     """One decode step.  q, k: (B, H, DK); v: (B, H, DV); log_a: (B, H);
     state: (B, H, DK, DV) fp32.  Returns (y in q's type, new_state)."""
@@ -206,7 +236,12 @@ def decayed_linear_attention_step(q, k, v, log_a, state):
 
 class SSD(nn.Module):
     """wB (input -> state, k-like), wC (state -> output, q-like), wx (the
-    value path), wdt (the decay gate, fp32) and wo."""
+    value path), wdt (the decay gate, fp32) and wo.  ``tp`` (a
+    ``sharding.TP``) is set where the head runs tensor-parallel: the rank
+    holds the columns of ``wB`` / ``wC`` / ``wx`` and the rows of ``wo``
+    of its whole heads."""
+
+    tp = None
 
     def __init__(self, cfg, *, device=None, generator=None):
         super().__init__()
@@ -223,18 +258,31 @@ class SSD(nn.Module):
         self.wo = Linear(h * hd, d, dt, **kw)
 
 
-def ssd_train(p: SSD, cfg, x: torch.Tensor) -> torch.Tensor:
-    """Full-sequence SSD head: x (B, S, D) -> (B, S, D)."""
-    h = cfg.ssm.n_ssm_heads or cfg.n_heads
+def ssd_train(p: SSD, cfg, x: torch.Tensor, sp=None) -> torch.Tensor:
+    """Full-sequence SSD head: x (B, S, D) -> (B, S, D); with ``p.tp`` on
+    the rank's heads, and then ``sp`` (``sharding.seq_tp``, through
+    ``sharding.on_sequence``): ``x`` and the output are the rank's rows of
+    the sequence."""
+    tp = p.tp
+    h = _held(cfg.ssm.n_ssm_heads or cfg.n_heads, tp)
     st, hd = cfg.ssm.state_dim, cfg.hd
+    x = block_enter(x, tp, sp)
     b, s, _ = x.shape
     Bm = _heads(p.wB(x), h, st)
     Cm = _heads(p.wC(x), h, st)
     v = _heads(p.wx(x), h, hd)
-    log_a = -F.softplus(p.wdt(x).to(torch.float32)).transpose(1, 2)
+    log_a = -F.softplus(_gate(p.wdt, x, tp, h).to(torch.float32)
+                        ).transpose(1, 2)
     y = ssm_scan_site(Cm, Bm, v, log_a, chunk=_chunk(cfg))
     y = y.transpose(1, 2).reshape(b, s, h * hd)
-    return p.wo(y)
+    return block_exit(p.wo(y), tp, sp)
+
+
+def _mine(t: torch.Tensor, held: int, mine) -> torch.Tensor:
+    """The held heads (dim 1) of a projection's (B, n, ...) heads: all of
+    them where the projection gives just those (a block run
+    tensor-parallel), else the slice ``mine``."""
+    return t if t.shape[1] == held else t[:, mine]
 
 
 def _own(held: int, whole: int):
@@ -255,19 +303,30 @@ def _whole(y: torch.Tensor, tp, dim: int = 1) -> torch.Tensor:
     return y if tp is None else pg.all_gather(y, tp.group, dim=dim)
 
 
+def _decode_out(p, y: torch.Tensor, tp) -> torch.Tensor:
+    """``wo`` of the held heads' outputs ``y`` (B, held, ...) in the
+    model's type, (B, 1, D): in a block run tensor-parallel, the rank's
+    rows of ``wo`` and the partial sums added over ``model``; else every
+    rank's heads all-gathered (``tp``: where the state holds a share of
+    them) into the whole ``wo``."""
+    b = y.shape[0]
+    if p.tp is not None:
+        return tp_exit(p.wo(y.reshape(b, -1)), p.tp)[:, None, :]
+    return p.wo(_whole(y, tp).reshape(b, -1))[:, None, :]
+
+
 def ssd_decode(p: SSD, cfg, x: torch.Tensor, state: SSMState):
     """One token of the SSD head: x (B, 1, D) -> (out (B, 1, D), state)."""
     h = cfg.ssm.n_ssm_heads or cfg.n_heads
     st, hd = cfg.ssm.state_dim, cfg.hd
-    b = x.shape[0]
-    tp, mine = _own(state.S.shape[1], h)
-    Bm = p.wB(x)[:, 0].reshape(b, h, st)[:, mine]
-    Cm = p.wC(x)[:, 0].reshape(b, h, st)[:, mine]
-    v = p.wx(x)[:, 0].reshape(b, h, hd)[:, mine]
+    b, held = x.shape[0], state.S.shape[1]
+    tp, mine = _own(held, h)
+    Bm = _mine(p.wB(x)[:, 0].reshape(b, -1, st), held, mine)
+    Cm = _mine(p.wC(x)[:, 0].reshape(b, -1, st), held, mine)
+    v = _mine(p.wx(x)[:, 0].reshape(b, -1, hd), held, mine)
     log_a = -F.softplus(p.wdt(x)[:, 0].to(torch.float32))[:, mine]
     y, S = decayed_linear_attention_step(Cm, Bm, v, log_a, state.S)
-    y = _whole(y, tp)
-    out = p.wo(y.reshape(b, h * hd).to(x.dtype))[:, None, :]
+    out = _decode_out(p, y.to(x.dtype), tp)
     return out, SSMState(S, state.n, state.length + 1)
 
 
@@ -278,7 +337,12 @@ def ssd_decode(p: SSD, cfg, x: torch.Tensor, state: SSMState):
 
 class MLSTM(nn.Module):
     """wq, wk, wv, wo_gate and wo in the model's type; the forget and input
-    gates wf, wi (one a head) in fp32."""
+    gates wf, wi (one a head) in fp32.  ``tp`` is set where the block runs
+    tensor-parallel: the rank holds the columns of ``wq`` / ``wk`` /
+    ``wv`` / ``wo_gate`` / ``wi`` and the rows of ``wo`` of its whole
+    heads."""
+
+    tp = None
 
     def __init__(self, cfg, *, device=None, generator=None):
         super().__init__()
@@ -294,16 +358,20 @@ class MLSTM(nn.Module):
         self.wo = Linear(h * hd, d, dt, **kw)
 
 
-def mlstm_train(p: MLSTM, cfg, x: torch.Tensor) -> torch.Tensor:
-    """Full-sequence mLSTM: x (B, S, D) -> (B, S, D).  K5 scans in chunks
+def mlstm_train(p: MLSTM, cfg, x: torch.Tensor, sp=None) -> torch.Tensor:
+    """Full-sequence mLSTM: x (B, S, D) -> (B, S, D); with ``p.tp`` on the
+    rank's heads (and ``sp`` as in :func:`ssd_train`).  K5 scans in chunks
     of its own (64 rows) where the reference takes ``cfg.ssm.chunk`` (as
     the backward's twin does): only the order of the sums differs."""
-    h, hd = cfg.n_heads, cfg.hd
+    tp = p.tp
+    h, hd = _held(cfg.n_heads, tp), cfg.hd
+    x = block_enter(x, tp, sp)
     b, s, _ = x.shape
     q = _heads(p.wq(x), h, hd) * hd ** -0.5
     k = _heads(p.wk(x), h, hd) * hd ** -0.5
     v = _heads(p.wv(x), h, hd)
-    log_f = F.logsigmoid(p.wf(x).to(torch.float32)).transpose(1, 2)
+    log_f = F.logsigmoid(_gate(p.wf, x, tp, h).to(torch.float32)
+                         ).transpose(1, 2)
     log_i = F.logsigmoid(p.wi(x).to(torch.float32)).transpose(1, 2)
     k = k * torch.exp(log_i).to(k.dtype)[..., None]   # fold the input gate
     # the normaliser through a ones column: y_aug[..., hd] = q . n
@@ -313,19 +381,20 @@ def mlstm_train(p: MLSTM, cfg, x: torch.Tensor) -> torch.Tensor:
     y = y / torch.clamp(denom.abs(), min=1.0)
     o_gate = torch.sigmoid(p.wo_gate(x))
     y = y.transpose(1, 2).reshape(b, s, h * hd) * o_gate
-    return p.wo(y)
+    return block_exit(p.wo(y), tp, sp)
 
 
 def mlstm_decode(p: MLSTM, cfg, x: torch.Tensor, state: SSMState):
     """One token of the mLSTM: x (B, 1, D) -> (out (B, 1, D), state)."""
     h, hd = cfg.n_heads, cfg.hd
-    b = x.shape[0]
-    tp, mine = _own(state.S.shape[1], h)
-    q = p.wq(x)[:, 0].reshape(b, h, hd)[:, mine] * hd ** -0.5
-    k = p.wk(x)[:, 0].reshape(b, h, hd)[:, mine] * hd ** -0.5
-    v = p.wv(x)[:, 0].reshape(b, h, hd)[:, mine]
+    b, held = x.shape[0], state.S.shape[1]
+    tp, mine = _own(held, h)
+    q = _mine(p.wq(x)[:, 0].reshape(b, -1, hd), held, mine) * hd ** -0.5
+    k = _mine(p.wk(x)[:, 0].reshape(b, -1, hd), held, mine) * hd ** -0.5
+    v = _mine(p.wv(x)[:, 0].reshape(b, -1, hd), held, mine)
     log_f = F.logsigmoid(p.wf(x)[:, 0].to(torch.float32))[:, mine]
-    log_i = F.logsigmoid(p.wi(x)[:, 0].to(torch.float32))[:, mine]
+    log_i = _mine(F.logsigmoid(p.wi(x)[:, 0].to(torch.float32)), held,
+                  mine)
     k = k * torch.exp(log_i).to(k.dtype)[..., None]
     a = torch.exp(log_f)[..., None, None]
     kf, qf = k.to(torch.float32), q.to(torch.float32)
@@ -333,10 +402,12 @@ def mlstm_decode(p: MLSTM, cfg, x: torch.Tensor, state: SSMState):
     n = state.n * a[..., 0] + kf
     num = torch.einsum("bhd,bhdv->bhv", qf, S)
     den = torch.einsum("bhd,bhd->bh", qf, n)
-    y = _whole(num / torch.clamp(den.abs(), min=1.0)[..., None], tp)
-    o_gate = torch.sigmoid(p.wo_gate(x)[:, 0])
-    y = (y.reshape(b, h * hd) * o_gate.to(torch.float32)).to(x.dtype)
-    return p.wo(y)[:, None, :], SSMState(S, n, state.length + 1)
+    y = num / torch.clamp(den.abs(), min=1.0)[..., None]
+    # the output gate of the held heads
+    o_gate = _mine(torch.sigmoid(p.wo_gate(x)[:, 0]).reshape(b, -1, hd),
+                   held, mine)
+    y = (y * o_gate.to(torch.float32)).to(x.dtype)
+    return _decode_out(p, y, tp), SSMState(S, n, state.length + 1)
 
 
 # ---------------------------------------------------------------------------
@@ -346,7 +417,12 @@ def mlstm_decode(p: MLSTM, cfg, x: torch.Tensor, state: SSMState):
 
 class SLSTM(nn.Module):
     """wz (the cell input) in the model's type; the gates wi, wf, wog in
-    fp32; wo."""
+    fp32; wo.  ``tp`` is set where the block runs tensor-parallel: the
+    recurrence is one scalar a feature, so the rank holds the columns of
+    ``wz`` / ``wi`` / ``wog`` and the rows of ``wo`` of its block of the
+    features, whatever the heads."""
+
+    tp = None
 
     def __init__(self, cfg, *, device=None, generator=None):
         super().__init__()
@@ -360,24 +436,27 @@ class SLSTM(nn.Module):
         self.wo = Linear(width, d, dt, **kw)
 
 
-def slstm_train(p: SLSTM, cfg, x: torch.Tensor) -> torch.Tensor:
-    """Full-sequence sLSTM: x (B, S, D) -> (B, S, D).  The four
+def slstm_train(p: SLSTM, cfg, x: torch.Tensor, sp=None) -> torch.Tensor:
+    """Full-sequence sLSTM: x (B, S, D) -> (B, S, D); with ``p.tp`` on the
+    rank's features (and ``sp`` as in :func:`ssd_train`).  The four
     pre-activations in fp32 go through K6; its fp32 output is cast to the
     model's type, as the reference casts its scan's output."""
+    tp = p.tp
+    x = block_enter(x, tp, sp)
     z = p.wz(x).to(torch.float32)
     i = p.wi(x).to(torch.float32)
-    f = p.wf(x).to(torch.float32)
+    f = _gate(p.wf, x, tp, z.shape[-1]).to(torch.float32)
     o = p.wog(x).to(torch.float32)
     y = slstm_scan_site(z, i, f, o)
-    return p.wo(y.to(x.dtype))
+    return block_exit(p.wo(y.to(x.dtype)), tp, sp)
 
 
 def slstm_decode(p: SLSTM, cfg, x: torch.Tensor, state: SLSTMState):
     """One token of the sLSTM: x (B, 1, D) -> (out (B, 1, D), state)."""
-    tp, mine = _own(state.c.shape[1], cfg.n_heads * cfg.hd)
-    z = p.wz(x)[:, 0].to(torch.float32)[:, mine]
-    i = p.wi(x)[:, 0].to(torch.float32)[:, mine]
+    held = state.c.shape[1]
+    tp, mine = _own(held, cfg.n_heads * cfg.hd)
+    z, i, o = (_mine(lin(x)[:, 0].to(torch.float32), held, mine)
+               for lin in (p.wz, p.wi, p.wog))
     f = p.wf(x)[:, 0].to(torch.float32)[:, mine]
-    o = p.wog(x)[:, 0].to(torch.float32)[:, mine]
     c, n, m, y = slstm_step(state.c, state.n, state.m, z, i, f, o)
-    return p.wo(_whole(y, tp).to(x.dtype))[:, None, :], SLSTMState(c, n, m)
+    return _decode_out(p, y.to(x.dtype), tp), SLSTMState(c, n, m)

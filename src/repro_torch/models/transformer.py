@@ -113,21 +113,23 @@ def apply_layer_train(p: Layer, cfg, kind: str, x, positions, memory=None,
         x = x + y
     elif kind == "mlstm":
         x = x + on_sequence(partial(mlstm_train, p.mlstm, cfg),
-                            p.norm1(x, sp), sp)
+                            p.norm1(x, sp), sp, p.mlstm.tp)
     elif kind == "slstm":
         x = x + on_sequence(partial(slstm_train, p.slstm, cfg),
-                            p.norm1(x, sp), sp)
+                            p.norm1(x, sp), sp, p.slstm.tp)
     elif kind == "hymba":
         h2 = p.norm1(x, sp)
         attn_out = on_sequence(attend, h2, sp, p.attn.tp)
-        ssd_out = on_sequence(partial(ssd_train, p.ssd, cfg), h2, sp)
+        ssd_out = on_sequence(partial(ssd_train, p.ssd, cfg), h2, sp,
+                              p.ssd.tp)
         x = x + 0.5 * (attn_out + ssd_out)         # hymba head fusion (mean)
         x = x + on_sequence(p.mlp, p.norm2(x, sp), sp, p.mlp.tp)
     elif kind == "cross":
         if memory is None:
             raise ValueError("a cross layer needs the memory it attends to")
         x = x + on_sequence(partial(cross_attention, p.cross, cfg,
-                                    memory=memory), p.norm1(x, sp), sp)
+                                    memory=memory), p.norm1(x, sp), sp,
+                            p.cross.tp)
         x = x + on_sequence(p.mlp, p.norm2(x, sp), sp, p.mlp.tp)
     else:
         raise ValueError(f"unknown block kind {kind!r}")

@@ -19,10 +19,12 @@ The cases: a dense arch with a full cache; the chunked path (three
 tokens a step, so chunks straddle the ranks' slots); hymba, whose window
 of 16 slots wraps across the ranks (4 a rank on ``model`` = 4: for the
 first 12 tokens rank 3 holds no valid slot, and must add nothing);
-xlstm (the mLSTM's and the sLSTM's states by heads); whisper (a
-cross-attention against the encoder's states, whose layout is the batch
-axes only); the reduced qwen2-moe (one token a routing group: the
-experts' own slice of it on each rank).
+xlstm (the mLSTM's and the sLSTM's states by heads, both blocks
+tensor-parallel); whisper (a tensor-parallel cross-attention against the
+encoder's states, whose layout is the batch axes only); the reduced
+qwen2-moe (one token a routing group: the experts' own slice of it on
+each rank); the VLM (its self-attention layer's KV cache and its
+tensor-parallel cross layer against the image embeddings).
 
 Caches carried across (``models/convert.py``): the unsharded decode's
 caches as the reference's tree, loaded into each rank's blocks and
@@ -62,7 +64,8 @@ CASES = {"dense": ("starcoder2-3b", 1, 12, 16),
          "hymba": ("hymba-1.5b", 1, 24, 32),
          "xlstm": ("xlstm-350m", 1, 8, 16),
          "whisper": ("whisper-tiny", 1, 8, 16),
-         "moe": ("qwen2-moe-a2.7b", 1, 8, 16)}
+         "moe": ("qwen2-moe-a2.7b", 1, 8, 16),
+         "vlm": ("llama-3.2-vision-11b", 1, 8, 16)}
 BATCH, SEED, TOL = 2, 0, 1e-5
 
 

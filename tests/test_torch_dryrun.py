@@ -329,14 +329,16 @@ def test_counting_mesh_counts_what_a_decode_sends(counted_world, case,
     """Two decode steps on the world's (1, 2, 2) mesh send, by kind, the
     calls and operand bytes the counting mesh records for the same rank:
     the combine's all-reduces (max, then sum) where the cache is cut on
-    its slots, and the heads' all-gathers."""
+    its slots, the heads' all-gathers, and the tensor-parallel blocks'
+    partial outputs summed."""
     real, counted = counted_world[rank][f"decode-{case}"]
     assert real == counted
     calls, _ = real
     if case.startswith("xlstm"):
-        # no KV cache: the heads' outputs and the logits gathered, the
-        # embedding's rows summed
-        assert calls["all-gather"] > 0 and calls["all-reduce"] == 2
+        # no KV cache; a step: the embedding's rows summed, the mLSTM's
+        # and the sLSTM's partial outputs summed (both blocks
+        # tensor-parallel), the logits gathered
+        assert calls["all-gather"] == 2 and calls["all-reduce"] == 2 * 3
     else:
         assert calls.get("all-reduce", 0) >= 2 * 2  # the combine, a layer
 

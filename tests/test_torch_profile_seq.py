@@ -90,12 +90,15 @@ def test_masked_labels_change_the_loss(unsharded):
 def test_the_baseline_blocks_stay_tensor_parallel(worlds, shape):
     """The tensor-parallel blocks are the baseline's (``seq_sp`` changes
     only the activations): starcoder2-3b's attention and MLP, hymba's
-    attention, none of xlstm's; the batch over ``data``."""
+    attention and SSD head, xlstm's mLSTM and sLSTM, the cross-attention
+    of llama-3.2-vision-11b and whisper-tiny; the batch over ``data``."""
     w = worlds[shape]
     tp_mods = w["starcoder2-3b"]["tp"]
     assert "layers.0.attn" in tp_mods and "layers.0.mlp" in tp_mods
-    assert "layers.0.attn" in w["hymba-1.5b"]["tp"]
-    assert w["xlstm-350m"]["tp"] == []
+    assert {"layers.0.attn", "layers.0.ssd"} <= set(w["hymba-1.5b"]["tp"])
+    assert w["xlstm-350m"]["tp"] == ["layers.0.mlstm", "layers.1.slstm"]
+    assert "layers.1.cross" in w["llama-3.2-vision-11b"]["tp"]
+    assert "dec_layers.0.cross" in w["whisper-tiny"]["tp"]
     assert w["starcoder2-3b"]["batch_axes"] == ("data",)
 
 

@@ -607,11 +607,12 @@ def test_each_rank_holds_only_its_blocks(worlds, shape):
     if model == 1:
         assert tp == []
     else:
-        # q heads divide 2 and 4; the MLP's d_ff too
+        # q heads divide 2 and 4; the MLP's d_ff too; so do the 4 heads
+        # of hymba's SSD head and xlstm's mLSTM, and the sLSTM's features
         assert "layers.0.attn" in tp and "layers.0.mlp" in tp
         assert "layers.0.attn" in w["tp"]["hymba-1.5b"]
-        assert not any("ssd" in n for n in w["tp"]["hymba-1.5b"])
-        assert w["tp"]["xlstm-350m"] == []
+        assert "layers.0.ssd" in w["tp"]["hymba-1.5b"]
+        assert w["tp"]["xlstm-350m"] == ["layers.0.mlstm", "layers.1.slstm"]
     assert w["ep_works"]["qwen2-moe-a2.7b"] is (8 % model == 0)
     assert w["ep_works"]["starcoder2-3b"] is None
 
