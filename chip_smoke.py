@@ -187,7 +187,9 @@
    ``compress_pod_mean`` over (2, 1, 2) against the CPU on the same
    inputs (the quantizer bitwise on every pod's input, the mean over the
    gathered payloads and the new error within 1e-6).  13.4:
-   ``launch/train.py --smoke --mesh 1,2,2 --steps 3`` as a subprocess.
+   ``launch/train.py --smoke --mesh 1,2,2 --steps 3`` as a subprocess,
+   started with §13's unsharded runs and awaited before the world (its
+   four small ranks beside them, never beside the world).
    13.5, the expert-parallel layout: qwen2-moe-a2.7b in fp32 at full
    width, depth 1, S 2304, global batch 2, on (1, 1, 4) (60 experts
    divide 4: every bank "ep"), two AdamW steps against
@@ -248,6 +250,23 @@
    the ``dp_sp`` and ``seq_sp`` profiles (``--profile``), on meta and then
    on the card at the depth 14.2's rule gives, with 14.2's gates.  The
    kernels line adds §14's launches.
+15. The reference's four examples on the port (``repro_torch.examples``)
+   with ``--device cuda``, in one subprocess (its process-wide tuner and
+   run store built under the section's locations), the port's artifacts
+   root on a temporary directory seeded with the Hopper joint fit's
+   starting point (the two-minute fit is not run): the quickstart with
+   ``REPRO_TELEMETRY=1`` (its measured loop: 2 x 8 records, each the best
+   of 5 dispatched matmuls at n 768 and 1024, p = 1, through K1), the
+   linalg demo (n 64: blocks below the kernels' thresholds), the served
+   batch (xlstm-350m reduced) and ``train_e2e --smoke --steps 20 --batch 4
+   --seq 128`` (checkpointing to its default directory, under the
+   temporary root).  Gated: each example finishes, the quickstart's report has
+   at least 16 rows and its loop launched K1, the training losses are
+   finite, nothing is written under the checkout's ``artifacts/``.
+   Reported: each example's wall and output, the quickstart's mean
+   relative error before and after its refit (the reference CI's 0.35 is
+   its CPU's bar), the first and last training loss.  The kernels line
+   adds §15's launches.
 
 The line before the last is ``{"kernels": [...]}``, after each section's
 wall time (``{"sections_s": ...}``) and the script's (``{"script_s":
@@ -357,6 +376,7 @@ def main() -> int:
                              smi.stdout.strip().splitlines()[0])
     sharded_counts = section("13", sharded_training)
     dryrun_counts = section("14", dry_run)
+    example_counts = section("15", examples)
 
     for entry in kernels:
         entry["launches"] = (main_counts[entry["wrapper"]]
@@ -368,7 +388,8 @@ def main() -> int:
                              + group_counts[entry["wrapper"]]
                              + harness_counts[entry["wrapper"]]
                              + sharded_counts[entry["wrapper"]]
-                             + dryrun_counts[entry["wrapper"]])
+                             + dryrun_counts[entry["wrapper"]]
+                             + example_counts[entry["wrapper"]])
         if "cta_tile" in entry:
             entry["launches_at_tile"] = TILE_LAUNCHES.get(
                 tuple(entry["cta_tile"]), 0)
@@ -3147,7 +3168,7 @@ def harness(torch, smi_line):
     obs_report(results["obs"])
     kernels_report(results["kernels"], kernels_tiles)
     with tempfile.TemporaryDirectory() as hist:
-        env = dict(os.environ, REPRO_BENCH_HISTORY_DIR=hist,
+        env = dict(os.environ, REPRO_TORCH_BENCH_HISTORY_DIR=hist,
                    PYTHONPATH=os.path.join(HERE, "src"))
         out = subprocess.run(
             [sys.executable, "-m", "repro_torch.benchmarks.run",
@@ -3406,12 +3427,19 @@ def sharded_training(torch):
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
     t_start = time.perf_counter()
-    layers, est, whole_walls, whole_peak = path_unsharded(torch)
-    want_losses, want_file = exact_unsharded(torch, root, grads=True)
-    ep_losses, ep_file = exact_unsharded(torch, root, ep_config(),
-                                         "ep_want.pt")
-    decode_file = decode_unsharded(torch, root)
-    profiles_unsharded(torch, root)
+    launcher = shard_launcher_start(root)
+    try:
+        layers, est, whole_walls, whole_peak = path_unsharded(torch)
+        want_losses, want_file = exact_unsharded(torch, root, grads=True)
+        ep_losses, ep_file = exact_unsharded(torch, root, ep_config(),
+                                             "ep_want.pt")
+        decode_file = decode_unsharded(torch, root)
+        profiles_unsharded(torch, root)
+    except BaseException:
+        launcher[0].kill()
+        launcher[0].wait()
+        raise
+    shard_launcher_finish(*launcher)
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -3449,7 +3477,6 @@ def sharded_training(torch):
     add_counts(totals, profiles_report([r["profiles"] for r in rs], root))
     add_counts(totals, profiles_report([r["heads"] for r in rs], root,
                                        HEAD_RUNS, "13.8"))
-    shard_launcher(torch)
     check(os.stat(so).st_mtime_ns == built,
           "§13: a rank rebuilt the extension in build/torch_ext/")
     emit({"sharded_s": time.perf_counter() - t_start, "world_s": world_s,
@@ -3606,25 +3633,45 @@ def pods_report(rs):
           f"§13.3: new error err {r['err_err']:.3e}")
 
 
-def shard_launcher(torch):
-    """13.4: ``launch/train.py --smoke --mesh 1,2,2 --steps 3`` as a
-    subprocess on the card (4 gloo ranks on cuda:0): exit 0 and
-    ``steps=3 restarts=0``."""
+#: seconds §13.4's launcher may run
+LAUNCHER_TIMEOUT_S = 300
+
+
+def shard_launcher_start(root):
+    """13.4: starts ``launch/train.py --smoke --mesh 1,2,2 --steps 3`` as a
+    subprocess on the card (4 gloo ranks on cuda:0), its output to files
+    under ``root``; returns (process, start time, stdout path, stderr
+    path)."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.path.join(HERE, "src") + (
         os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
-    torch.cuda.empty_cache()
+    out, err = (os.path.join(root, f"launcher.{k}") for k in ("out", "err"))
     t0 = time.perf_counter()
-    out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-         "qwen1.5-4b", "--smoke", "--mesh", "1,2,2", "--steps", "3"],
-        cwd=HERE, env=env, capture_output=True, text=True, timeout=300)
-    lines = out.stdout.strip().splitlines()
+    with open(out, "w") as fo, open(err, "w") as fe:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             "qwen1.5-4b", "--smoke", "--mesh", "1,2,2", "--steps", "3"],
+            cwd=HERE, env=env, stdout=fo, stderr=fe)
+    return proc, t0, out, err
+
+
+def shard_launcher_finish(proc, t0, out, err):
+    """13.4's gate: exit 0 and ``steps=3 restarts=0``."""
+    try:
+        proc.wait(timeout=max(1.0, LAUNCHER_TIMEOUT_S
+                              - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    with open(out) as f:
+        lines = f.read().strip().splitlines()
+    with open(err) as f:
+        stderr = f.read()
     emit({"shard_launcher": "qwen1.5-4b --smoke --mesh 1,2,2 --steps 3",
-          "returncode": out.returncode, "last": lines[-2:],
+          "returncode": proc.returncode, "last": lines[-2:],
           "wall_s": time.perf_counter() - t0})
-    check(out.returncode == 0 and lines and lines[-1] == "steps=3 restarts=0",
-          f"§13.4: the launcher failed: {out.stderr[-2000:]}")
+    check(proc.returncode == 0 and lines and lines[-1] == "steps=3 restarts=0",
+          f"§13.4: the launcher failed: {stderr[-2000:]}")
 
 
 def shard_rank(rank, world, device, want_file, layers, ep_file,
@@ -4542,6 +4589,138 @@ def dry_report(got, want, counts, plain_calls):
     check(plain_calls == 0, f"{tag}: K4's plain version ran on the card")
     if got["kind"] != "decode":
         check(counts["flash_attention_cuda"] > 0, f"{tag}: K4 never launched")
+
+
+# -- 15. the examples -----------------------------------------------------------
+
+#: §15's examples in the order they run, with their arguments
+EXAMPLES = (("quickstart", []), ("linalg_25d_demo", []),
+            ("serve_batched", []),
+            ("train_e2e", ["--smoke", "--steps", "20", "--batch", "4",
+                           "--seq", "128"]))
+#: seconds the examples' subprocess may take
+EXAMPLES_TIMEOUT_S = 600
+
+#: runs each example's ``main`` in one process on the card: the counts set
+#: to 0 before and read after it, its output captured; prints one JSON line
+EXAMPLES_DRIVER = r"""
+import contextlib, importlib, io, json, os, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from repro_torch import kernels, obs, telemetry
+out = {}
+for name, argv in json.loads(sys.argv[2]):
+    # the quickstart records as the reference's CI runs it
+    if name == "quickstart":
+        os.environ["REPRO_TELEMETRY"] = "1"
+    else:
+        os.environ.pop("REPRO_TELEMETRY", None)
+    telemetry.reset()
+    obs.reset()
+    mod = importlib.import_module("repro_torch.examples." + name)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        ret = mod.main(argv + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    rec = {"wall_s": time.perf_counter() - t0,
+           "launches": kernels.launches(),
+           "stdout": buf.getvalue().splitlines()}
+    if name == "train_e2e":
+        rec.update(steps=ret["steps"], restarts=ret["restarts"],
+                   losses=[h["loss"] for h in ret["history"]])
+    out[name] = rec
+print(json.dumps(out))
+"""
+
+
+def tree_stamp(root):
+    """{relative path: (size, mtime_ns)} of every file under ``root``."""
+    out = {}
+    for base, _, files in os.walk(root):
+        for name in files:
+            path = os.path.join(base, name)
+            st = os.stat(path)
+            out[os.path.relpath(path, root)] = (st.st_size, st.st_mtime_ns)
+    return out
+
+
+def examples(torch):
+    """§15; returns the launch counts of the four examples.
+
+    The examples run in a subprocess: this process built its process-wide
+    tuner and run store sections ago, under the checkout's locations, and
+    the port resolves a location when such an object is built."""
+    import tempfile
+
+    from repro_torch import kernels, telemetry
+    from repro_torch.core import calibration as cal
+    from repro_torch.tuner import build_default_registry
+    t_start = time.perf_counter()
+    art = os.path.join(HERE, "artifacts")
+    art_before = tree_stamp(art)
+    totals = {name: 0 for name in kernels.launches()}
+    with tempfile.TemporaryDirectory(prefix="smoke_examples_") as root:
+        # the joint fit's starting point stands in for the two-minute fit
+        with open(os.path.join(root, "hopper_joint_torch.json"), "w") as f:
+            json.dump({"theta": [float(x) for x in cal.THETA0]}, f)
+        env = dict(os.environ, REPRO_TORCH_ARTIFACTS=root)
+        for name in ("REPRO_TORCH_TELEMETRY_DIR", "REPRO_TORCH_PLAN_DIR",
+                     "REPRO_TORCH_BENCH_HISTORY_DIR", "REPRO_TELEMETRY",
+                     "REPRO_OBS"):
+            env.pop(name, None)
+        # train_e2e checkpoints to its default directory, under the root
+        args = [[name, argv] for name, argv in EXAMPLES]
+        proc = subprocess.run(
+            [sys.executable, "-c", EXAMPLES_DRIVER,
+             os.path.join(HERE, "src"), json.dumps(args)],
+            cwd=root, env=env, capture_output=True, text=True,
+            timeout=EXAMPLES_TIMEOUT_S)
+        check(proc.returncode == 0,
+              f"§15: an example failed: {proc.stderr[-3000:]}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        for name, _ in EXAMPLES:
+            check(name in res, f"§15: {name} did not finish")
+            r = res[name]
+            emit({"example": name, "wall_s": r["wall_s"],
+                  "launches": r["launches"], "stdout": r["stdout"]})
+            add_counts(totals, r["launches"])
+        tel = os.path.join(root, "telemetry_torch")
+        with open(os.path.join(tel, "report.json")) as f:
+            report = json.load(f)
+        store = telemetry.RunStore(tel)
+        runs = [r for fp in store.fingerprints() for r in store.load(fp)
+                if r.meta.get("agg") == "best5"]
+        before = telemetry.accuracy_report(
+            telemetry.join(runs, build_default_registry()))
+    quick, train = res["quickstart"], res["train_e2e"]
+    emit({"quickstart": {
+        "n_rows": report["overall"]["n_rows"],
+        "mean_rel_err_before_refit": before["overall"]["mean_rel_err"],
+        "mean_rel_err_after_refit": report["overall"]["mean_rel_err"],
+        "reference_ci_bar": 0.35,
+        "k1_launches": quick["launches"]["matmul_cuda"]},
+        "train_e2e": {"steps": train["steps"],
+                      "restarts": train["restarts"],
+                      "first_loss": train["losses"][0],
+                      "last_loss": train["losses"][-1]}})
+    check(report["overall"]["n_rows"] >= 16,
+          f"§15: the quickstart's report has {report['overall']['n_rows']} "
+          "rows, not 16")
+    check(quick["launches"]["matmul_cuda"] > 0,
+          "§15: K1 never launched in the quickstart's loop")
+    check(train["steps"] == 20
+          and all(math.isfinite(x) for x in train["losses"]),
+          f"§15: train_e2e ran {train['steps']} steps, losses "
+          f"{train['losses']}")
+    art_after = tree_stamp(art)
+    changed = sorted(set(art_after.items()) ^ set(art_before.items()))
+    check(not changed, f"§15 wrote under the checkout's artifacts/: "
+          f"{changed[:8]}")
+    emit({"examples_s": time.perf_counter() - t_start, "launches": totals})
+    return totals
 
 
 if __name__ == "__main__":

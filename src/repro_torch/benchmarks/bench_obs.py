@@ -13,8 +13,9 @@ host:
   overhead at <= 5% (min-of-batches on both sides, so scheduler noise
   cancels);
 * **exporter** — wall milliseconds to render a 10k-span buffer to the
-  paired Chrome/Perfetto JSON (saved under ``ART/traces/``, as the
-  paired serving trace below; ``ART`` is ``benchmarks.common.ART``);
+  paired Chrome/Perfetto JSON (saved under the port's traces directory,
+  ``<root>/traces_torch/``, as the paired serving trace below;
+  ``repro_torch.paths``);
 * **serving trace** — a cost-model trace replay exported through
   ``obs.serving_trace``; CI checks the paired predicted/measured flow
   events are present;
@@ -43,9 +44,8 @@ def main(device: str = "cuda") -> dict:
     import numpy as np
     import torch
 
-    from .. import obs, telemetry
+    from .. import obs, paths, telemetry
     from ..devices import canonical, default_devices
-    from .common import ART
 
     dev = default_devices()[0] if device == "cuda" else canonical(device)
     out = {}
@@ -120,7 +120,7 @@ def main(device: str = "cuda") -> dict:
     payload = json.dumps(doc)
     out["export_10k_span_ms"] = (time.perf_counter() - t0) * 1e3
     out["export_events"] = len(doc["traceEvents"])
-    traces = os.path.join(ART, "traces")
+    traces = paths.traces_dir()
     os.makedirs(traces, exist_ok=True)
     with open(os.path.join(traces, "obs_bench_trace.json"), "w") as f:
         f.write(payload)
@@ -182,8 +182,9 @@ def main(device: str = "cuda") -> dict:
     html = watch.render_dashboard(data)
     out["dashboard_render_s"] = time.perf_counter() - t0
     out["dashboard_bytes"] = len(html)
-    os.makedirs(os.path.join(ART, "obs"), exist_ok=True)
-    with open(os.path.join(ART, "obs", "dashboard_bench.html"), "w") as f:
+    os.makedirs(paths.obs_dir(), exist_ok=True)
+    with open(os.path.join(paths.obs_dir(), "dashboard_bench.html"),
+              "w") as f:
         f.write(html)
     return out
 

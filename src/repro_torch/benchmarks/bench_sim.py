@@ -4,7 +4,8 @@ Two measurements, emitted as ``artifacts/bench_torch/BENCH_sim.json``:
 
 * throughput — events/second replaying the SUMMA 2D program on a 16x16
   torus (256 ranks, the v5e-pod shape), plus the per-phase makespan and a
-  Chrome trace dumped under ``artifacts/traces/`` for visual inspection;
+  Chrome trace dumped under ``artifacts/traces_torch/`` for visual
+  inspection;
 * agreement — for every registered cost-IR program, the relative error of
   the contention-free (crossbar) simulation against the closed-form
   ``est_NoCal`` evaluator.  ``max_rel_err_nocal`` over the paper's 16

@@ -5,9 +5,10 @@ timestamp, machine fingerprint, repeat count; on a card also its name and
 power limit) so that the bench-history sentinel can join runs across
 commits and keep noise bands per machine.
 
-Artifacts go under ``ART`` (``$REPRO_ARTIFACTS``, default the checkout's
-``artifacts/``); the stamped JSONs under ``ART/bench_torch/``, apart from
-the reference suite's ``artifacts/bench/``.
+Artifacts go under the port's artifacts root, resolved at each write
+(``$REPRO_TORCH_ARTIFACTS``, default the checkout's ``artifacts/``;
+``repro_torch.paths``); the stamped JSONs under ``<root>/bench_torch/``,
+apart from the reference suite's ``artifacts/bench/``.
 """
 
 from __future__ import annotations
@@ -20,11 +21,8 @@ import tempfile
 import time
 from typing import Callable, Optional, Sequence
 
-from ..core.calibration import ARTIFACTS_DIR
-
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
-ART = os.path.abspath(ARTIFACTS_DIR)
 
 #: repeat count the emitters report in their stamp (env-overridable so a
 #: CI matrix leg that runs each bench N times can say so).

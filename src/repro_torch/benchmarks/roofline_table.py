@@ -1,5 +1,5 @@
 """The roofline table: the dry run's records (``launch/dryrun.py``,
-``ART/dryrun_torch/<mesh>/*.json``) as the per-(arch x shape x mesh) three
+``<root>/dryrun_torch/<mesh>/*.json`` under the port's artifacts root) as the per-(arch x shape x mesh) three
 terms and the dominant bottleneck of each.  The terms are a spec-sheet
 model of the H100 (``core/roofline.py``), not measurements.
 
@@ -14,12 +14,12 @@ import json
 import os
 import sys
 
-from .common import ART
+from .. import paths
 
 
 def load_cells(mesh: str = "pod", base: str = None):
     """The mesh's records, sorted by file name."""
-    base = base or os.path.join(ART, "dryrun_torch")
+    base = base or os.path.join(paths.root(), "dryrun_torch")
     cells = []
     for f in sorted(glob.glob(os.path.join(base, mesh, "*.json"))):
         with open(f) as fh:

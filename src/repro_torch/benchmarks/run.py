@@ -10,12 +10,14 @@ benches that touch one (``ON_DEVICE``); on ``cuda`` they run at the sizes
 of :data:`CARD_SIZES`.  fig2, fig34 and fig5to8 spawn a
 ``torch.distributed`` world (``common.run_group_bench``: gloo, every rank
 on cuda:0 or on the CPU).  The rest are host-side model arithmetic.
-Results are written to ``ART/bench_torch/*.json``, each stamped with
-``_meta`` (``common.run_meta``).  ``tables`` fits the Hopper surface once
-(about two minutes) and caches it under ``ART``.
+Results are written to ``<root>/bench_torch/*.json`` under the port's
+artifacts root (``repro_torch.paths``, resolved at each write), each
+stamped with ``_meta`` (``common.run_meta``).  ``tables`` fits the Hopper
+surface once (about two minutes) and caches it under the root.
 
 ``roofline`` reads the dry run's records (``launch/dryrun.py``, under
-``ART/dryrun_torch/``) and emits their three terms; run the dry run first.
+``<root>/dryrun_torch/``) and emits their three terms; run the dry run
+first.
 ``kernels`` sweeps K1's CTA tiles through matmul plans and refits the
 kernel tier's constants (``bench_kernels``).
 """
@@ -29,9 +31,17 @@ import sys
 import time
 import traceback
 
-from .common import ART, emit, run_meta
+from .. import paths
+from .common import emit, run_meta
 
-OUT = os.path.join(ART, "bench_torch")
+#: the stamped JSONs' directory where set (the reference's module
+#: attribute, which its tests point elsewhere); None: ``paths.bench_dir()``,
+#: resolved at each write
+OUT = None
+
+
+def out_dir() -> str:
+    return OUT or paths.bench_dir()
 
 #: what ``--device cuda`` runs: fig5to8 on 4 gloo ranks on cuda:0 (g = 2,
 #: 4096-row local blocks), the tuner at n = 4096 on 8 stacked ranks,
@@ -46,13 +56,14 @@ CARD_SIZES = {
 
 
 def _save(name: str, obj: dict):
-    os.makedirs(OUT, exist_ok=True)
+    out = out_dir()
+    os.makedirs(out, exist_ok=True)
     if isinstance(obj, dict):
         # run-metadata stamp: commit + timestamp + machine fingerprint +
         # repeat count (+ the card) — what the bench-history sentinel keys
         # runs by
         obj.setdefault("_meta", run_meta())
-    with open(os.path.join(OUT, f"{name}.json"), "w") as f:
+    with open(os.path.join(out, f"{name}.json"), "w") as f:
         json.dump(obj, f, indent=1)
 
 
@@ -326,24 +337,24 @@ def check_regressions() -> int:
     files against prior same-machine history, then append them to the
     history (so the *next* run sees this one).  Exit 1 only on a
     regression with sufficient history — the first runs that merely
-    build the baseline are warn-only by construction.  The history is
-    ``$REPRO_BENCH_HISTORY_DIR``, else ``OUT/history``: never the
-    reference suite's."""
+    build the baseline are warn-only by construction.  The JSONs are
+    :func:`out_dir`'s, the history ``paths.bench_history_dir()``: never
+    the reference suite's."""
     from ..obs.watch import history as hist
 
-    h = hist.BenchHistory(os.environ.get("REPRO_BENCH_HISTORY_DIR")
-                          or os.path.join(OUT, "history"))
+    out = out_dir()
+    h = hist.BenchHistory()
     prior = h.load()
-    runs_now = h.ingest_dir(OUT)
+    runs_now = h.ingest_dir(out)
     if not runs_now:
-        print(f"check-regressions: no BENCH_*.json under {OUT} "
+        print(f"check-regressions: no BENCH_*.json under {out} "
               "(run the benches first)")
         return 0
     current = {r.bench: r.metrics for r in runs_now}
     fp = runs_now[0].fingerprint or None
     report = hist.check_regressions(current, prior, fingerprint=fp)
     print(hist.format_report(report))
-    report_path = os.path.join(OUT, "regression_report.json")
+    report_path = os.path.join(out, "regression_report.json")
     with open(report_path, "w") as f:
         json.dump(report, f, indent=1, sort_keys=True)
     print(f"report: {report_path}  history: {h.path} "
@@ -362,7 +373,7 @@ def main(argv=None) -> None:
                     help="device of the benches that touch one (no CPU "
                          "fallback: cpu must be asked for)")
     ap.add_argument("--check-regressions", action="store_true",
-                    help="don't run benches; verdict ART/bench_torch/"
+                    help="don't run benches; verdict <root>/bench_torch/"
                          "BENCH_*.json against the bench history and "
                          "append this run to it")
     args = ap.parse_args(argv)

@@ -7,7 +7,7 @@ models' predictions for the v5e profile; no device runs them).
 
 Host-side model arithmetic in numpy.  The Hopper fit
 (``core.calibration.hopper_fitted_ctx``) runs once, about two minutes, and
-is cached in ``artifacts/hopper_joint.json``.
+is cached in ``artifacts/hopper_joint_torch.json``.
 """
 
 import json

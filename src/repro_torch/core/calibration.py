@@ -45,6 +45,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from .. import paths
 from . import algorithms as alg
 from .fitting import multistart_nelder_mead
 from .machine import H100_SXM, HOPPER, Machine
@@ -52,9 +53,6 @@ from .paper_data import CORE_COUNTS, PAPER_TABLES
 from .perfmodel import (CommModel, ComputeModel, EfficiencyCurve,
                         HOPPER_EFFICIENCY, ParametricCalibration,
                         ROUTINE_FLOPS)
-
-ARTIFACTS_DIR = os.environ.get(
-    "REPRO_ARTIFACTS", os.path.join(os.path.dirname(__file__), "..", "..", "..", "artifacts"))
 
 ROUTES = ("kernels", "library")
 
@@ -432,9 +430,10 @@ def fit_hopper_calibration(fit_algos: Sequence[str] = ("cannon",),
 
 
 def hopper_fitted_calibration(refit: bool = False) -> ParametricCalibration:
-    """Cached fitted surface (artifacts/hopper_calibration.json)."""
-    os.makedirs(ARTIFACTS_DIR, exist_ok=True)
-    path = os.path.join(ARTIFACTS_DIR, "hopper_calibration.json")
+    """Cached fitted surface (``artifacts/hopper_calibration_torch.json``;
+    the root is resolved at each call, ``repro_torch.paths``)."""
+    path = paths.hopper_cache("calibration")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     if not refit and os.path.exists(path):
         with open(path) as f:
             return ParametricCalibration.from_params(json.load(f)["params"])
@@ -485,6 +484,15 @@ def _residuals_ctx(ctx: alg.AlgoContext, algos: Sequence[str],
     return np.array(res)
 
 
+#: the joint fit's starting point (``fit_hopper_joint``'s): the
+#: calibration surface's defaults, then the dgemm, dtrsm and dpotrf curves'
+#: (peak share, knee) pairs.  Read-only; a context built on it stands in
+#: for the two-minute fit where a run or a test cannot wait for it.
+THETA0 = np.concatenate([ParametricCalibration().params(),
+                         [0.92, 350.0, 0.85, 500.0, 0.70, 600.0]])
+THETA0.setflags(write=False)
+
+
 def fit_hopper_joint(train_core_idx: Sequence[int] = (0, 2, 4),
                      n_starts: int = 4, seed: int = 0) -> tuple[alg.AlgoContext, np.ndarray]:
     """Jointly fit calibration + routine-efficiency curves on a train split
@@ -496,10 +504,8 @@ def fit_hopper_joint(train_core_idx: Sequence[int] = (0, 2, 4),
         r = _residuals_ctx(ctx, list(PAPER_TABLES), core_idx=train_core_idx)
         return float(np.mean(r ** 2))
 
-    x0 = np.concatenate([ParametricCalibration().params(),
-                         [0.92, 350.0, 0.85, 500.0, 0.70, 600.0]])
-    theta, _ = multistart_nelder_mead(loss, x0, n_starts=n_starts, seed=seed,
-                                      max_iter=600)
+    theta, _ = multistart_nelder_mead(loss, THETA0.copy(), n_starts=n_starts,
+                                      seed=seed, max_iter=600)
     return _ctx_from_theta(theta), theta
 
 
@@ -536,9 +542,11 @@ def fit_hopper_two_stage(train_core_idx: Sequence[int] = (0, 2, 4),
 
 
 def hopper_fitted_ctx(refit: bool = False) -> alg.AlgoContext:
-    """Cached jointly-fitted Hopper context (artifacts/hopper_joint.json)."""
-    os.makedirs(ARTIFACTS_DIR, exist_ok=True)
-    path = os.path.join(ARTIFACTS_DIR, "hopper_joint.json")
+    """Cached jointly-fitted Hopper context
+    (``artifacts/hopper_joint_torch.json``; the root is resolved at each
+    call, ``repro_torch.paths``)."""
+    path = paths.hopper_cache("joint")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     if not refit and os.path.exists(path):
         with open(path) as f:
             theta = np.array(json.load(f)["theta"])

@@ -21,8 +21,9 @@ It never falls back to the CPU.  A decode cell counts one serving step
 ``--profile dp_sp`` / ``seq_sp`` count the cell under the reference's other
 sharding profiles (``launch/specs.py::PROFILES``), with the record's
 ``profile`` saying which.  Records go to
-``--out``/``<mesh>/<arch>@<shape>.json`` (default
-``artifacts/dryrun_torch``, ``$REPRO_ARTIFACTS`` in place of ``artifacts``);
+``--out``/``<mesh>/<arch>@<shape>.json`` (default ``dryrun_torch`` under
+the port's artifacts root, ``$REPRO_TORCH_ARTIFACTS`` or the checkout's
+``artifacts/``; ``repro_torch.paths``);
 existing ones are kept unless ``--force``, so a profile's run takes an
 ``--out`` of its own.  Every number in them is a spec-sheet model of the
 card (``H100_SXM``), not a measurement, but for ``measured``.
@@ -38,13 +39,13 @@ import traceback
 
 import torch
 
+from .. import paths
 from ..configs import ALL_CELLS, SHAPES
 from ..core import roofline as rl
 from ..core.machine import H100_SXM
 from .mesh import counting_mesh, mesh_chips
 from .specs import PROFILES, rules_for, step_and_specs
 
-ARTDIR = os.environ.get("REPRO_ARTIFACTS", "artifacts")
 #: the reference's production meshes
 MESHES = {"pod": (16, 16), "multipod": (2, 16, 16)}
 
@@ -146,7 +147,7 @@ def main(argv=None):
     ap.add_argument("--device", type=str, default="meta",
                     choices=("meta", "cuda"))
     ap.add_argument("--out", type=str,
-                    default=os.path.join(ARTDIR, "dryrun_torch"))
+                    default=os.path.join(paths.root(), "dryrun_torch"))
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda needs a GPU: this host has none")

@@ -9,7 +9,7 @@ Two API levels:
 * **model-guided** — ``matmul`` / ``trsm`` / ``cholesky`` take global
   tensors, consult ``repro_torch.tuner`` for the best (variant, c, grid,
   local kernel) on the given devices, and execute it (plans are cached
-  persistently under ``artifacts/plans/``).
+  persistently under ``artifacts/plans_torch/``).
 
 Both levels run stacked (every rank in this process) or, with a
 ``torch.distributed`` group (``group=`` / ``make_grid_mesh(...,

@@ -32,6 +32,7 @@ import logging
 import os
 from typing import Dict, Iterable, List, Optional, Sequence
 
+from .. import paths
 from .spans import Span
 
 log = logging.getLogger("repro_torch.obs")
@@ -43,10 +44,7 @@ _SCALE = 1e6  # seconds -> trace-event microseconds
 
 
 def traces_dir() -> str:
-    # deferred: core.calibration owns the artifacts-root resolution (and
-    # pulls in the model modules, which obs need not load at import time)
-    from ..core.calibration import ARTIFACTS_DIR
-    return os.path.join(os.path.abspath(ARTIFACTS_DIR), "traces")
+    return paths.traces_dir()
 
 
 class TraceBuilder:
@@ -194,7 +192,7 @@ def export_spans(spans: Sequence[Span],
 
 def save_trace(doc: dict, path: Optional[str] = None,
                name: str = "obs_trace.json") -> str:
-    """Write an exporter document under ``artifacts/traces/`` (or
+    """Write an exporter document under ``artifacts/traces_torch/`` (or
     ``path``) and return the file path."""
     if path is None:
         path = os.path.join(traces_dir(), name)

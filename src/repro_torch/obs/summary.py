@@ -15,6 +15,7 @@ import os
 from bisect import bisect_left
 from typing import Dict, Iterable, List, Optional
 
+from .. import paths
 from .metrics import REL_ERR_BUCKETS
 from .spans import Span
 
@@ -81,11 +82,10 @@ def summary(tracer=None, registry=None,
 
 
 def save_summary(path: Optional[str] = None, **kwargs) -> str:
-    """Write :func:`summary` JSON under ``artifacts/obs/`` (or ``path``)."""
+    """Write :func:`summary` JSON under ``artifacts/obs_torch/`` (or
+    ``path``)."""
     if path is None:
-        from ..core.calibration import ARTIFACTS_DIR
-        path = os.path.join(os.path.abspath(ARTIFACTS_DIR), "obs",
-                            "summary.json")
+        path = os.path.join(paths.obs_dir(), "summary.json")
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         json.dump(summary(**kwargs), f, indent=2, sort_keys=True)

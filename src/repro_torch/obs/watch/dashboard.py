@@ -29,7 +29,8 @@ import os
 import time
 from typing import Optional, Sequence
 
-DEFAULT_PATH = os.path.join("artifacts", "obs", "dashboard.html")
+from ... import paths
+
 
 #: cap on sparkline series per bench — the flattener can emit dozens of
 #: leaves; the dashboard shows the first N alphabetically and says so.
@@ -105,11 +106,12 @@ def render_dashboard(data: dict) -> str:
 
 def save_dashboard(path: Optional[str] = None,
                    data: Optional[dict] = None, **collect_kwargs) -> str:
-    """Render and write the dashboard; returns the path."""
+    """Render and write the dashboard (default: ``dashboard.html`` under
+    ``artifacts/obs_torch/``, ``repro_torch.paths``); returns the path."""
     if data is None:
         data = collect_data(**collect_kwargs)
     if path is None:
-        path = DEFAULT_PATH
+        path = os.path.join(paths.obs_dir(), "dashboard.html")
     path = os.path.abspath(path)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:

@@ -1,12 +1,13 @@
 """Bench-history store + statistical regression sentinel.
 
-Every benchmark run emits ``artifacts/bench/BENCH_*.json`` — a snapshot
+Every benchmark run emits ``artifacts/bench_torch/BENCH_*.json`` — a snapshot
 with no memory: a change that halves simulator throughput sails through as
 long as the absolute gates still pass.  This module gives the bench
 trajectory a history:
 
 * :class:`BenchHistory` — an append-only JSONL file under
-  ``artifacts/bench/history/`` (same discipline as the telemetry
+  ``artifacts/bench_torch/history/`` (``$REPRO_TORCH_BENCH_HISTORY_DIR``;
+  ``repro_torch.paths``; same discipline as the telemetry
   :class:`~repro_torch.telemetry.store.RunStore`: schema-versioned lines,
   skip-don't-crash reads).  Each line is one benchmark's flattened
   numeric metrics stamped with the run metadata the emitters now carry
@@ -38,6 +39,8 @@ import re
 import statistics
 from typing import Dict, List, Optional, Sequence
 
+from ... import paths
+
 #: bump when the history line format changes incompatibly.
 HISTORY_SCHEMA = 1
 
@@ -46,12 +49,8 @@ MIN_HISTORY = 3
 
 
 def history_dir() -> str:
-    env = os.environ.get("REPRO_BENCH_HISTORY_DIR")
-    if env:
-        return env
-    repo = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))))))
-    return os.path.join(repo, "artifacts", "bench", "history")
+    """The default history's directory, resolved at each call."""
+    return paths.bench_history_dir()
 
 
 @dataclasses.dataclass

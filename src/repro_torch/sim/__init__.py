@@ -24,7 +24,7 @@ contention emerges from where traffic actually collides:
                 scenarios over shared route/fold caches
   result.py     ``SimResult`` (per-rank phases, critical path, link
                 utilization, overlap efficiency) + Chrome-trace emission
-                under ``artifacts/traces/``
+                under ``artifacts/traces_torch/``
   calibrate.py  ``derive_calibration``: C_avg / C_max tables from
                 simulated link loads
   faults.py     declarative fault injection: ``FaultSpec`` bundles slow

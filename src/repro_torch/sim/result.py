@@ -5,7 +5,7 @@ with the scenario axis replaced by the *rank* axis: per-rank per-phase
 times, the critical rank/path, per-link utilization, and the achieved
 overlap efficiency.  ``dump_chrome_trace`` writes a ``chrome://tracing`` /
 Perfetto-loadable JSON timeline (one track per rank) under
-``artifacts/traces/``.
+``artifacts/traces_torch/`` (``repro_torch.paths``).
 """
 
 from __future__ import annotations
@@ -17,14 +17,12 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .. import paths
 from .network import LinkStats
 
 
 def traces_dir() -> str:
-    # deferred: core.calibration owns the artifacts-root resolution
-    # (REPRO_ARTIFACTS) and is not needed at sim import time
-    from ..core.calibration import ARTIFACTS_DIR
-    return os.path.join(os.path.abspath(ARTIFACTS_DIR), "traces")
+    return paths.traces_dir()
 
 
 @dataclasses.dataclass
@@ -112,7 +110,7 @@ class SimResult:
 
     def dump_chrome_trace(self, path: Optional[str] = None,
                           max_ranks: int = 64, eval_result=None) -> str:
-        """Write the trace under ``artifacts/traces/`` (or ``path``) and
+        """Write the trace under ``artifacts/traces_torch/`` (or ``path``) and
         return the file path."""
         if path is None:
             safe_v = self.variant.replace(".", "")

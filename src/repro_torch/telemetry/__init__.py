@@ -8,7 +8,8 @@ those predictions:
   record.py     PhaseTimer instrumentation (context manager + decorator)
                 wired into linalg dispatch;
                 recording is off unless REPRO_TELEMETRY=1 / enable()
-  store.py      append-only JSONL run store under artifacts/telemetry/,
+  store.py      append-only JSONL run store under
+                artifacts/telemetry_torch/,
                 keyed by machine fingerprint, schema-versioned, compactable
   residuals.py  join measured runs against perf.evaluate per-phase
                 predictions (and optionally repro_torch.sim) -> ratio rows

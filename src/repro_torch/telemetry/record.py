@@ -9,7 +9,8 @@ scenario.
 Recording is off by default: the dispatch and serving hot paths pay one
 ``enabled()`` check and nothing else.  Turn it on either with
 ``REPRO_TELEMETRY=1`` in the environment (records land in the default
-:class:`RunStore` under ``artifacts/telemetry/``) or programmatically with
+:class:`RunStore` under ``artifacts/telemetry_torch/``) or
+programmatically with
 ``enable(store)``; explicit per-call opt-ins (``observe=True`` on the
 dispatch entry points and ``Tuner.plan``) record regardless of the global
 switch.

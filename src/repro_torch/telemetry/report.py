@@ -66,7 +66,8 @@ def format_report(report: dict) -> str:
 
 
 def save_report(report: dict, path: Optional[str] = None) -> str:
-    """Write the report JSON under ``artifacts/telemetry/`` (CI gates on
+    """Write the report JSON under ``artifacts/telemetry_torch/`` (the
+    reference's CI gates its own report's
     ``overall.mean_rel_err``); returns the path."""
     if path is None:
         path = os.path.join(telemetry_dir(), "report.json")

@@ -1,4 +1,5 @@
-"""Append-only JSONL run store under ``artifacts/telemetry/``.
+"""Append-only JSONL run store under ``artifacts/telemetry_torch/``
+(``$REPRO_TORCH_TELEMETRY_DIR``; ``repro_torch.paths``).
 
 Measured runs are small self-describing records; the store groups them by
 machine fingerprint (one ``runs-<fingerprint>.jsonl`` file each, like the
@@ -22,18 +23,16 @@ import threading
 import time
 from typing import Dict, Iterable, List, Optional
 
+from .. import paths
+
 #: bump when the record field set changes incompatibly — old lines are
 #: skipped on read and dropped on compaction, never misread.
 TELEMETRY_SCHEMA = 1
 
 
 def telemetry_dir() -> str:
-    env = os.environ.get("REPRO_TELEMETRY_DIR")
-    if env:
-        return env
-    repo = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.dirname(os.path.abspath(__file__)))))
-    return os.path.join(repo, "artifacts", "telemetry")
+    """The default store's directory, resolved at each call."""
+    return paths.telemetry_dir()
 
 
 @dataclasses.dataclass

@@ -9,7 +9,8 @@ hand-written CUDA kernels (``repro_torch.kernels``) as local compute.
 Layout:
   registry.py   PerfModelRegistry — one query surface over the algorithm
                 models, collective models, and machine surfaces
-  plan.py       ExecutionPlan + persistent JSON PlanCache (artifacts/plans/)
+  plan.py       ExecutionPlan + persistent JSON PlanCache
+                (artifacts/plans_torch/)
   autotune.py   Tuner — feasible-grid enumeration + model selection +
                 LM-layer consultations (fsdp layout, prefill chunking)
   dispatch.py   linalg.matmul/trsm/cholesky execution of resolved plans

@@ -6,7 +6,8 @@ replication factor ``c``, block-cyclic ``r``, the process-grid edge ``g``
 (mesh shape is ``(c, g, g)``, or ``(g, g)`` at ``c=1``), the local-kernel
 choice, and the model's predicted timing for observability.
 
-Plans persist as JSON under ``artifacts/plans/`` keyed by
+Plans persist as JSON under ``artifacts/plans_torch/``
+(``$REPRO_TORCH_PLAN_DIR``; ``repro_torch.paths``) keyed by
 
     (machine fingerprint, algo, n, p, dtype)
 
@@ -27,6 +28,7 @@ import re
 import threading
 from typing import Dict, Optional
 
+from .. import paths
 from ..perf import MODEL_VERSION
 
 #: bump when the plan *schema* (the JSON field set) changes incompatibly —
@@ -36,12 +38,8 @@ PLAN_SCHEMA = 3
 
 
 def default_plan_dir() -> str:
-    env = os.environ.get("REPRO_PLAN_DIR")
-    if env:
-        return env
-    repo = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.dirname(os.path.abspath(__file__)))))
-    return os.path.join(repo, "artifacts", "plans")
+    """A cache's directory when none is given, resolved at each call."""
+    return paths.plan_dir()
 
 
 def machine_fingerprint(machine, platform: str, device_kind: str,

@@ -109,9 +109,9 @@ def test_the_sweep_covers_k1s_tiles():
 
 
 def test_main_on_the_cpu_meets_the_reference_gates(tmp_path, monkeypatch):
-    monkeypatch.setattr(run, "OUT", str(tmp_path))
+    monkeypatch.setenv("REPRO_TORCH_ARTIFACTS", str(tmp_path))
     res = run.run_bench("kernels", "cpu")
-    with open(tmp_path / "BENCH_kernels.json") as f:
+    with open(tmp_path / "bench_torch" / "BENCH_kernels.json") as f:
         saved = json.load(f)
     assert "_meta" in saved and saved["n"] == bench_kernels.N_CPU
     out = bench_kernels.main(device="cpu", n=256)

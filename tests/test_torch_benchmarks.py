@@ -25,28 +25,27 @@ from repro_torch.benchmarks import (bench_faults, bench_obs, bench_serving,
                                     common, fig5to8_validation, run,
                                     tables_2to5_predictions)
 from repro_torch.core import calibration as cal
-from repro_torch.core.perfmodel import ParametricCalibration
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 SRC = os.path.join(ROOT, "src")
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
-#: the joint fit's starting point (tests/test_torch_calibration.py): the
-#: tables run on it without the two-minute Hopper fit
-THETA0 = np.concatenate([ParametricCalibration().params(),
-                         [0.92, 350.0, 0.85, 500.0, 0.70, 600.0]])
+#: the joint fit's starting point: the tables run on it without the
+#: two-minute Hopper fit
+THETA0 = cal.THETA0
 ALGOS = ("cannon", "summa", "trsm", "cholesky")
 VARIANTS_2D = [f"{a}_{v}" for a in ALGOS for v in ("2d", "2d_ovlp")]
 
 
 @pytest.fixture
 def artifacts(tmp_path, monkeypatch):
-    """Both packages' artifacts (traces, dashboards) under ``tmp_path``."""
+    """Both packages' artifacts (traces, dashboards) under ``tmp_path``:
+    the reference's root and the port's (``REPRO_TORCH_ARTIFACTS``, read
+    at each call, the harness's included)."""
     from repro.core import calibration as ref_cal
     monkeypatch.setattr(ref_cal, "ARTIFACTS_DIR", str(tmp_path))
-    monkeypatch.setattr(cal, "ARTIFACTS_DIR", str(tmp_path))
-    monkeypatch.setattr(common, "ART", str(tmp_path))
+    monkeypatch.setenv("REPRO_TORCH_ARTIFACTS", str(tmp_path))
     return tmp_path
 
 
@@ -151,7 +150,7 @@ def test_bench_sim_equals_the_reference(artifacts):
     assert want["max_rel_err_nocal"] <= 1e-6
     assert got["agreement_nocal"] == pytest.approx(want["agreement_nocal"],
                                                    abs=1e-12)
-    assert os.path.dirname(got["trace"]) == str(artifacts / "traces")
+    assert os.path.dirname(got["trace"]) == str(artifacts / "traces_torch")
 
 
 def test_bench_sim_scale_equals_the_reference():
@@ -227,14 +226,14 @@ def test_serving_calibration_on_the_cpu(fresh_cost_caches):
 def test_bench_obs_writes_the_paired_trace_under_art(artifacts):
     out = bench_obs.main(device="cpu")
     assert out["serving_trace_flow_events"] > 0
-    path = artifacts / "traces" / "serving_paired_trace.json"
+    path = artifacts / "traces_torch" / "serving_paired_trace.json"
     with open(path) as f:
         doc = json.load(f)
     assert {ev["pid"] for ev in doc["traceEvents"] if "pid" in ev} == {0, 1}
     assert sum(ev.get("ph") == "s" for ev in doc["traceEvents"]) \
         == out["serving_trace_flow_events"]
-    assert (artifacts / "traces" / "obs_bench_trace.json").exists()
-    assert (artifacts / "obs" / "dashboard_bench.html").exists()
+    assert (artifacts / "traces_torch" / "obs_bench_trace.json").exists()
+    assert (artifacts / "obs_torch" / "dashboard_bench.html").exists()
 
 
 # -- the tuner ----------------------------------------------------------------
@@ -422,7 +421,8 @@ def test_fingerprint_differs_from_the_reference_suite(monkeypatch):
 
 
 def test_run_cli_writes_stamped_jsons(tmp_path):
-    env = dict(os.environ, PYTHONPATH=SRC, REPRO_ARTIFACTS=str(tmp_path))
+    env = dict(os.environ, PYTHONPATH=SRC,
+               REPRO_TORCH_ARTIFACTS=str(tmp_path))
     env.pop("REPRO_BENCH_FINGERPRINT", None)
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.benchmarks.run", "--device",
@@ -447,7 +447,7 @@ def test_run_cli_fails_a_bench_that_raises(tmp_path, monkeypatch, capsys):
     others still run, and the run exits 1."""
     def boom():
         raise RuntimeError("bench gave up")
-    monkeypatch.setattr(run, "OUT", str(tmp_path))
+    monkeypatch.setenv("REPRO_TORCH_ARTIFACTS", str(tmp_path))
     monkeypatch.setitem(run.BENCHES, "sim", boom)
     with pytest.raises(SystemExit) as exc:
         run.main(["--device", "cpu", "--only", "sim", "lm_model"])
@@ -456,17 +456,18 @@ def test_run_cli_fails_a_bench_that_raises(tmp_path, monkeypatch, capsys):
     assert "sim_FAILED" in captured.out
     assert "lm_model_qwen1.5-110b" in captured.out
     assert "bench gave up" in captured.err
-    assert os.listdir(tmp_path) == ["lm_model.json"]
+    assert os.listdir(tmp_path / "bench_torch") == ["lm_model.json"]
 
 
 def test_check_regressions_warns_on_an_empty_history(tmp_path, monkeypatch,
                                                       capsys):
-    bench_dir = tmp_path / "bench"
+    bench_dir = tmp_path / "bench_torch"
     bench_dir.mkdir()
     (bench_dir / "BENCH_x.json").write_text(json.dumps(
         {"events_per_sec": 50.0, "_meta": common.run_meta()}))
-    monkeypatch.setenv("REPRO_BENCH_HISTORY_DIR", str(tmp_path / "hist"))
-    monkeypatch.setattr(run, "OUT", str(bench_dir))
+    monkeypatch.setenv("REPRO_TORCH_BENCH_HISTORY_DIR",
+                       str(tmp_path / "hist"))
+    monkeypatch.setenv("REPRO_TORCH_ARTIFACTS", str(tmp_path))
     assert run.check_regressions() == 0
     assert "warn-only" in capsys.readouterr().out
     assert (tmp_path / "hist" / "history.jsonl").exists()

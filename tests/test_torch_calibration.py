@@ -27,8 +27,7 @@ from repro_torch.tuner import PlanCache, Tuner, build_default_registry
 ALGOS = list(paper_data.PAPER_TABLES)
 # the joint fit's starting point: 5 calibration parameters, then
 # (eff_max, n0) for dgemm, dtrsm, dpotrf (fit_hopper_joint's x0)
-THETA0 = np.concatenate([ParametricCalibration().params(),
-                         [0.92, 350.0, 0.85, 500.0, 0.70, 600.0]])
+THETA0 = cal.THETA0
 
 
 def _perturbed(x0, seed):

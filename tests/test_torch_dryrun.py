@@ -343,14 +343,18 @@ def test_counting_mesh_counts_what_a_decode_sends(counted_world, case,
         assert calls.get("all-reduce", 0) >= 2 * 2  # the combine, a layer
 
 
-def test_arctic_count_gathers_no_expert_bank(monkeypatch):
+def test_arctic_count_gathers_no_expert_bank(monkeypatch, tmp_path):
     """arctic-480b's train step (two layers) and prefill (every layer:
     FSDP) on rank 0 of (16, 16), counted on meta: no all-gather over
     ``model`` takes an expert bank's block (8 of its 128 experts a rank);
-    under FSDP the banks are gathered over ``data`` only."""
+    under FSDP the banks are gathered over ``data`` only.  The layout
+    choice's plan goes to a temporary cache, not the checkout's."""
+    import repro_torch.tuner as tuner_mod
     from repro_torch.distributed import sharding as shd
     from repro_torch.launch import specs
     from repro_torch.launch.mesh import counting_mesh
+    tuner = tuner_mod.Tuner(plan_dir=str(tmp_path))
+    monkeypatch.setattr(tuner_mod, "default_tuner", lambda: tuner)
     mesh = counting_mesh((16, 16))
     seen = []
     orig = pg.all_gather
@@ -397,8 +401,9 @@ CLI = textwrap.dedent(r"""
 
 def _cli(tmp_path, *args):
     env = dict(os.environ)
-    env.update(REPRO_PLAN_DIR=str(tmp_path / "plans"),
-               REPRO_ARTIFACTS=str(tmp_path / "art"), CUDA_VISIBLE_DEVICES="")
+    env.update(REPRO_TORCH_PLAN_DIR=str(tmp_path / "plans"),
+               REPRO_TORCH_ARTIFACTS=str(tmp_path / "art"),
+               CUDA_VISIBLE_DEVICES="")
     return subprocess.run([sys.executable, "-c", CLI, SRC, *args],
                           capture_output=True, text=True, env=env,
                           timeout=300)
@@ -454,18 +459,17 @@ def test_the_roofline_bench_emits_the_records(tmp_path, monkeypatch,
                                              capsys):
     """``run.py --only roofline`` over the dry run's records: one line a
     mesh and one a train cell, and its JSON stamped."""
-    from repro_torch.benchmarks import roofline_table, run
+    from repro_torch.benchmarks import run
     res = _cli(tmp_path, "--arch", "whisper-tiny", "--mesh", "both")
     assert res.returncode == 0, res.stderr[-3000:]
-    monkeypatch.setattr(roofline_table, "ART", str(tmp_path / "art"))
-    monkeypatch.setattr(run, "OUT", str(tmp_path / "bench"))
+    monkeypatch.setenv("REPRO_TORCH_ARTIFACTS", str(tmp_path / "art"))
     out = run.bench_roofline()
     lines = capsys.readouterr().out.splitlines()
     assert [ln.split(",")[0] for ln in lines] == [
         "roofline_pod", "roofline_multipod",
         "roofline_cell_whisper-tiny@train_4k"]
     assert out["pod"]["n_cells"] == 3 and "n_not_lowered" not in out["pod"]
-    with open(tmp_path / "bench" / "roofline.json") as f:
+    with open(tmp_path / "art" / "bench_torch" / "roofline.json") as f:
         assert "_meta" in json.load(f)
 
 

@@ -201,9 +201,14 @@ def test_serving_trace_equals_the_reference():
 
 
 def test_switch_and_artifacts_paths_match(monkeypatch):
+    """The switch is the reference's; the port's traces sit beside the
+    reference's under the shared default root, under a name of their
+    own."""
     from repro.obs.export import traces_dir as ref_traces_dir
     from repro_torch.obs.export import traces_dir
-    assert traces_dir() == ref_traces_dir()
+    monkeypatch.delenv("REPRO_TORCH_ARTIFACTS", raising=False)
+    assert traces_dir() == os.path.join(os.path.dirname(ref_traces_dir()),
+                                        "traces_torch")
     for value, on in (("1", True), ("0", False)):
         monkeypatch.setenv("REPRO_OBS", value)
         obs.reset()

@@ -118,15 +118,20 @@ def test_rules_are_carried_by_the_mesh():
     assert pods.for_batch(512).batch_axes == ("pod", "data", "model")
 
 
-def test_a_rank_runs_the_microbatches_that_divide_its_rows():
+def test_a_rank_runs_the_microbatches_that_divide_its_rows(monkeypatch,
+                                                          tmp_path):
     """granite-20b@train_4k under dp_sp: the record keeps the reference's
     2 microbatches and says that the rank's one row ran as one
     (``microbatches_run``); the baseline's 16 rows run the reference's
-    count.  The step refuses a count that does not divide its rows."""
+    count.  The step refuses a count that does not divide its rows.  The
+    layout choice's plans go to a temporary cache, not the checkout's."""
+    import repro_torch.tuner as tuner_mod
     from repro_torch.configs import SHAPES
     from repro_torch.launch import specs
     from repro_torch.launch.mesh import counting_mesh
     from repro_torch.training.trainer import step_gradients, whole_layout
+    tuner = tuner_mod.Tuner(plan_dir=str(tmp_path))
+    monkeypatch.setattr(tuner_mod, "default_tuner", lambda: tuner)
     mesh = counting_mesh((16, 16))
     *_, meta = specs.step_and_specs(
         "granite-20b", "train_4k", mesh.with_rules(rules_for("granite-20b",

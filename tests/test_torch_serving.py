@@ -579,12 +579,16 @@ def _watch_cases():
 def watch_results(tmp_path_factory):
     """tests/test_watch.py with every import of the reference turned into
     the port's, its benchmark CLI (``benchmarks.run``) into the port's
-    (``repro_torch.benchmarks.run``), run in one pytest process: the
+    (``repro_torch.benchmarks.run``) and the reference's location
+    variables into the port's (``REPRO_BENCH_HISTORY_DIR`` ->
+    ``REPRO_TORCH_BENCH_HISTORY_DIR``), run in one pytest process: the
     outcome of each case."""
     d = tmp_path_factory.mktemp("watch")
     with open(WATCH_TESTS) as f:
         src = f.read()
     src = re.sub(r"\brepro\b(?=[ .])", "repro_torch", src)
+    src = re.sub(r"\bREPRO_(ARTIFACTS|TELEMETRY_DIR|PLAN_DIR|"
+                 r"BENCH_HISTORY_DIR)\b", r"REPRO_TORCH_\1", src)
     src = src.replace("import benchmarks.run",
                       "import repro_torch.benchmarks.run")
     assert "from repro " not in src and "repro." not in src

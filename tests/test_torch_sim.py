@@ -181,20 +181,24 @@ def test_batch_equals_the_reference():
 
 
 def test_chrome_trace_equals_the_reference(tmp_path, monkeypatch):
-    """Both traces land under REPRO_ARTIFACTS/traces and hold the same
-    events."""
-    monkeypatch.setenv("REPRO_ARTIFACTS", str(tmp_path))
-    for mod in (calibration, ref_calibration):
-        monkeypatch.setattr(mod, "ARTIFACTS_DIR", str(tmp_path))
+    """The port's trace lands under REPRO_TORCH_ARTIFACTS/traces_torch,
+    the reference's under its own root, and they hold the same events."""
+    monkeypatch.setenv("REPRO_TORCH_ARTIFACTS", str(tmp_path / "port"))
+    monkeypatch.setattr(ref_calibration, "ARTIFACTS_DIR",
+                        str(tmp_path / "ref"))
     ctx, ref_ctx = _ctxs()
     args = (4096.0, 16)
     got = sim.simulate_program(PROGRAMS[("cannon", "2d")], ctx,
                                sim.Torus((4, 4)), *args)
     want = ref_sim.simulate_program(REF_PROGRAMS[("cannon", "2d")], ref_ctx,
                                     ref_sim.Torus((4, 4)), *args)
-    assert sim.traces_dir() == os.path.join(str(tmp_path), "traces")
+    assert sim.traces_dir() == os.path.join(str(tmp_path), "port",
+                                            "traces_torch")
     path = got.dump_chrome_trace()
     assert os.path.dirname(path) == sim.traces_dir()
+    ref_path = want.dump_chrome_trace()
+    assert os.path.dirname(ref_path) == os.path.join(str(tmp_path), "ref",
+                                                     "traces")
     with open(path) as f:
         trace = json.load(f)
     assert trace == json.loads(json.dumps(want.chrome_trace()))

@@ -106,10 +106,16 @@ def test_a_store_written_by_one_package_loads_in_the_other(writer, tmp_path):
 
 
 def test_env_switches_match(monkeypatch, tmp_path):
-    monkeypatch.setenv("REPRO_TELEMETRY_DIR", str(tmp_path))
-    assert tel.telemetry_dir() == ref_tel.telemetry_dir() == str(tmp_path)
+    """The recording switch is the reference's; the store's location is
+    the port's own (``REPRO_TORCH_TELEMETRY_DIR``)."""
+    monkeypatch.setenv("REPRO_TELEMETRY_DIR", str(tmp_path / "ref"))
+    monkeypatch.setenv("REPRO_TORCH_TELEMETRY_DIR", str(tmp_path / "port"))
+    assert ref_tel.telemetry_dir() == str(tmp_path / "ref")
+    assert tel.telemetry_dir() == str(tmp_path / "port")
     monkeypatch.delenv("REPRO_TELEMETRY_DIR")
-    assert tel.telemetry_dir() == ref_tel.telemetry_dir()
+    monkeypatch.delenv("REPRO_TORCH_TELEMETRY_DIR")
+    monkeypatch.delenv("REPRO_TORCH_ARTIFACTS", raising=False)
+    assert tel.telemetry_dir() != ref_tel.telemetry_dir()
     for value, on in (("1", True), ("0", False), ("", False)):
         monkeypatch.setenv("REPRO_TELEMETRY", value)
         assert tel.enabled() is on and ref_tel.enabled() is on
