@@ -39,7 +39,9 @@ device time of the device-to-host and host-to-device copies (the staging),
 and the host time waiting on gloo (the ``comm_wait`` ranges of
 ``linalg.collectives.GroupComm``).
 K1 at each compiled CTA tile: what the loaded body reports, and its
-device time at 4096^3 beside ``torch.matmul``'s.
+device time at 4096^3 beside ``torch.matmul``'s; K1 on bf16 operands at
+4096^3 (its tensor-core body), out in fp32 and in bf16, beside
+``torch.mm(out_dtype=)`` and ``torch.matmul``.
 Exits non-zero without a CUDA device or when a profile holds no device
 time.
 
@@ -48,6 +50,10 @@ Usage, from the root of a checkout on a machine with a CUDA GPU:
     python3 chip_profile.py              # all of the above
     python3 chip_profile.py --k1-tiles   # the build, the ptxas report of
                                          # K1's sources and its tiles alone
+    python3 chip_profile.py --k1-bf16-k6-bwd
+        # the ptxas report of K1's bf16 and K6's sources, K1 on bf16
+        # operands at 4096^3, K6's backward at xlstm-350m's train shape (its
+        # launches; chunks of 8 to 64), and xlstm-350m's train step split
 """
 
 from __future__ import annotations
@@ -67,7 +73,10 @@ TOP = 8
 K5_KERNEL = re.compile(r"ssm_(chunk_state|state_pass|output)_kernel")
 # K6's: chunk summaries, the carry, the outputs; and its backward
 K6_KERNEL = re.compile(r"slstm_(chunk|carry|output)_kernel")
-K6_BWD_KERNEL = re.compile("slstm_bwd_kernel")
+K6_BWD_KERNEL = re.compile(r"slstm_bwd_(chunk_|carry_|output_)?kernel")
+# K6's backward's chunk lengths timed through the binding, besides the
+# wrapper's (ops.BWD_CHUNK)
+K6_BWD_CHUNKS = (8, 16, 32, 64)
 # the prefill calls, each with its kernels and their CUDA functions (K4's
 # bf16 body: flash_tc_kernel), and the layer count where the full depth does
 # not fit one card (arctic-480b: 35 layers of 26.8 GB of experts each)
@@ -104,8 +113,16 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     ext = _build.extension()
     k1_only = "--k1-tiles" in sys.argv[1:]
-    ptxas_report(_build, only="matmul" if k1_only else None)
+    redesigned = "--k1-bf16-k6-bwd" in sys.argv[1:]
+    ptxas_report(_build, only="matmul" if k1_only else
+                 ("matmul_bf16", "slstm") if redesigned else None)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if redesigned:
+        k1_bf16_device_times(torch, gen)
+        k6_device_times(torch, gen, backward_only=True)
+        arch, tokens, ranges, functions = TRAIN_PROFILES[1]
+        return 0 if train_step_profile(torch, arch, tokens, ranges,
+                                       functions, timed_steps=5) else 1
     k1_tile_report(torch, ext)
     if k1_only:
         k1_tile_device_times(torch, gen)
@@ -180,6 +197,7 @@ def main() -> int:
             return 1
     kernel_device_times(torch, gen)
     k1_device_times(torch, gen)
+    k1_bf16_device_times(torch, gen)
     k1_tile_device_times(torch, gen)
     k5_device_times(torch, gen)
     k6_device_times(torch, gen)
@@ -368,18 +386,30 @@ K6_SHAPES = (("xlstm-350m prefill", 4, 4096, 1024),
 K6_CHUNKS = (16, 32, 64, 128)
 
 
-def k6_device_times(torch, gen, reps: int = 10) -> None:
+def k6_device_times(torch, gen, reps: int = 10,
+                    backward_only: bool = False) -> None:
     """Device time of one K6 call at xlstm-350m's prefill and train shapes
     (fp32, the inputs chip_smoke.py checks: the input gate five times
     wider), split over its three launches, at each chunk length of
     K6_CHUNKS: the wrapper's (``ops.CHUNK``) through the wrapper, the
     others through the binding; with the device events and the counted
     launches a call.  Then one call of K6's backward at the train shape on
-    the forward's states.  One JSON line each."""
+    the forward's states, split over its launches, through the wrapper and,
+    where the binding takes a chunk, at each of K6_BWD_CHUNKS through the
+    binding.  One JSON line each; ``backward_only``: the train shape's
+    backward alone."""
     from repro_torch.kernels import (_build, slstm_scan_bwd_cuda,
                                      slstm_scan_cuda)
     from repro_torch.kernels.slstm.ops import CHUNK
     ext = _build.extension()
+
+    def by_launch(record, pattern):
+        out = {}
+        for row in record["all"]:
+            m = pattern.search(row["name"])
+            if m:
+                out[m.group(0)] = out.get(m.group(0), 0.0) + row["ms"] / reps
+        return out
 
     def binding(z, i, f, o, chunk):
         b, s, w = z.shape
@@ -390,10 +420,12 @@ def k6_device_times(torch, gen, reps: int = 10) -> None:
                        work, chunk, torch.cuda.current_stream().cuda_stream)
 
     for shape, b, s, w in K6_SHAPES:
+        if backward_only and b != 1:
+            continue
         z, i, f, o = (torch.randn(b, s, w, device="cuda", generator=gen)
                       for _ in range(4))
         i.mul_(5.0)
-        for chunk in K6_CHUNKS:
+        for chunk in () if backward_only else K6_CHUNKS:
             if chunk == CHUNK:
                 def call():
                     slstm_scan_cuda(z, i, f, o)
@@ -429,9 +461,30 @@ def k6_device_times(torch, gen, reps: int = 10) -> None:
                 "s": s, "w": w, "device_ms": record["device_ms"] / reps,
                 "kernel_ms": sum(r["ms"] for r in record["all"]
                                  if K6_BWD_KERNEL.search(r["name"])) / reps,
+                "by_launch_ms": by_launch(record, K6_BWD_KERNEL),
                 "device_events": len(record["events"]) / reps,
                 "counted_launches": (slstm_scan_bwd_cuda.launches - before)
                 / reps}), flush=True)
+            if hasattr(ext, "slstm_scan_bwd_workspace"):
+                grads = [torch.empty_like(z) for _ in range(4)]
+                for chunk in K6_BWD_CHUNKS:
+                    work = torch.empty(ext.slstm_scan_bwd_workspace(
+                        b, s, w, chunk), device="cuda")
+
+                    def call(chunk=chunk, work=work):
+                        ext.slstm_scan_bwd(
+                            *ins, *grads, work, chunk,
+                            torch.cuda.current_stream().cuda_stream)
+                    call()
+                    record = profiled(torch, lambda: [call()
+                                                      for _ in range(reps)])
+                    print(json.dumps({
+                        "kernel": "K6 slstm_scan_bwd", "shape": shape,
+                        "b": b, "s": s, "w": w, "chunk": chunk,
+                        "device_ms": record["device_ms"] / reps,
+                        "by_launch_ms": by_launch(record, K6_BWD_KERNEL)}),
+                        flush=True)
+                del grads, work
             del dy, ins
         del z, i, f, o
         torch.cuda.empty_cache()
@@ -512,6 +565,33 @@ def k1_device_times(torch, gen) -> None:
         del a, b
     del u, panel
     torch.cuda.empty_cache()
+
+
+def k1_bf16_device_times(torch, gen, n: int = 4096) -> None:
+    """Device time per call of K1 on bf16 operands at n^3 (the body the
+    launcher ran, by its count), out in fp32 and in bf16, beside the one
+    library call computing the same (``torch.mm`` with ``out_dtype``, or
+    ``torch.matmul``); one JSON line each."""
+    from repro_torch.kernels import matmul_cuda
+    a = torch.randn(n, n, device="cuda", generator=gen).to(torch.bfloat16)
+    b = torch.randn(n, n, device="cuda", generator=gen).to(torch.bfloat16)
+    for odt in (torch.float32, torch.bfloat16):
+        if odt == torch.bfloat16:
+            def library():
+                torch.matmul(a, b)
+        else:
+            def library():
+                torch.mm(a, b, out_dtype=odt)
+        bodies = dict(getattr(matmul_cuda, "launches_by_body", {}))
+        matmul_cuda(a, b, out_dtype=odt)
+        ran = {k: v - bodies.get(k, 0) for k, v in
+               getattr(matmul_cuda, "launches_by_body", {}).items()
+               if v != bodies.get(k, 0)}
+        print(json.dumps({
+            "kernel": "K1 matmul", "dtype": "bfloat16",
+            "out_dtype": str(odt)[6:], "m": n, "k": n, "n": n, "body": ran,
+            **device_times(torch, lambda: matmul_cuda(a, b, out_dtype=odt),
+                           library)}), flush=True)
 
 
 def k1_tile_report(torch, ext) -> None:
@@ -680,7 +760,7 @@ TRAIN_PROFILES = (
 
 
 def train_step_profile(torch, arch, tokens, backward_ranges,
-                       kernel_functions) -> bool:
+                       kernel_functions, timed_steps: int = 0) -> bool:
     """One warm train step of chip_smoke.py §10.2: ``arch`` at full width
     and depth, its own type, remat, one prompt of ``tokens`` tokens, AdamW
     with fp32 moments, through ``Trainer``.  Prints the step's wall and
@@ -689,7 +769,9 @@ def train_step_profile(torch, arch, tokens, backward_ranges,
     backward), each twin's backward (its products included), the
     optimizer, cuBLAS's products elsewhere (the forward, its recompute and
     their backward), and the rest.  False when the profile holds no device
-    time, or none in a twin's backward or in one of the kernels."""
+    time, or none in a twin's backward or in one of the kernels.  With
+    ``timed_steps``, that many warm steps first, each timed alone without
+    the profiler (host clock, ending in a synchronize)."""
     from repro_torch import kernels
     from repro_torch.configs import get
     from repro_torch.models import attention, ssm
@@ -704,6 +786,13 @@ def train_step_profile(torch, arch, tokens, backward_ranges,
         seed=0)
     batch = tr.batch_at(0)
     tr.train_step(batch)                                  # warm-up
+    walls = []
+    for _ in range(timed_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train_step(batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
     labels = (*backward_ranges, "optimizer")
     saved = []
     for label, (module, name) in backward_ranges.items():
@@ -743,7 +832,7 @@ def train_step_profile(torch, arch, tokens, backward_ranges,
         "remat": cfg.remat, "tokens": tokens,
         "device_events": device_events, "ranged_kernels": len(in_ranges),
         "counted_launches": kernels.launches(), "split_ms": split,
-        **record}), flush=True)
+        "warm_walls_ms": walls, **record}), flush=True)
     del tr
     torch.cuda.empty_cache()
     return record["device_ms"] > 0 and all(

@@ -7,7 +7,11 @@
    K4 flash attention, K5 the SSD scan, K6 the sLSTM recurrence) to its
    plain PyTorch version on the card at its path's shapes (K1 at the main
    path's three product classes, on its 4-byte copy path, on a stacked
-   batch and on a batch of one, §11's rank blocks; K2 also on a strided B
+   batch and on a batch of one, §11's rank blocks, and in bf16 on its
+   tensor-core body, out in fp32 and in bf16, on TMA's ragged edges, a
+   stacked and a shared-B batch, and on its FFMA body for rows that are
+   not 16-byte aligned, each row naming the body that ran; K2 also on a
+   strided B
    (§11's rank blocks among them) and at the Cholesky's last panel, K3 also
    at a ragged width; K4, K5 and K6 in the path's layouts, with the error
    taken per output row; K4 also at head dims 16, 80 and 160, which its
@@ -15,8 +19,9 @@
    body, also at a ragged S of 300, causal and not, with B 2; K5 also at xlstm's 256 x 257 state and at small
    ragged shapes; K6 at xlstm's prefill and train shapes, with open
    forget gates (f + 6, so that its chunk carries show), at a ragged shape
-   and at S below its chunk, its per-step states, and its backward kernel
-   at the train and the ragged shape against the plain reverse loop), and
+   and at S below its chunk, its per-step states, and its backward (a
+   reverse scan over chunks) at the train shape, with f + 6, at the ragged
+   shape and at S below its chunk against the plain reverse loop), and
    times kernel, plain version and the nearest single PyTorch call with
    CUDA events; K1's launcher must refuse arguments it does not take, K3's a
    block wider than one CTA holds, K4's a head dim whose tiles do not fit a
@@ -34,7 +39,9 @@
    at n = 16384, fp32, on the default devices (one card, p = 1), with the
    kernels' launch counts set to 0 before each call and read after it, and
    the residuals checked against the library; every K1 launch on the
-   default CTA tile (``h100-sxm`` plans the heuristic tiles).
+   default CTA tile (``h100-sxm`` plans the heuristic tiles).  Then
+   ``linalg.matmul`` on bf16 operands at n = 4096: every K1 launch on its
+   tensor-core body, the result bf16 and within 2e-2 of ``matmul_ref``.
 4. Runs multi-rank plans stacked on the one card (``[cuda:0] * 4`` and
    ``* 8`` at n = 4096) and all 16 variants forced through ``execute`` on
    2x2 and 2x2x2 grids at n = 2048.
@@ -305,6 +312,9 @@ PEAK_BYTES = 3.35e12
 #: K1's launches by CTA tile in the runs that read them (§3, §12's kernels
 #: bench): the kernels line gives each tile's entry its count
 TILE_LAUNCHES = {}
+#: K1's launches by body in §3's bf16 call: the kernels line gives each
+#: bf16 entry its body's count
+BODY_LAUNCHES = {}
 
 
 class SmokeFailure(Exception):
@@ -393,6 +403,8 @@ def main() -> int:
         if "cta_tile" in entry:
             entry["launches_at_tile"] = TILE_LAUNCHES.get(
                 tuple(entry["cta_tile"]), 0)
+        if entry.get("body", "").startswith("bf16"):
+            entry["launches_of_body"] = BODY_LAUNCHES.get(entry["body"], 0)
     emit({"sections_s": walls})
     emit({"script_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})
@@ -463,6 +475,16 @@ def kernel_entry(torch, name, wrapper, source, replaces, shape, got, want,
     return e
 
 
+#: K1's source by the body a launch ran (kernels/matmul/ops.py, BODIES)
+K1_SOURCES = {"fp32": "src/repro_torch/kernels/csrc/matmul_f32.cuh",
+              "bf16_wgmma": "src/repro_torch/kernels/csrc/matmul_bf16.cu",
+              "bf16_ffma": "src/repro_torch/kernels/csrc/matmul.cu"}
+#: K1 with bf16 output against matmul_ref's: each side rounds its fp32 sums
+#: to bf16 once, and sums that differ in order by an fp32 rounding can
+#: round to neighbouring bf16 values, one ulp (2^-8 of the element)
+K1_BF16_OUT_TOL = 2e-2
+
+
 def kernel_checks(torch):
     from repro_torch.kernels import (cholesky_block_cuda, cholesky_block_ref,
                                      matmul_cuda, matmul_ref, trsm_diag_cuda,
@@ -485,7 +507,11 @@ def kernel_checks(torch):
     # columns; a view at a column offset of 1).  The batch: the local
     # blocks of the [cuda:0] * 8 plans at n = 4096.  A batch of one: a
     # rank's (1, 1, 1, rb, rb) block in §11's group runs (rb = 1024 in
-    # 11.1, 8192 in 11.2's 2 x 2 plans).
+    # 11.1, 8192 in 11.2's 2 x 2 plans).  bf16 operands (what linalg's
+    # matmul hands K1 on bf16 inputs) run the tensor-core body, out in
+    # fp32 (within 1e-5) and in bf16 (K1_BF16_OUT_TOL), also on TMA's ragged
+    # edges, a stacked batch and a B shared by the batch; rows that are not
+    # 16-byte aligned the FFMA body.  Each row names the body that ran.
     f32, bf16 = torch.float32, torch.bfloat16
 
     def rnd(*shape):
@@ -493,8 +519,22 @@ def kernel_checks(torch):
 
     def k1_cases():
         yield "", (rnd(4096, 4096), rnd(4096, 4096)), f32, 10
-        yield "", (rnd(4096, 4096).to(bf16), rnd(4096, 4096).to(bf16)), \
-            f32, 10
+        a16, b16 = rnd(4096, 4096).to(bf16), rnd(4096, 4096).to(bf16)
+        yield "", (a16, b16), f32, 10
+        yield "", (a16, b16), bf16, 10
+        del a16, b16
+        # the bf16 body's ragged M, N and K (TMA's zero fill), a stacked
+        # batch, B shared by the batch (stride 0), and rows TMA cannot
+        # load (700 and 260 columns: the FFMA body)
+        yield "ragged M, N, K", (rnd(1000, 328).to(bf16),
+                                 rnd(328, 520).to(bf16)), f32, 20
+        yield "stacked batch of 8", (rnd(8, 2048, 2048).to(bf16),
+                                     rnd(8, 2048, 2048).to(bf16)), bf16, 10
+        yield "B shared by a batch of 4", (rnd(4, 1024, 1024).to(bf16),
+                                           rnd(1024, 1024).to(bf16)), \
+            bf16, 10
+        yield "rows not 16-byte aligned", (rnd(300, 700).to(bf16),
+                                           rnd(700, 260).to(bf16)), f32, 20
         yield "", (rnd(300, 700), rnd(700, 260)), f32, 50
         yield "class (a)", (rnd(N_MAIN, N_MAIN), rnd(N_MAIN, N_MAIN)), f32, 2
         u = rnd(N_MAIN, N_MAIN)
@@ -517,7 +557,17 @@ def kernel_checks(torch):
         *batch, m, k = a.shape
         n = b.shape[-1]
         nb = math.prod(batch)
+        before = dict(matmul_cuda.launches_by_body)
         got = matmul_cuda(a, b, out_dtype=odt)
+        body = [name for name, c in matmul_cuda.launches_by_body.items()
+                if c != before.get(name, 0)]
+        check(len(body) == 1, f"K1 {layout}: bodies launched {body}")
+        body = body[0]
+        want_body = ("fp32" if dt == f32 else "bf16_ffma"
+                     if layout == "rows not 16-byte aligned" else
+                     "bf16_wgmma")
+        check(body == want_body, f"K1 {dt} {layout}: the {body} body ran, "
+              f"not {want_body}")
         want = matmul_ref(a, b, out_dtype=odt)
         if dt == odt:
             lib = lambda a=a, b=b: torch.matmul(a, b)  # noqa: E731
@@ -526,17 +576,21 @@ def kernel_checks(torch):
         else:
             lib = None
         isz = a.element_size()
+        osz = torch.empty((), dtype=odt).element_size()
+        # a B shared by the batch moves once
+        b_bytes = k * n * isz * (nb if b.dim() > 2 else 1)
         entry(f"K1 matmul {'%dx' % nb if batch else ''}{m}x{k}x{n} "
               f"{str(dt)[6:]}->{str(odt)[6:]}"
               + (f" ({layout})" if layout else ""),
-              "matmul_cuda", "src/repro_torch/kernels/csrc/matmul_f32.cuh",
+              "matmul_cuda", K1_SOURCES[body],
               "src/repro/kernels/matmul/matmul.py:51",
-              [nb, m, k, n] if batch else [m, k, n], got, want, 1e-5,
+              [nb, m, k, n] if batch else [m, k, n], got, want,
+              K1_BF16_OUT_TOL if odt == bf16 else 1e-5,
               lambda a=a, b=b: matmul_cuda(a, b, out_dtype=odt),
               lambda a=a, b=b: matmul_ref(a, b, out_dtype=odt), lib, reps,
               2.0 * nb * m * k * n, PEAK_BF16 if dt == bf16 else PEAK_FP32,
-              nb * ((m * k + k * n) * isz + m * n * 4),
-              layout=layout or "contiguous")
+              nb * (m * k * isz + m * n * osz) + b_bytes,
+              layout=layout or "contiguous", extra={"body": body})
         del a, b, got, want
         torch.cuda.empty_cache()
     k1_refuses_type(torch, matmul_cuda)
@@ -774,9 +828,10 @@ def lm_kernel_checks(torch):
 K6_SHAPES = ((4, 4096, 1024, 5.0, 0.0, 10), (1, 1024, 1024, 5.0, 0.0, 20),
              (1, 1024, 1024, 5.0, 6.0, 20), (1, 300, 20, 5.0, 0.0, 20),
              (2, 50, 40, 5.0, 0.0, 20))
-# K6's backward: the train shape (with f shifted and not) and the ragged one
+# K6's backward: the train shape (with f shifted and not: open gates carry
+# the chunk maps far), the ragged one and S below its chunk
 K6_BWD_SHAPES = ((1, 1024, 1024, 5.0, 0.0, 20), (1, 1024, 1024, 5.0, 6.0, 20),
-                 (1, 300, 20, 5.0, 0.0, 20))
+                 (1, 300, 20, 5.0, 0.0, 20), (2, 50, 40, 5.0, 0.0, 20))
 K6_REPLACES = ("none (port-side; the reference scans _slstm_step, "
                "src/repro/models/ssm.py:210, over time in slstm_train :222)")
 K6_BWD_REPLACES = ("none (port-side; the reference's gradient is the "
@@ -794,11 +849,14 @@ def k6_checks(torch, entry, gen):
     the bytes (4 inputs read once, y written once) bound it.
 
     The backward, on the kernel forward's states: each gradient within
-    1e-5 of its largest entry.  Both sides evaluate the same expressions in
-    the same order on the same inputs; they differ in the elementary
-    functions' last bits and in fused multiply-adds, and the reverse chain
-    multiplies its carry by exp(a - m) <= 1, so those roundings do not
-    grow.  The error is taken per tensor, not per row: where the input
+    1e-5 of its largest entry.  The kernel carries (dc, dn, dm) across its
+    chunks through their composed affine maps and replays each chunk step
+    for step; the plain loop carries step by step.  They differ in the
+    maps' roundings, the elementary functions' last bits and fused
+    multiply-adds; the carry's factors are exp(a - m) <= 1 and wa <= 1, so
+    those roundings do not grow (tests/test_torch_slstm_grad.py holds a
+    model of the three phases within 1e-6 on the CPU).  The error is taken
+    per tensor, not per row: where the input
     gate never wins after a step, the true df of that step is zero and
     both sides keep only the residue of dfs fs - dfs fs, so a row can be
     all residue.  The bound counts about 60 operations a step; the bytes
@@ -807,7 +865,9 @@ def k6_checks(torch, entry, gen):
     from repro_torch.kernels import (_build, slstm_scan_bwd_cuda,
                                      slstm_scan_bwd_ref, slstm_scan_cuda,
                                      slstm_scan_ref, slstm_scan_states_ref)
-    from repro_torch.kernels.slstm.ops import CHUNK, slstm_scan_workspace
+    from repro_torch.kernels.slstm.ops import (BWD_CHUNK, CHUNK,
+                                               slstm_scan_bwd_workspace,
+                                               slstm_scan_workspace)
 
     def inputs(b, s, w, scale_i, shift_f):
         z, i, f, o = (torch.randn(b, s, w, device="cuda", generator=gen)
@@ -837,6 +897,9 @@ def k6_checks(torch, entry, gen):
         torch.cuda.empty_cache()
 
     for b, s, w, scale_i, shift_f, reps in K6_BWD_SHAPES:
+        workspace_agrees("slstm_scan_bwd", slstm_scan_bwd_workspace(b, s, w),
+                         _build.extension().slstm_scan_bwd_workspace(
+                             b, s, w, BWD_CHUNK))
         z, i, f, o = inputs(b, s, w, scale_i, shift_f)
         dy = torch.randn(b, s, w, device="cuda", generator=gen)
         y, c, n, m = slstm_scan_cuda(z, i, f, o, states=True)
@@ -869,9 +932,10 @@ def k6_checks(torch, entry, gen):
 
 
 def workspace_agrees(name, wrapper_floats, launcher_floats):
-    """K5's and K6's wrappers allocate the fp32 workspace before their
-    operators (so that a count sees it on meta and on the card alike), from
-    a copy of the launcher's formula: the two sizes must be one."""
+    """K5's and K6's wrappers (K6's backward's too) allocate the fp32
+    workspace before their operators (so that a count sees it on meta and
+    on the card alike), from a copy of the launcher's formula: the two
+    sizes must be one."""
     check(wrapper_floats == launcher_floats,
           f"{name}: the wrapper's workspace of {wrapper_floats} floats is "
           f"not the {launcher_floats} its launcher asks")
@@ -1252,7 +1316,47 @@ def main_path(torch):
             totals[name] += count
         del args, out
         torch.cuda.empty_cache()
+    add_counts(totals, bf16_matmul(torch, tuner, gen))
     return totals
+
+
+#: the bf16 call of the main path: linalg.matmul at n = 4096 on one card
+N_BF16 = 4096
+
+
+def bf16_matmul(torch, tuner, gen):
+    """``linalg.matmul`` on bf16 operands at N_BF16, p = 1: the dispatch
+    hands its local product to K1 in bf16, whose tensor-core body must run
+    (every launch of the call on it), the result bf16 and within
+    K1_BF16_OUT_TOL of ``matmul_ref`` on the same inputs (each side rounds
+    its fp32 sums to bf16 once).  Returns the call's launch counts."""
+    from repro_torch import kernels, linalg
+    from repro_torch.devices import default_devices
+    a, b = (torch.randn(N_BF16, N_BF16, device="cuda", generator=gen)
+            .to(torch.bfloat16) for _ in range(2))
+    plan = tuner.plan("matmul", N_BF16, devices=default_devices(),
+                      dtype="bfloat16")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = linalg.matmul(a, b, tuner=tuner)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launches()
+    by_body = dict(kernels.matmul_cuda.launches_by_body)
+    add_counts(BODY_LAUNCHES, by_body)
+    want = kernels.matmul_ref(a, b, out_dtype=torch.bfloat16).float()
+    err = float((out.float() - want).abs().max() / want.abs().max())
+    emit({"main_path": "matmul", "n": N_BF16, "dtype": "bfloat16",
+          "plan": plan_summary(plan), "wall_s": wall, "out_dtype":
+          str(out.dtype)[6:], "max_rel_err": err, "tol": K1_BF16_OUT_TOL,
+          "launches": counts, "k1_launches_by_body": by_body})
+    check(out.dtype == torch.bfloat16, f"main path bf16 matmul: {out.dtype}")
+    check(err < K1_BF16_OUT_TOL, f"main path bf16 matmul: rel err {err:.3e}")
+    check(by_body.get("bf16_wgmma", 0) > 0
+          and by_body == {"bf16_wgmma": counts["matmul_cuda"]},
+          f"main path bf16 matmul: K1's bodies {by_body}")
+    return counts
 
 
 # -- 4. multi-rank plans and forced variants on the one card ----------------

@@ -29,16 +29,18 @@ cudaStream_t as_stream(i64 s) {
   return reinterpret_cast<cudaStream_t>(static_cast<intptr_t>(s));
 }
 
-// Raises, having launched nothing, for arguments the launcher refuses (a
-// CTA tile that is not compiled among them) and when the fp32 body's
-// shared-memory limit cannot be raised.
-void matmul(i64 a, i64 b, i64 c, int in_type, int out_type, int batch, int m,
-            int n, int k, i64 sa, i64 lda, i64 sb, i64 ldb, i64 sc, i64 ldc,
-            int tile_m, int tile_n, i64 stream) {
+// Returns the body that ran (kernels.h: 0 fp32, 1 bf16 on the tensor
+// cores, 2 bf16 on FFMA).  Raises, having launched nothing, for arguments
+// the launcher refuses (a CTA tile that is not compiled among them) and
+// when a body's shared-memory limit cannot be raised.
+int matmul(i64 a, i64 b, i64 c, int in_type, int out_type, int batch, int m,
+           int n, int k, i64 sa, i64 lda, i64 sb, i64 ldb, i64 sc, i64 ldc,
+           int tile_m, int tile_n, i64 stream) {
+  int body = -1;
   const cudaError_t err = repro_matmul(
       ptr<const void>(a), ptr<const void>(b), ptr<void>(c), in_type,
       out_type, batch, m, n, k, sa, lda, sb, ldb, sc, ldc, tile_m, tile_n,
-      as_stream(stream));
+      &body, as_stream(stream));
   if (err == cudaErrorInvalidValue) {
     // formatted here and passed as one C string: TORCH_CHECK's own
     // formatting of several arguments crashes in this extension
@@ -53,6 +55,7 @@ void matmul(i64 a, i64 b, i64 c, int in_type, int out_type, int batch, int m,
   }
   TORCH_CHECK(err == cudaSuccess, cudaGetErrorString(err));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return body;
 }
 
 // Registers, spill bytes, static and dynamic shared memory, resident CTAs
@@ -214,29 +217,45 @@ void slstm_scan(at::Tensor z, at::Tensor i, at::Tensor f,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+i64 slstm_scan_bwd_workspace(i64 batch, i64 s, i64 w, i64 chunk) {
+  return repro_slstm_scan_bwd_workspace(
+      static_cast<int>(batch), static_cast<int>(s), static_cast<int>(w),
+      static_cast<int>(chunk));
+}
+
 // Raises, having launched nothing, unless the twelve tensors are fp32,
-// contiguous, (batch, s, w) alike and on one CUDA device, every size
-// positive.
+// contiguous, (batch, s, w) alike and on one CUDA device, the workspace is
+// fp32 on that device and holds what slstm_scan_bwd_workspace asks, every
+// size is positive and the chunks number at most 65535.
 void slstm_scan_bwd(at::Tensor z, at::Tensor i, at::Tensor f,
                     at::Tensor o, at::Tensor c, at::Tensor n,
                     at::Tensor m, at::Tensor dy, at::Tensor dz,
                     at::Tensor di, at::Tensor df, at::Tensor d_o,
-                    i64 stream) {
+                    at::Tensor work, i64 chunk, i64 stream) {
   for (const at::Tensor* t :
        {&z, &i, &f, &o, &c, &n, &m, &dy, &dz, &di, &df, &d_o})
     check_like(*t, z, "slstm_scan_bwd: every tensor must be fp32",
                "slstm_scan_bwd: every tensor must be contiguous",
                "slstm_scan_bwd: every tensor must share one CUDA device",
                "slstm_scan_bwd: every tensor must be (batch, s, w) alike");
+  TORCH_CHECK(work.scalar_type() == at::kFloat && work.is_cuda() &&
+                  work.device() == z.device() && work.is_contiguous(),
+              "slstm_scan_bwd: the workspace must be fp32 and contiguous "
+              "on z's CUDA device");
   const cudaError_t err = repro_slstm_scan_bwd(
       z.data_ptr<float>(), i.data_ptr<float>(), f.data_ptr<float>(),
       o.data_ptr<float>(), c.data_ptr<float>(), n.data_ptr<float>(),
       m.data_ptr<float>(), dy.data_ptr<float>(), dz.data_ptr<float>(),
       di.data_ptr<float>(), df.data_ptr<float>(), d_o.data_ptr<float>(),
-      static_cast<int>(z.size(0)), static_cast<int>(z.size(1)),
-      static_cast<int>(z.size(2)), as_stream(stream));
+      work.data_ptr<float>(), work.numel(), static_cast<int>(z.size(0)),
+      static_cast<int>(z.size(1)), static_cast<int>(z.size(2)),
+      static_cast<int>(chunk), as_stream(stream));
   TORCH_CHECK(err != cudaErrorInvalidValue,
-              "slstm_scan_bwd: every size must be positive");
+              "slstm_scan_bwd: every size must be positive and s / chunk "
+              "at most 65535");
+  TORCH_CHECK(err != cudaErrorInvalidDevicePointer,
+              "slstm_scan_bwd: the workspace is smaller than "
+              "slstm_scan_bwd_workspace asks");
   TORCH_CHECK(err == cudaSuccess, cudaGetErrorString(err));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
@@ -244,7 +263,8 @@ void slstm_scan_bwd(at::Tensor z, at::Tensor i, at::Tensor f,
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
-  m.def("matmul", &matmul, "K1: batched C = A @ B (fp32 accumulation)");
+  m.def("matmul", &matmul,
+        "K1: batched C = A @ B (fp32 accumulation); returns the body run");
   m.def("matmul_info", &matmul_info,
         "K1's fp32 body at one CTA tile: registers, spills, shared memory, "
         "CTAs an SM, threads, stages");
@@ -260,6 +280,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "K6: fp32 workspace floats a call needs");
   m.def("slstm_scan", &slstm_scan,
         "K6: the sLSTM recurrence over time, a scan over chunks");
+  m.def("slstm_scan_bwd_workspace", &slstm_scan_bwd_workspace,
+        "K6's backward: fp32 workspace floats a call needs");
   m.def("slstm_scan_bwd", &slstm_scan_bwd,
-        "K6's backward: one reverse-time chain a feature");
+        "K6's backward: a reverse scan over chunks");
 }

@@ -18,22 +18,31 @@ extern "C" {
 // Element type codes of the matmul launcher.
 enum { REPRO_F32 = 0, REPRO_BF16 = 1 };
 
+// The body a matmul launch ran: fp32 inputs' FFMA body, bf16 inputs'
+// tensor-core body, bf16 inputs' FFMA body (operands TMA cannot load).
+enum { REPRO_K1_F32 = 0, REPRO_K1_BF16_TC = 1, REPRO_K1_BF16_FFMA = 2 };
+
 // K1: C[z] = A[z] @ B[z] with A (m, k), B (k, n), C (m, n), row-major with
 // row strides lda/ldb/ldc; fp32 accumulation, C written in out_type.  fp32
 // inputs run the FFMA body fed through a ring in shared memory (TMA boxes
 // when A's and B's rows are 16-byte aligned, 4-byte cp.async otherwise) at
 // the CTA tile tile_m x tile_n, one of the compiled configurations (64x64,
-// 64x128, 128x64, 128x128, 256x64, 256x128); bf16 inputs the earlier body,
-// whose one tile is 128x128.  Returns cudaErrorInvalidValue, and launches
+// 64x128, 128x64, 128x128, 256x64, 256x128).  bf16 inputs take the tile
+// 128x128 alone (no plan reaches them) and run the tensor-core body (wgmma
+// on TMA tiles of 128 x 256) where A's and B's rows and batch starts are
+// 16-byte aligned and k > 0, the FFMA body otherwise.  On success
+// *body is the body that ran (REPRO_K1_F32, REPRO_K1_BF16_TC or
+// REPRO_K1_BF16_FFMA).  Returns cudaErrorInvalidValue, and launches
 // nothing, for an unknown type code, m, n or batch below 1, k below 0,
 // batch above 65535, a tile that is not compiled for the input type or
-// more than INT_MAX tiles; and the error of raising the fp32 body's
-// shared-memory limit if that fails.
+// more than INT_MAX tiles; and the error of raising a body's shared-memory
+// limit if that fails.
 cudaError_t repro_matmul(const void* a, const void* b, void* c, int in_type,
                          int out_type, int batch, int m, int n, int k,
                          long long sa, long long lda, long long sb,
                          long long ldb, long long sc, long long ldc,
-                         int tile_m, int tile_n, cudaStream_t stream);
+                         int tile_m, int tile_n, int* body,
+                         cudaStream_t stream);
 
 // K1's fp32 body (TMA path, fp32 output) at CTA tile tile_m x tile_n as
 // loaded on the current device: out[0..6] = registers a thread, local
@@ -118,14 +127,22 @@ cudaError_t repro_slstm_scan(const float* z, const float* i, const float* f,
                              cudaStream_t stream);
 // K6's backward: from the inputs, the per-step state c, n, m of the
 // forward and dy, all (batch, s, w) fp32 and contiguous, the gradients dz,
-// di, df, d_o of the same shape.  Returns cudaErrorInvalidValue, and
-// launches nothing, unless every size is positive.
+// di, df, d_o of the same shape, as a reverse scan over chunks of `chunk`
+// steps: three launches (chunk maps, the carry, the outputs) through
+// `work`, an fp32 workspace of repro_slstm_scan_bwd_workspace() floats
+// that the caller allocates on the device.  Returns cudaErrorInvalidValue,
+// and launches nothing, unless every size is positive and the chunks
+// number at most 65535; cudaErrorInvalidDevicePointer for a workspace of
+// fewer floats.
+long long repro_slstm_scan_bwd_workspace(int batch, int s, int w, int chunk);
 cudaError_t repro_slstm_scan_bwd(const float* z, const float* i,
                                  const float* f, const float* o,
                                  const float* c, const float* n,
                                  const float* m, const float* dy, float* dz,
-                                 float* di, float* df, float* d_o, int batch,
-                                 int s, int w, cudaStream_t stream);
+                                 float* di, float* df, float* d_o,
+                                 float* work, long long work_floats,
+                                 int batch, int s, int w, int chunk,
+                                 cudaStream_t stream);
 
 #ifdef __cplusplus
 }

@@ -1,4 +1,5 @@
-// K1: blocked matrix product C = A @ B on the CUDA cores.
+// K1: blocked matrix product C = A @ B: fp32 inputs on the CUDA cores (this
+// file and matmul_f32.cuh), bf16 inputs on the tensor cores (matmul_bf16.cu).
 //
 // Replaces the reference package's MXU-tiled Pallas kernel
 // (src/repro/kernels/matmul/matmul.py, matmul_pallas): the same function --
@@ -7,7 +8,7 @@
 // block.  The TPU kernel's plan tiles (bm/bn/bk) are a VMEM decision;
 // here a plan picks one of a few compiled CTA tiles (below).
 //
-// What bounds it: at every product the linalg path launches, 2*M*N*K
+// What bounds it: at every fp32 product the linalg path launches, 2*M*N*K
 // operations on M*K + K*N + M*N elements sit far above the card's balance
 // of operations to bytes, so the bound is IEEE fp32 FFMA at 67 TFLOP/s (no
 // TF32: the dispatch gates need relative error < 1e-4; wgmma has no IEEE
@@ -58,9 +59,14 @@
 // Each tile is its own translation unit (matmul_tile_<BM>x<BN>.cu), so that
 // the build compiles them in parallel; this file holds the entry points.
 //
-// bf16 inputs keep the earlier body (matmul_kernel: 128x128 tiles,
-// BK = 8, staged through registers, widened on load), with that one tile;
-// no path launches it.
+// bf16 inputs run the bf16 body on the tensor cores (matmul_bf16.cu:
+// wgmma on TMA tiles of 128 x 256), which repro_torch.linalg.matmul reaches
+// whenever its operands are bf16 (the dispatch hands every local product
+// to K1 in the operands' type).  Where TMA cannot load the operands (rows
+// or batch starts not 16-byte aligned, K = 0) they run the FFMA body
+// below instead (matmul_kernel: 128x128 tiles, BK = 8, staged through
+// registers, widened on load); the launcher reports which body ran, and
+// the wrapper counts the two apart.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -193,28 +199,36 @@ extern "C" cudaError_t repro_matmul(const void* a, const void* b, void* c,
                                     long long lda, long long sb,
                                     long long ldb, long long sc,
                                     long long ldc, int tile_m, int tile_n,
-                                    cudaStream_t stream) {
+                                    int* body, cudaStream_t stream) {
   const bool known = (in_type == REPRO_F32 || in_type == REPRO_BF16) &&
                      (out_type == REPRO_F32 || out_type == REPRO_BF16);
   if (!known || batch < 1 || batch > 65535 || m < 1 || n < 1 || k < 0)
     return cudaErrorInvalidValue;
+  const repro_k1::Call call{a,  b,   c,  out_type, batch, m,  n,     k,
+                            sa, lda, sb, ldb,      sc,    ldc, stream};
   if (in_type == REPRO_BF16) {
-    // the bf16 body has one tile
+    // bf16 takes no plan: the default tile request alone
     if (tile_m != BM || tile_n != BN) return cudaErrorInvalidValue;
+    const cudaError_t err = repro_k1::run_bf16(call);
+    if (err != cudaErrorMisalignedAddress) {
+      if (err == cudaSuccess) *body = REPRO_K1_BF16_TC;
+      return err;
+    }
     if (out_type == REPRO_F32)
       launch<__nv_bfloat16, float>(a, b, c, batch, m, n, k, sa, lda, sb, ldb,
                                    sc, ldc, stream);
     else
       launch<__nv_bfloat16, __nv_bfloat16>(a, b, c, batch, m, n, k, sa, lda,
                                            sb, ldb, sc, ldc, stream);
+    *body = REPRO_K1_BF16_FFMA;
     return cudaSuccess;
   }
-  const repro_k1::Call call{a,  b,   c,  out_type, batch, m,  n,     k,
-                            sa, lda, sb, ldb,      sc,    ldc, stream};
-  return repro_k1::with_tile(tile_m, tile_n, [&](auto cta) {
+  const cudaError_t err = repro_k1::with_tile(tile_m, tile_n, [&](auto cta) {
     using C = decltype(cta);
     return repro_k1::run_at<C::BM, C::BN>(call);
   });
+  if (err == cudaSuccess) *body = REPRO_K1_F32;
+  return err;
 }
 
 extern "C" cudaError_t repro_matmul_info(int tile_m, int tile_n,

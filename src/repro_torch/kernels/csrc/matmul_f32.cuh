@@ -1,8 +1,10 @@
 // K1's fp32 body (matmul_f32_kernel) and its launchers, templated on the
-// CTA tile (Tile below).  matmul.cu says what the body does and why; this
+// CTA tile (Tile below), and what K1's translation units share (Call, the
+// launchers' declarations).  matmul.cu says what the body does and why; this
 // header holds it so that each compiled tile is its own translation unit
 // (matmul_tile_<BM>x<BN>.cu), which the build compiles in parallel, and
-// matmul.cu's entry points reach a tile through run_at / info_at.
+// matmul.cu's entry points reach a tile through run_at / info_at, and the
+// bf16 body (matmul_bf16.cu) through run_bf16.
 #pragma once
 
 #include <cuda.h>
@@ -13,6 +15,7 @@
 #include <climits>
 #include <cstdint>
 
+#include "hopper.cuh"
 #include "kernels.h"
 
 namespace repro_k1 {
@@ -56,6 +59,14 @@ cudaError_t run_at(const Call& call);
 template <int BM, int BN>
 cudaError_t info_at(long long* out);
 
+// A call of the bf16 body on the tensor cores (matmul_bf16.cu), whatever
+// the tile: launches it and returns cudaSuccess (or the error of raising its
+// shared-memory limit), or launches nothing and returns
+// cudaErrorMisalignedAddress where TMA cannot load A or B (rows or batch
+// starts not 16-byte aligned, K = 0, maps that do not encode), and
+// cudaErrorInvalidValue for more than INT_MAX tiles.
+cudaError_t run_bf16(const Call& call);
+
 namespace {
 
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
@@ -64,6 +75,8 @@ __device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
 }
 
 namespace f32 {
+
+using namespace repro_hopper;
 
 constexpr int BK = 32;                   // k-steps a stage
 constexpr int GROUP = 16;                // tile rows of a group of tiles
@@ -157,77 +170,6 @@ __device__ __forceinline__ void copy_granule(uint32_t dst, const float* src) {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst +
                                                                      4 * e),
                  "l"(src + e));
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait for the completion of the barrier's phase of this parity.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One box of a 3-D map at (c0, c1, c2) into shared memory, completing on
-// the barrier.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled of libcuda, looked up through the runtime so that
-// the extension need not link libcuda; null if the driver lacks it.
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
 }
 
 __device__ __forceinline__ float part(const float4& v, int e) {

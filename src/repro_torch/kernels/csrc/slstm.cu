@@ -56,10 +56,10 @@
 // shape), in exchange for S / L times the parallelism.  Neither a deeper
 // ring nor larger groups were faster on the card (PERF.md).
 //
-// The backward (slstm_bwd_kernel) runs one reverse-time chain a feature
-// and carries (dc, dn, dm) from t + 1.  With c_p, n_p, m_p the saved state
-// at t - 1 (0 at t = 0), th = tanh z, g = sigmoid o, d = max(n, 1),
-// fs = exp(a - m), is = exp(i - m):
+// The backward carries (dc, dn, dm) from t + 1 to t, from the last step to
+// the first.  With c_p, n_p, m_p the saved state at t - 1 (0 at t = 0),
+// th = tanh z, g = sigmoid o, d = max(n, 1), fs = exp(a - m),
+// is = exp(i - m):
 //   dct = dc + dy g / d
 //   dnt = dn - dy g c / d^2 [n >= 1]
 //   do  = dy (c / d) g (1 - g)
@@ -72,11 +72,35 @@
 //   dm <- da,  dc <- dct fs,  dn <- dnt fs
 // The tie rules are autograd's (torch.maximum splits 1/2 at a tie,
 // torch.clamp(min=1) passes the gradient at n = 1), as is the order of
-// dis * is on the two lines where it cancels.  It reads z, i, f, o, dy and
-// the saved c, n, m (c, n, m again at t - 1, from the ring) and writes dz,
-// di, df, do: 12 x 4 bytes a step-feature.  A simple kernel: a thread a
-// feature, one warp a CTA, its inputs staged RING_BWD steps ahead as in
-// the forward.
+// dis * is on the two lines where it cancels.  The function reads z, i,
+// f, o, dy and the saved c, n, m and writes dz, di, df, do: 12 x 4 bytes a
+// step-feature.
+//
+// The carry is affine in (dc, dn, dm), with coefficients from step t's
+// inputs and saved state alone: with al = dy g / d and
+// be = -dy g c / d^2 [n >= 1],
+//   dc <- fs (dc + al),  dn <- fs (dn + be),
+//   dm <- wa dm + P (dc + al) + Q (dn + be),
+//   P = (1 - wa) fs c_p - wa is th,  Q = (1 - wa) fs n_p - wa is.
+// So a chunk of L steps has an exact summary, composed in reverse time:
+// dc_out = F dc + Oc, dn_out = F dn + On, dm_out = W dm + Pc dc + Pn dn +
+// Om, seven floats (F the product of fs, W that of wa).  The map is
+// triangular with diagonal factors fs <= 1 and wa in {0, 1/2, 1}, so a
+// composed chunk's coefficients grow at most linearly with L.  The
+// backward runs as the forward does, in three launches:
+//   1. slstm_bwd_chunk_kernel: one thread a (feature, chunk) composes its
+//      chunk's map from its last step to its first into the workspace;
+//   2. slstm_bwd_carry_kernel: one thread a feature walks the maps from
+//      the last chunk to the first and writes each chunk's incoming
+//      (dc, dn, dm) over its map;
+//   3. slstm_bwd_output_kernel: one thread a (feature, chunk) replays its
+//      chunk from the carried (dc, dn, dm), step for step as the plain
+//      loop does, and writes dz, di, df and do.
+// Phases 1 and 3 stage z, i, f, o, dy at t and c, n, m at t - 1 RING_BWD
+// steps ahead by 4-byte cp.async, as the forward does, and carry c, n, m
+// at t from the step before: 8 x 4 bytes a step-feature each, and phase 3
+// writes 4 x 4: 20 x 4 bytes against the function's 12 x 4, in exchange
+// for S / L times the parallelism of one reverse chain a feature.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -85,10 +109,10 @@
 
 namespace {
 
-constexpr int THREADS = 128;      // features a CTA, phases 1-3
-constexpr int BWD_THREADS = 32;   // features a CTA, backward
+constexpr int THREADS = 128;      // features a CTA, every phase
 constexpr int RING = 8;           // steps staged ahead, phases 1 and 3
-constexpr int RING_BWD = 16;      // steps staged ahead, backward
+constexpr int RING_BWD = 8;       // steps staged ahead, backward 1 and 3
+constexpr int NIN_BWD = 8;        // z, i, f, o, dy at t; c, n, m at t - 1
 constexpr int GROUP = 4;          // steps taken at a time
 constexpr int MAX_CHUNKS = 65535; // gridDim.y
 
@@ -297,57 +321,199 @@ slstm_output_kernel(const float* __restrict__ z, const float* __restrict__ gi,
   wait_groups<0>();
 }
 
-// The backward: one thread a feature, t from S - 1 down to 0.  Ring slot
-// of step t: z, i, f, o, dy at t and c, n, m at t - 1 (zeros at t = 0).
-__global__ void __launch_bounds__(BWD_THREADS)
-slstm_bwd_kernel(const float* __restrict__ z, const float* __restrict__ gi,
-                 const float* __restrict__ gf, const float* __restrict__ go,
-                 const float* __restrict__ cs, const float* __restrict__ ns,
-                 const float* __restrict__ ms, const float* __restrict__ dy,
-                 float* __restrict__ dz, float* __restrict__ di,
-                 float* __restrict__ df, float* __restrict__ dgo,
-                 long long columns, int s, int w) {
-  constexpr int NIN = 8;
-  __shared__ float ring[RING_BWD][NIN][BWD_THREADS];
-  const long long col = static_cast<long long>(blockIdx.x) * BWD_THREADS +
+// Stages step u of a chunk of the backward, counted from its last step
+// (its step len - 1 - u, at t0 + len - 1 - u of the sequence), into its
+// ring slot: z, i, f, o, dy at that step and c, n, m one step before
+// (zeros at t = 0).  Past the chunk's first step it copies nothing, but
+// the group is committed all the same, as in stage.
+__device__ __forceinline__ void stage_bwd(
+    float (*ring)[NIN_BWD][THREADS], const float* const* src, int u,
+    int len, int t0, int w) {
+  if (u < len) {
+    const int v = len - 1 - u;
+    const long long at = static_cast<long long>(v) * w;
+    float (*slot)[THREADS] = ring[u % RING_BWD];
+#pragma unroll
+    for (int q = 0; q < 5; ++q)
+      copy_async(&slot[q][threadIdx.x], src[q] + at);
+    const bool prev = t0 + v > 0;
+#pragma unroll
+    for (int q = 5; q < NIN_BWD; ++q)
+      copy_async(&slot[q][threadIdx.x], src[q] + (prev ? at - w : at), prev);
+  }
+  commit();
+}
+
+// The inputs of a (feature, chunk) thread of the backward from its chunk's
+// first step: z, i, f, o, dy and the saved c, n, m.
+struct BwdInputs {
+  const float* src[NIN_BWD];
+};
+
+__device__ __forceinline__ BwdInputs bwd_inputs(
+    const float* z, const float* gi, const float* gf, const float* go,
+    const float* dy, const float* cs, const float* ns, const float* ms,
+    long long base) {
+  return {{z + base, gi + base, gf + base, go + base, dy + base, cs + base,
+           ns + base, ms + base}};
+}
+
+// Phase 1 of the backward: each (feature, chunk) composes its chunk's map
+// (F, W, Oc, On | Pc, Pn, Om) from its last step to its first, into the
+// two float4 planes of the workspace.
+__global__ void __launch_bounds__(THREADS)
+slstm_bwd_chunk_kernel(const float* __restrict__ z,
+                       const float* __restrict__ gi,
+                       const float* __restrict__ gf,
+                       const float* __restrict__ go,
+                       const float* __restrict__ cs,
+                       const float* __restrict__ ns,
+                       const float* __restrict__ ms,
+                       const float* __restrict__ dy,
+                       float4* __restrict__ work, long long plane,
+                       long long columns, int s, int w, int chunk,
+                       int chunks) {
+  __shared__ float ring[RING_BWD][NIN_BWD][THREADS];
+  const long long col = static_cast<long long>(blockIdx.x) * THREADS +
                         threadIdx.x;
   if (col >= columns) return;
-  const long long base = (col / w) * s * static_cast<long long>(w) + col % w;
-  const float* src[NIN] = {z + base, gi + base, gf + base, go + base,
-                           dy + base, cs + base, ns + base, ms + base};
-  // step t = s - 1 - u into its slot; the state of t - 1, zero-filled at 0
-  auto stage_bwd = [&](int u) {
-    const int t = s - 1 - u;
-    if (t >= 0) {
-      const long long at = static_cast<long long>(t) * w;
-      float (*slot)[BWD_THREADS] = ring[u % RING_BWD];
+  const ChunkAt at = chunk_at(col, s, w, chunk, chunks);
+  const int t0 = blockIdx.y * chunk;
+  const BwdInputs in = bwd_inputs(z, gi, gf, go, dy, cs, ns, ms, at.base);
 #pragma unroll
-      for (int q = 0; q < 5; ++q)
-        copy_async(&slot[q][threadIdx.x], src[q] + at);
-#pragma unroll
-      for (int q = 5; q < NIN; ++q)
-        copy_async(&slot[q][threadIdx.x], src[q] + (t > 0 ? at - w : at),
-                   t > 0);
-    }
-    commit();
-  };
-#pragma unroll
-  for (int u = 0; u < RING_BWD; ++u) stage_bwd(u);
-  const long long last = base + static_cast<long long>(s - 1) * w;
+  for (int u = 0; u < RING_BWD; ++u)
+    stage_bwd(ring, in.src, u, at.len, t0, w);
+  const long long last = at.base + static_cast<long long>(at.len - 1) * w;
   float c = cs[last], n = ns[last], m = ms[last];
-  float dc = 0.f, dn = 0.f, dm = 0.f;
-  for (int u0 = 0; u0 < s; u0 += GROUP) {
+  float fm = 1.f, wm = 1.f, oc = 0.f, on = 0.f, pc = 0.f, pn = 0.f,
+        om = 0.f;
+  for (int u0 = 0; u0 < at.len; u0 += GROUP) {
     wait_groups<RING_BWD - GROUP>();
-    float v[GROUP][NIN];
+    float v[GROUP][NIN_BWD];
 #pragma unroll
     for (int g = 0; g < GROUP; ++g)
 #pragma unroll
-      for (int q = 0; q < NIN; ++q)
+      for (int q = 0; q < NIN_BWD; ++q)
         v[g][q] = ring[(u0 + g) % RING_BWD][q][threadIdx.x];
 #pragma unroll
     for (int g = 0; g < GROUP; ++g) {
-      const int t = s - 1 - (u0 + g);
-      if (t >= 0) {
+      if (u0 + g < at.len) {
+        const float th = tanhf(v[g][0]), iv = v[g][1], fv = v[g][2];
+        const float gate = sigmoid(v[g][3]), dyv = v[g][4];
+        const float c_p = v[g][5], n_p = v[g][6], m_p = v[g][7];
+        const float d = fmaxf(n, 1.f);
+        const float a = log_sigmoid(fv) + m_p;
+        const float fs = expf(a - m);
+        const float is = expf(iv - m);
+        const float al = dyv * gate / d;
+        const float be = n >= 1.f ? -(dyv * gate * c / (d * d)) : 0.f;
+        const float wa = a > iv ? 1.f : (a == iv ? 0.5f : 0.f);
+        const float p = (1.f - wa) * fs * c_p - wa * is * th;
+        const float q = (1.f - wa) * fs * n_p - wa * is;
+        const float dct = oc + al;
+        const float dnt = on + be;
+        om = wa * om + p * dct + q * dnt;
+        pc = wa * pc + p * fm;
+        pn = wa * pn + q * fm;
+        wm *= wa;
+        oc = fs * dct;
+        on = fs * dnt;
+        fm *= fs;
+        c = c_p;
+        n = n_p;
+        m = m_p;
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < GROUP; ++g)
+      stage_bwd(ring, in.src, u0 + g + RING_BWD, at.len, t0, w);
+  }
+  wait_groups<0>();
+  work[at.slot] = make_float4(fm, wm, oc, on);
+  work[plane + at.slot] = make_float4(pc, pn, om, 0.f);
+}
+
+// Phase 2 of the backward: one thread a feature, from the last chunk to
+// the first; each chunk's map is replaced (in the first plane) by the
+// (dc, dn, dm, 0) that enters it from its last step, the last chunk's 0.
+__global__ void __launch_bounds__(THREADS)
+slstm_bwd_carry_kernel(float4* __restrict__ work, long long plane,
+                       long long columns, int w, int chunks) {
+  constexpr int AHEAD = 8;   // maps loaded before they are applied
+  const long long col = static_cast<long long>(blockIdx.x) * THREADS +
+                        threadIdx.x;
+  if (col >= columns) return;
+  const long long first = (col / w) * chunks * static_cast<long long>(w) +
+                          col % w;
+  float dc = 0.f, dn = 0.f, dm = 0.f;
+  for (int k0 = chunks - 1; k0 >= 0; k0 -= AHEAD) {
+    float4 lin[AHEAD], row[AHEAD];
+#pragma unroll
+    for (int u = 0; u < AHEAD; ++u) {
+      if (k0 - u >= 0) {
+        const long long at = first + static_cast<long long>(k0 - u) * w;
+        lin[u] = work[at];
+        row[u] = work[plane + at];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < AHEAD; ++u) {
+      if (k0 - u >= 0) {
+        work[first + static_cast<long long>(k0 - u) * w] =
+            make_float4(dc, dn, dm, 0.f);
+        const float dm_new =
+            lin[u].y * dm + row[u].x * dc + row[u].y * dn + row[u].z;
+        dc = lin[u].x * dc + lin[u].z;
+        dn = lin[u].x * dn + lin[u].w;
+        dm = dm_new;
+      }
+    }
+  }
+}
+
+// Phase 3 of the backward: each (feature, chunk) from the carried
+// (dc, dn, dm) at its last step, t from the chunk's last step down to its
+// first, step for step as the plain reverse loop -> dz, di, df, do.
+__global__ void __launch_bounds__(THREADS)
+slstm_bwd_output_kernel(const float* __restrict__ z,
+                        const float* __restrict__ gi,
+                        const float* __restrict__ gf,
+                        const float* __restrict__ go,
+                        const float* __restrict__ cs,
+                        const float* __restrict__ ns,
+                        const float* __restrict__ ms,
+                        const float* __restrict__ dy,
+                        const float4* __restrict__ work,
+                        float* __restrict__ dz, float* __restrict__ di,
+                        float* __restrict__ df, float* __restrict__ dgo,
+                        long long columns, int s, int w, int chunk,
+                        int chunks) {
+  __shared__ float ring[RING_BWD][NIN_BWD][THREADS];
+  const long long col = static_cast<long long>(blockIdx.x) * THREADS +
+                        threadIdx.x;
+  if (col >= columns) return;
+  const ChunkAt at = chunk_at(col, s, w, chunk, chunks);
+  const int t0 = blockIdx.y * chunk;
+  const BwdInputs in = bwd_inputs(z, gi, gf, go, dy, cs, ns, ms, at.base);
+#pragma unroll
+  for (int u = 0; u < RING_BWD; ++u)
+    stage_bwd(ring, in.src, u, at.len, t0, w);
+  const long long last = at.base + static_cast<long long>(at.len - 1) * w;
+  float c = cs[last], n = ns[last], m = ms[last];
+  const float4 carried = work[at.slot];
+  float dc = carried.x, dn = carried.y, dm = carried.z;
+  long long out = last;
+  for (int u0 = 0; u0 < at.len; u0 += GROUP) {
+    wait_groups<RING_BWD - GROUP>();
+    float v[GROUP][NIN_BWD];
+#pragma unroll
+    for (int g = 0; g < GROUP; ++g)
+#pragma unroll
+      for (int q = 0; q < NIN_BWD; ++q)
+        v[g][q] = ring[(u0 + g) % RING_BWD][q][threadIdx.x];
+#pragma unroll
+    for (int g = 0; g < GROUP; ++g) {
+      if (u0 + g < at.len) {
         const float th = tanhf(v[g][0]), iv = v[g][1], fv = v[g][2];
         const float gate = sigmoid(v[g][3]), dyv = v[g][4];
         const float c_p = v[g][5], n_p = v[g][6], m_p = v[g][7];
@@ -362,21 +528,22 @@ slstm_bwd_kernel(const float* __restrict__ z, const float* __restrict__ gi,
         const float dml = dm - (dfs * fs + dis * is);
         const float wa = a > iv ? 1.f : (a == iv ? 0.5f : 0.f);
         const float da = dfs * fs + dml * wa;
-        const long long at = base + static_cast<long long>(t) * w;
-        dgo[at] = dyv * (c / d) * gate * (1.f - gate);
-        dz[at] = dct * is * (1.f - th * th);
-        di[at] = dis * is + dml * (1.f - wa);
-        df[at] = da * sigmoid(-fv);
+        dgo[out] = dyv * (c / d) * gate * (1.f - gate);
+        dz[out] = dct * is * (1.f - th * th);
+        di[out] = dis * is + dml * (1.f - wa);
+        df[out] = da * sigmoid(-fv);
         dm = da;
         dc = dct * fs;
         dn = dnt * fs;
         c = c_p;
         n = n_p;
         m = m_p;
+        out -= w;
       }
     }
 #pragma unroll
-    for (int g = 0; g < GROUP; ++g) stage_bwd(u0 + g + RING_BWD);
+    for (int g = 0; g < GROUP; ++g)
+      stage_bwd(ring, in.src, u0 + g + RING_BWD, at.len, t0, w);
   }
   wait_groups<0>();
 }
@@ -422,17 +589,37 @@ extern "C" cudaError_t repro_slstm_scan(const float* z, const float* i,
   return cudaSuccess;
 }
 
+extern "C" long long repro_slstm_scan_bwd_workspace(int batch, int s,
+                                                    int w, int chunk) {
+  if (batch < 1 || s < 1 || w < 1 || chunk < 1) return 0;
+  return 8LL * batch * chunk_count(s, chunk) * w;
+}
+
 extern "C" cudaError_t repro_slstm_scan_bwd(
     const float* z, const float* i, const float* f, const float* o,
     const float* c, const float* n, const float* m, const float* dy,
-    float* dz, float* di, float* df, float* d_o, int batch, int s, int w,
+    float* dz, float* di, float* df, float* d_o, float* work,
+    long long work_floats, int batch, int s, int w, int chunk,
     cudaStream_t stream) {
-  if (batch < 1 || s < 1 || w < 1) return cudaErrorInvalidValue;
+  if (batch < 1 || s < 1 || w < 1 || chunk < 1) return cudaErrorInvalidValue;
+  const long long chunks = chunk_count(s, chunk);
   const long long columns = static_cast<long long>(batch) * w;
-  const long long blocks = (columns + BWD_THREADS - 1) / BWD_THREADS;
-  if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  slstm_bwd_kernel<<<static_cast<unsigned>(blocks), BWD_THREADS, 0,
-                     stream>>>(z, i, f, o, c, n, m, dy, dz, di, df, d_o,
-                               columns, s, w);
+  const long long blocks = (columns + THREADS - 1) / THREADS;
+  if (chunks > MAX_CHUNKS || blocks > INT_MAX) return cudaErrorInvalidValue;
+  if (work_floats < repro_slstm_scan_bwd_workspace(batch, s, w, chunk))
+    return cudaErrorInvalidDevicePointer;
+  float4* maps = reinterpret_cast<float4*>(work);
+  const long long plane = chunks * columns;   // float4s a plane
+  const dim3 grid(static_cast<unsigned>(blocks),
+                  static_cast<unsigned>(chunks));
+  slstm_bwd_chunk_kernel<<<grid, THREADS, 0, stream>>>(
+      z, i, f, o, c, n, m, dy, maps, plane, columns, s, w, chunk,
+      static_cast<int>(chunks));
+  slstm_bwd_carry_kernel<<<static_cast<unsigned>(blocks), THREADS, 0,
+                           stream>>>(maps, plane, columns, w,
+                                     static_cast<int>(chunks));
+  slstm_bwd_output_kernel<<<grid, THREADS, 0, stream>>>(
+      z, i, f, o, c, n, m, dy, maps, dz, di, df, d_o, columns, s, w, chunk,
+      static_cast<int>(chunks));
   return cudaSuccess;
 }

@@ -29,10 +29,16 @@ _CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: the CTA tiles (BM, BN) of K1's fp32 body that ``csrc/matmul_f32.cuh``
 #: lists (``with_tile``), each compiled in ``csrc/matmul_tile_<BM>x<BN>.cu``;
-#: the bf16 body has the default alone
+#: bf16 inputs take the default request alone (no plan reaches them)
 CTA_TILES = ((64, 64), (64, 128), (128, 64), (128, 128), (256, 64),
              (256, 128))
 DEFAULT_CTA_TILE = (128, 128)
+
+#: K1's bodies by the code the launcher reports (``csrc/kernels.h``): fp32
+#: inputs' FFMA body; bf16 inputs' tensor-core body (``csrc/
+#: matmul_bf16.cu``, wgmma on TMA tiles), and their FFMA body where TMA
+#: cannot load the operands (rows not 16-byte aligned, K = 0)
+BODIES = ("fp32", "bf16_wgmma", "bf16_ffma")
 
 
 def _edge(block: int, most: int) -> int:
@@ -57,9 +63,10 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
                 tile: Tuple[int, int] = DEFAULT_CTA_TILE) -> torch.Tensor:
     """K1 (``csrc/matmul.cu``), the counterpart of the reference's
     ``matmul_pallas``: C = A @ B with fp32 accumulation, fp32 inputs at
-    the CTA tile ``tile`` (one of :data:`CTA_TILES`), bf16 inputs on their
-    one tile, the default.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise."""
+    the CTA tile ``tile`` (one of :data:`CTA_TILES`), bf16 inputs on the
+    tensor cores (``tile`` the default; ``csrc/matmul_bf16.cu``), or on
+    their FFMA body where TMA cannot load them.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
     out_dtype = out_dtype or a.dtype
     if a.device.type == "cpu" and b.device.type == "cpu":
         return matmul_ref(a, b, out_dtype=out_dtype)
@@ -84,7 +91,10 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
 
 
 matmul_cuda.launches = 0
-#: launches by CTA tile (BM, BN); their sum is ``launches``
+#: launches by body (:data:`BODIES`); their sum is ``launches``
+matmul_cuda.launches_by_body = Counter()
+#: the fp32 body's launches by CTA tile (BM, BN); their sum is
+#: ``launches_by_body["fp32"]``
 matmul_cuda.launches_by_tile = Counter()
 
 
@@ -92,20 +102,23 @@ def launch_matmul(a3: torch.Tensor, b3: torch.Tensor,
                   out_dtype: torch.dtype, stream: int,
                   tile: Tuple[int, int]) -> torch.Tensor:
     """One K1 launch at the CTA tile ``tile``, counted on ``matmul_cuda``
-    (also by tile), for operands that are already checked: (batch, m, k)
-    and (batch, k, n) of one type the kernel takes, on the current CUDA
-    device, unit column stride.  The launcher refuses a tile it does not
-    compile, and a bf16 launch at any tile but the default."""
+    (also by the body the launcher ran, and the fp32 body's by tile), for
+    operands that are already checked: (batch, m, k) and (batch, k, n) of
+    one type the kernel takes, on the current CUDA device, unit column
+    stride.  The launcher refuses a tile it does not compile, and a bf16
+    launch at any tile but the default; it picks the bf16 body itself."""
     batch, m, k = a3.shape
     n = b3.shape[-1]
     out = torch.empty((batch, m, n), dtype=out_dtype, device=a3.device)
-    _build.extension().matmul(
+    body = BODIES[_build.extension().matmul(
         a3.data_ptr(), b3.data_ptr(), out.data_ptr(), _CODES[a3.dtype],
         _CODES[out_dtype], batch, m, n, k, a3.stride(0), a3.stride(1),
         b3.stride(0), b3.stride(1), out.stride(0), out.stride(1), tile[0],
-        tile[1], stream)
+        tile[1], stream)]
     matmul_cuda.launches += 1
-    matmul_cuda.launches_by_tile[tuple(tile)] += 1
+    matmul_cuda.launches_by_body[body] += 1
+    if body == "fp32":
+        matmul_cuda.launches_by_tile[tuple(tile)] += 1
     return out
 
 
@@ -117,7 +130,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
     ``tiles`` is a matmul :class:`TilePlan` (dims bm/bn/bk); its family is
     checked as the reference checks it, and :func:`cta_tile` maps it onto
     K1's CTA tile (the default when omitted).  bf16 inputs run K1's bf16
-    body, whose one tile is the default, whatever the plan.
+    bodies, which take no plan, whatever the plan.
     """
     out_dtype = out_dtype or a.dtype
     tile = cta_tile(tiles)

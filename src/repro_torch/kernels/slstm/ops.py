@@ -8,8 +8,9 @@ The launches are the operators ``torch.ops.repro_torch.slstm_scan`` and
 they give the outputs' shapes and types, and a flop counter reads their
 work from :func:`slstm_scan_flops`.  With no dispatch mode active, CUDA
 operands skip the operators and launch K6 straight
-(``common.launch_directly``).  The forward's fp32 workspace is made before
-its operator, so a counted run sees it on either device."""
+(``common.launch_directly``).  The fp32 workspaces of the forward and of
+the backward are made before their operators, so a counted run sees them
+on either device."""
 
 from __future__ import annotations
 
@@ -25,6 +26,10 @@ from .ref import slstm_scan_bwd_ref, slstm_scan_ref, slstm_scan_states_ref
 # chunk's length bounds the time, and 32 beats 64; at its prefill shape
 # (B 4, S 4096) 16 to 128 are within a few per cent (chip_profile.py)
 CHUNK = 32
+# steps a chunk of the backward's reverse scan (csrc/slstm.cu): at
+# xlstm-350m's train shape 16 beats 32 by 3 % and 8 and 64 lose 17-25 %
+# (chip_profile.py --k1-bf16-k6-bwd)
+BWD_CHUNK = 16
 
 
 #: operations a step and feature of K6's forward and of its backward (each
@@ -44,6 +49,16 @@ def slstm_scan_workspace(b: int, s: int, w: int, chunk: int = CHUNK) -> int:
     if min(b, s, w, chunk) < 1:
         return 0
     return 4 * b * -(-s // chunk) * w
+
+
+def slstm_scan_bwd_workspace(b: int, s: int, w: int,
+                             chunk: int = BWD_CHUNK) -> int:
+    """Floats of K6's backward's fp32 workspace, as
+    ``repro_slstm_scan_bwd_workspace`` (csrc/slstm.cu) asks: a chunk's map
+    of eight floats a row, chunk and feature."""
+    if min(b, s, w, chunk) < 1:
+        return 0
+    return 8 * b * -(-s // chunk) * w
 
 
 def _launch(z: torch.Tensor, i: torch.Tensor, f: torch.Tensor,
@@ -84,27 +99,28 @@ def _(z_shape, *args, out_shape=None, **kwargs) -> int:
 
 def _launch_bwd(z: torch.Tensor, i: torch.Tensor, f: torch.Tensor,
                 o: torch.Tensor, c: torch.Tensor, n: torch.Tensor,
-                m: torch.Tensor, dy: torch.Tensor
+                m: torch.Tensor, dy: torch.Tensor, work: torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                            torch.Tensor]:
-    """K6's backward: (dz, di, df, do), the inputs checked by the
-    binding."""
+    """K6's backward through the fp32 workspace ``work``: (dz, di, df,
+    do), the inputs checked by the binding."""
     ins = (z, i, f, o, c, n, m, dy)
     grads = tuple(torch.empty(z.shape, dtype=torch.float32, device=z.device)
                   for _ in range(4))
     if z.numel():
         with torch.cuda.device(z.device):
-            _build.extension().slstm_scan_bwd(*ins, *grads, stream_of(z))
+            _build.extension().slstm_scan_bwd(*ins, *grads, work, BWD_CHUNK,
+                                              stream_of(z))
         slstm_scan_bwd_cuda.launches += 1
     return grads
 
 
 _op_bwd = torch.library.custom_op("repro_torch::slstm_scan_bwd", _launch_bwd,
-                                  mutates_args=())
+                                  mutates_args=("work",))
 
 
 @_op_bwd.register_fake
-def _(z, i, f, o, c, n, m, dy):
+def _(z, i, f, o, c, n, m, dy, work):
     return tuple(torch.empty_like(z, dtype=torch.float32) for _ in range(4))
 
 
@@ -141,15 +157,18 @@ def slstm_scan_bwd_cuda(z, i, f, o, c, n, m, dy):
     """K6's backward (``csrc/slstm.cu``): from the inputs, the per-step
     state (c, n, m) of ``slstm_scan_cuda(..., states=True)`` and dy, all
     (B, S, W) fp32 -> (dz, di, df, do).  CPU tensors take the plain version
-    (``slstm_scan_bwd_ref``); CUDA tensors launch the kernel or raise: the
-    binding refuses tensors that are not fp32, contiguous and of one shape
-    on one device.  Meta tensors take the kernel's shapes (a counted
-    run)."""
+    (``slstm_scan_bwd_ref``); CUDA tensors launch the kernel (three CUDA
+    launches in chunks of ``BWD_CHUNK`` steps through an fp32 workspace
+    allocated here, one count) or raise: the binding refuses tensors that
+    are not fp32, contiguous and of one shape on one device.  Meta tensors
+    take the kernel's shapes (a counted run)."""
     ins = (z, i, f, o, c, n, m, dy)
     if all(t.device.type == "cpu" for t in ins):
         return slstm_scan_bwd_ref(*ins)
+    work = torch.empty(slstm_scan_bwd_workspace(*z.shape),
+                       dtype=torch.float32, device=z.device)
     launch = _launch_bwd if launch_directly(z) else _op_bwd
-    return tuple(launch(*ins))
+    return tuple(launch(*ins, work))
 
 
 slstm_scan_bwd_cuda.launches = 0

@@ -144,6 +144,42 @@ class TestMatmul:
         assert _rel(tk.matmul(p, p.mT).numpy(), want) < 1e-5
         assert _rel(tk.matmul_cuda(p, p.mT).numpy(), want) < 1e-5
 
+    def test_linalg_matmul_on_bf16_reaches_k1_in_bf16(self, tmp_path,
+                                                       monkeypatch):
+        # repro_torch.linalg.matmul on bf16 operands hands every local
+        # product to K1 in bf16 (its tensor-core body on the card, the plain
+        # version here): n 256 on 4 CPU ranks, local blocks of 128 (R2),
+        # against the reference's linalg.matmul on the same bf16 inputs
+        # (its own local routine on one device; its Pallas path fails inside
+        # shard_map, R1); both return bf16
+        import importlib
+        from repro import linalg as ref_linalg
+        from repro.tuner import PlanCache as RefPlanCache
+        from repro.tuner import Tuner as RefTuner
+        from repro_torch import linalg
+        from repro_torch.tuner import PlanCache, Tuner
+        ops = importlib.import_module("repro_torch.kernels.matmul.ops")
+        local = []
+
+        def counted(a, b, **kw):
+            local.append((tuple(a.shape[-2:]), a.dtype, kw["out_dtype"]))
+            return k1(a, b, **kw)
+
+        k1 = ops.matmul_cuda
+        monkeypatch.setattr(ops, "matmul_cuda", counted)
+        rng = np.random.default_rng(21)
+        ja, ta = _both(rng.standard_normal((256, 256)), "bfloat16")
+        jb, tb = _both(rng.standard_normal((256, 256)), "bfloat16")
+        got = linalg.matmul(ta, tb, devices=[torch.device("cpu")] * 4,
+                            local_kernel="pallas",
+                            tuner=Tuner(cache=PlanCache(str(tmp_path))))
+        want = ref_linalg.matmul(ja, jb, tuner=RefTuner(
+            cache=RefPlanCache(str(tmp_path / "reference"))))
+        assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+        assert local and all(x == ((128, 128), torch.bfloat16,
+                                   torch.bfloat16) for x in local)
+        assert _rel(_np(got), want) < 2e-2
+
     def test_two_ctas_fit_an_sm(self):
         # each compiled CTA tile's ring fits the CTAs an SM its launch
         # bounds ask for (227 KB a CTA at most, 228 KB an SM with 1 KB

@@ -127,18 +127,24 @@ def test_states_variant_against_the_plain_loop_and_the_reference(
         assert _rel(got.numpy(), want) < TOL, name
 
 
-def test_gradients_at_an_exact_tie_equal_autograds():
-    """a = i exactly at step 7 (i set to log_sigmoid(f) plus the state's m
-    at step 6, as the step computes it).  Both sides split the max's
-    gradient in half there.  After a tie n >= 1 for good, so the output no
-    longer depends on the stabiliser m and the max's gradient is rounding
-    residue: the split must change no input's gradient."""
-    t = 7
+def _tie_inputs(t=7):
+    """z, i, f, o, dy (2, 24, 8) with a = i exactly at step t: i set to
+    log_sigmoid(f) plus the state's m at step t - 1, as the step computes
+    it."""
     z, i, f, o, dy = _torch(*_inputs(2, 24, 8, 1.0, 0.0, seed=3))
     m = slstm_ref.slstm_scan_states_ref(z, i, f, o)[3]
     i[:, t] = F.logsigmoid(f[:, t]) + m[:, t - 1]
     assert torch.equal(slstm_ref.slstm_scan_states_ref(z, i, f, o)[3][:, t],
                        i[:, t])
+    return z, i, f, o, dy
+
+
+def test_gradients_at_an_exact_tie_equal_autograds():
+    """a = i exactly at step 7.  Both sides split the max's gradient in
+    half there.  After a tie n >= 1 for good, so the output no longer
+    depends on the stabiliser m and the max's gradient is rounding
+    residue: the split must change no input's gradient."""
+    z, i, f, o, dy = _tie_inputs()
     got = _bwd_ref(z, i, f, o, dy)
     want = _autograd(z, i, f, o, dy)
     for name, g, wt in zip("zifo", got, want):
@@ -203,3 +209,86 @@ def test_launch_counters_cover_k6_backward():
     counts = tk.launches()
     assert {"slstm_scan_cuda", "slstm_scan_bwd_cuda"} <= set(counts)
     assert counts["slstm_scan_bwd_cuda"] == 0
+
+
+def _shifted(x):
+    return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
+
+
+def _chunked_bwd(z, i, f, o, c, n, m, dy, chunk):
+    """A model of the backward kernel's three phases (csrc/slstm.cu), in
+    fp32 on the CPU: (1) each chunk's affine map of the carry (dc, dn, dm),
+    composed from its last step to its first as (F, W, Oc, On, Pc, Pn, Om);
+    (2) the maps applied from the last chunk to the first, each chunk's
+    incoming carry kept; (3) each chunk replayed from its carry, step for
+    step as ``slstm_scan_bwd_ref`` does -> (dz, di, df, do)."""
+    b, s, w = z.shape
+    th, g = torch.tanh(z), torch.sigmoid(o)
+    d = torch.clamp(n, min=1.0)
+    c_p, n_p = _shifted(c), _shifted(n)
+    a = F.logsigmoid(f) + _shifted(m)
+    fs, is_ = torch.exp(a - m), torch.exp(i - m)
+    wa = (a > i).float() + 0.5 * (a == i).float()
+    al = dy * g / d
+    be = torch.where(n >= 1.0, -(dy * g * c / (d * d)), torch.zeros_like(n))
+    p = (1.0 - wa) * fs * c_p - wa * is_ * th
+    q = (1.0 - wa) * fs * n_p - wa * is_
+    spans = [range(min(s, k + chunk) - 1, k - 1, -1)
+             for k in range(0, s, chunk)]
+    maps = []
+    for span in spans:
+        one, zero = torch.ones(b, w), torch.zeros(b, w)
+        fm, wm, oc, on, pc, pn, om = one, one, zero, zero, zero, zero, zero
+        for t in span:
+            dct, dnt = oc + al[:, t], on + be[:, t]
+            om = wa[:, t] * om + p[:, t] * dct + q[:, t] * dnt
+            pc = wa[:, t] * pc + p[:, t] * fm
+            pn = wa[:, t] * pn + q[:, t] * fm
+            wm = wa[:, t] * wm
+            oc, on, fm = fs[:, t] * dct, fs[:, t] * dnt, fs[:, t] * fm
+        maps.append((fm, wm, oc, on, pc, pn, om))
+    carried = [None] * len(spans)
+    dc = dn = dm = torch.zeros(b, w)
+    for k in range(len(spans) - 1, -1, -1):
+        carried[k] = (dc, dn, dm)
+        fm, wm, oc, on, pc, pn, om = maps[k]
+        dc, dn, dm = (fm * dc + oc, fm * dn + on,
+                      wm * dm + pc * dc + pn * dn + om)
+    dz, di, df = (torch.empty_like(z) for _ in range(3))
+    sig_nf = torch.sigmoid(-f)
+    for span, (dc, dn, dm) in zip(spans, carried):
+        for t in span:
+            dct = dc + al[:, t]
+            dnt = dn + be[:, t]
+            dfs = dct * c_p[:, t] + dnt * n_p[:, t]
+            dis = dct * th[:, t] + dnt
+            dml = dm - (dfs * fs[:, t] + dis * is_[:, t])
+            da = dfs * fs[:, t] + dml * wa[:, t]
+            dz[:, t] = dct * is_[:, t] * (1.0 - th[:, t] * th[:, t])
+            di[:, t] = dis * is_[:, t] + dml * (1.0 - wa[:, t])
+            df[:, t] = da * sig_nf[:, t]
+            dm, dc, dn = da, dct * fs[:, t], dnt * fs[:, t]
+    return dz, di, df, dy * (c / d) * g * (1.0 - g)
+
+
+@pytest.mark.parametrize("case,chunk", [
+    ((1, 100, 20, 30.0, 6.0), 32), ((2, 45, 16, 1.0, 6.0), 8),
+    ((2, 5, 16, 30.0, 0.0), 8), ("tie", 5)],
+    ids=["s100_l32", "s45_l8", "s5_below_l8", "tie_s24_l5"])
+def test_chunked_reverse_scan_matches_the_plain_backward(case, chunk):
+    """The backward kernel's design on the CPU, before any chip run: the
+    chunk maps, the carry and the replay give the plain reverse loop's
+    gradients within 1e-6 of each gradient's largest entry (fp32, only the
+    carry's rounding differs), at S not a multiple of the chunk (open
+    gates, a wide input gate), S below it, and an exact tie a = i at step
+    7, inside the second of five chunks of 5 (S 24)."""
+    if case == "tie":
+        z, i, f, o, dy = _tie_inputs()
+    else:
+        z, i, f, o, dy = _torch(*_inputs(*case, seed=4))
+    _, c, n, m = slstm_ref.slstm_scan_states_ref(z, i, f, o)
+    got = _chunked_bwd(z, i, f, o, c, n, m, dy, chunk)
+    want = slstm_ref.slstm_scan_bwd_ref(z, i, f, o, c, n, m, dy)
+    for name, g, wt in zip("zifo", got, want):
+        assert np.isfinite(g.numpy()).all(), name
+        assert _rel(g.numpy(), wt.numpy()) < 1e-6, name
