@@ -54,6 +54,15 @@ Usage, from the root of a checkout on a machine with a CUDA GPU:
         # the ptxas report of K1's bf16 and K6's sources, K1 on bf16
         # operands at 4096^3, K6's backward at xlstm-350m's train shape (its
         # launches; chunks of 8 to 64), and xlstm-350m's train step split
+    python3 chip_profile.py --k4-wide
+        # the ptxas report of K4's and K1's entry sources, K4 at
+        # chip_smoke.py's wide shapes (a prefill's B 1, H 16, KV 4, S 4096,
+        # causal, at head dims 320, 512 and 640; the small ragged ones) in
+        # bf16 and fp32, and K1 on bf16 operands whose rows TMA cannot load
+        # as they lie (300 x 700 x 260, 130^3, a column offset of 1), each
+        # beside its library call, by CUDA function; copied into an
+        # unpacked checkout of another version it times that version's
+        # bodies
 """
 
 from __future__ import annotations
@@ -114,9 +123,16 @@ def main() -> int:
     ext = _build.extension()
     k1_only = "--k1-tiles" in sys.argv[1:]
     redesigned = "--k1-bf16-k6-bwd" in sys.argv[1:]
+    k4_wide = "--k4-wide" in sys.argv[1:]
     ptxas_report(_build, only="matmul" if k1_only else
-                 ("matmul_bf16", "slstm") if redesigned else None)
+                 ("matmul_bf16", "slstm") if redesigned else
+                 ("flash_attention", "matmul.cu", "matmul_bf16") if k4_wide
+                 else None)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if k4_wide:
+        k4_wide_device_times(torch, gen)
+        k1_staged_device_times(torch, gen)
+        return 0
     if redesigned:
         k1_bf16_device_times(torch, gen)
         k6_device_times(torch, gen, backward_only=True)
@@ -592,6 +608,77 @@ def k1_bf16_device_times(torch, gen, n: int = 4096) -> None:
             "out_dtype": str(odt)[6:], "m": n, "k": n, "n": n, "body": ran,
             **device_times(torch, lambda: matmul_cuda(a, b, out_dtype=odt),
                            library)}), flush=True)
+
+
+def by_function(torch, fn, reps: int) -> dict:
+    """Device time of one call of ``fn`` (``reps`` calls under the
+    profiler, over ``reps``) and its split by CUDA function."""
+    fn()
+    record = profiled(torch, lambda: [fn() for _ in range(reps)])
+    return {"device_ms": record["device_ms"] / reps,
+            "functions_ms": {r["name"]: r["ms"] / reps
+                             for r in record["all"]}}
+
+
+# K4's wide shapes of chip_smoke.py §2: (B, H, KV, S, D, causal, reps)
+K4_WIDE = ((1, 16, 4, 4096, 320, True, 5), (1, 16, 4, 4096, 512, True, 5),
+           (1, 16, 4, 4096, 640, True, 5), (1, 4, 2, 256, 320, True, 20),
+           (2, 4, 2, 300, 320, False, 20), (2, 4, 2, 300, 512, False, 20),
+           (1, 4, 2, 300, 320, True, 20), (1, 4, 2, 256, 512, True, 20))
+
+
+def k4_wide_device_times(torch, gen) -> None:
+    """Device time per call of K4 at chip_smoke.py's wide shapes (a
+    prefill's B 1, H 16, KV 4, S 4096, causal, at head dims 320, padded to
+    384 by the wrapper, 512 and 640; the small ragged ones) in bf16 and
+    fp32, and of SDPA's on the same inputs, each split by CUDA function
+    (the wrapper's padding copies among them); one JSON line each."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention_cuda
+    for dt in (torch.bfloat16, torch.float32):
+        for b, h, kv, s, d, causal, reps in K4_WIDE:
+            q, k, v = (torch.randn(b, n, s, d, device="cuda",
+                                   generator=gen).to(dt) for n in (h, kv, kv))
+            print(json.dumps({
+                "kernel": "K4 flash_attention", "dtype": str(dt)[6:],
+                "shape": [b, h, kv, s, d], "causal": causal,
+                **by_function(torch, lambda: flash_attention_cuda(
+                    q, k, v, causal=causal), reps),
+                "library": by_function(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=causal, enable_gqa=True), reps)}),
+                flush=True)
+            del q, k, v
+            torch.cuda.empty_cache()
+
+
+def k1_staged_device_times(torch, gen, reps: int = 20) -> None:
+    """Device time per call of K1 on bf16 operands whose rows TMA cannot
+    load as they lie (chip_smoke.py §2's: 300 x 700 x 260 out in fp32, 130^3
+    and 2048^3 with A at a column offset of 1 out in bf16), and of the
+    library call computing the same (``torch.mm(out_dtype=)``,
+    ``torch.matmul``), each split by CUDA function (the wrapper's staging
+    copies among them); one JSON line each."""
+    from repro_torch.kernels import matmul_cuda
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def rnd(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(bf16)
+
+    for layout, a, b, odt in (
+            ("rows not 16-byte aligned", rnd(300, 700), rnd(700, 260), f32),
+            ("130 columns", rnd(130, 130), rnd(130, 130), bf16),
+            ("A at column offset 1", rnd(2048, 2049)[:, 1:],
+             rnd(2048, 2048), bf16)):
+        library = ((lambda: torch.mm(a, b, out_dtype=odt)) if odt == f32
+                   else (lambda: torch.matmul(a, b)))
+        print(json.dumps({
+            "kernel": "K1 matmul", "layout": layout, "dtype": "bfloat16",
+            "out_dtype": str(odt)[6:], "m": a.shape[0], "k": a.shape[1],
+            "n": b.shape[1],
+            **by_function(torch, lambda: matmul_cuda(a, b, out_dtype=odt),
+                          reps),
+            "library": by_function(torch, library, reps)}), flush=True)
 
 
 def k1_tile_report(torch, ext) -> None:

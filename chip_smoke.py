@@ -9,23 +9,26 @@
    path's three product classes, on its 4-byte copy path, on a stacked
    batch and on a batch of one, §11's rank blocks, and in bf16 on its
    tensor-core body, out in fp32 and in bf16, on TMA's ragged edges, a
-   stacked and a shared-B batch, and on its FFMA body for rows that are
-   not 16-byte aligned, each row naming the body that ran; K2 also on a
-   strided B
+   stacked and a shared-B batch, and on operands TMA cannot load as they
+   lie (rows not 16-byte aligned: 700 and 130 columns, a view at a column
+   offset of 1), which the wrapper stages, each row naming the body that
+   ran; K2 also on a strided B
    (§11's rank blocks among them) and at the Cholesky's last panel, K3 also
    at a ragged width; K4, K5 and K6 in the path's layouts, with the error
    taken per output row; K4 also at head dims 16, 80 and 160, which its
    wrapper pads, at 256, and at 320 (padded to 384) and 512 on its wide
-   body, also at a ragged S of 300, causal and not, with B 2; K5 also at xlstm's 256 x 257 state and at small
-   ragged shapes; K6 at xlstm's prefill and train shapes, with open
-   forget gates (f + 6, so that its chunk carries show), at a ragged shape
-   and at S below its chunk, its per-step states, and its backward (a
+   bodies, also at a ragged S of 300, causal and not, with B 2, and at a
+   prefill's B 1, H 16, KV 4, S 4096, causal, at 320, 512 and 640; K5
+   also at xlstm's 256 x 257 state and at small ragged shapes; K6 at
+   xlstm's prefill and train shapes, with open forget gates (f + 6, so
+   that its chunk carries show), at a ragged shape and at S below its
+   chunk, its per-step states, and its backward (a
    reverse scan over chunks) at the train shape, with f + 6, at the ragged
    shape and at S below its chunk against the plain reverse loop), and
    times kernel, plain version and the nearest single PyTorch call with
    CUDA events; K1's launcher must refuse arguments it does not take, K3's a
-   block wider than one CTA holds, K4's a head dim whose tiles do not fit a
-   block's shared memory (its wrapper stating the limit), K5's
+   block wider than one CTA holds, K4's a head dim above the widest its
+   wide bodies take, 768 on an H100 (its wrapper stating the limit), K5's
    a dk above the widest a tile holds, and K6's and its backward's binding
    inputs that are not fp32, not contiguous or (the backward) of unlike
    shapes.  Each of K1's compiled CTA tiles reports 0 spill bytes, is
@@ -477,8 +480,7 @@ def kernel_entry(torch, name, wrapper, source, replaces, shape, got, want,
 
 #: K1's source by the body a launch ran (kernels/matmul/ops.py, BODIES)
 K1_SOURCES = {"fp32": "src/repro_torch/kernels/csrc/matmul_f32.cuh",
-              "bf16_wgmma": "src/repro_torch/kernels/csrc/matmul_bf16.cu",
-              "bf16_ffma": "src/repro_torch/kernels/csrc/matmul.cu"}
+              "bf16_wgmma": "src/repro_torch/kernels/csrc/matmul_bf16.cu"}
 #: K1 with bf16 output against matmul_ref's: each side rounds its fp32 sums
 #: to bf16 once, and sums that differ in order by an fp32 rounding can
 #: round to neighbouring bf16 values, one ulp (2^-8 of the element)
@@ -510,8 +512,10 @@ def kernel_checks(torch):
     # 11.1, 8192 in 11.2's 2 x 2 plans).  bf16 operands (what linalg's
     # matmul hands K1 on bf16 inputs) run the tensor-core body, out in
     # fp32 (within 1e-5) and in bf16 (K1_BF16_OUT_TOL), also on TMA's ragged
-    # edges, a stacked batch and a B shared by the batch; rows that are not
-    # 16-byte aligned the FFMA body.  Each row names the body that ran.
+    # edges, a stacked batch and a B shared by the batch; operands whose
+    # rows are not 16-byte aligned (700, 260 and 130 columns, a view at a
+    # column offset of 1) are staged by the wrapper and run the same body.
+    # Each row names the body that ran.
     f32, bf16 = torch.float32, torch.bfloat16
 
     def rnd(*shape):
@@ -525,7 +529,8 @@ def kernel_checks(torch):
         del a16, b16
         # the bf16 body's ragged M, N and K (TMA's zero fill), a stacked
         # batch, B shared by the batch (stride 0), and rows TMA cannot
-        # load (700 and 260 columns: the FFMA body)
+        # load as they lie (700, 260 and 130 columns; a column offset of
+        # 1), staged by the wrapper
         yield "ragged M, N, K", (rnd(1000, 328).to(bf16),
                                  rnd(328, 520).to(bf16)), f32, 20
         yield "stacked batch of 8", (rnd(8, 2048, 2048).to(bf16),
@@ -535,6 +540,11 @@ def kernel_checks(torch):
             bf16, 10
         yield "rows not 16-byte aligned", (rnd(300, 700).to(bf16),
                                            rnd(700, 260).to(bf16)), f32, 20
+        yield "130 columns, staged", (rnd(130, 130).to(bf16),
+                                      rnd(130, 130).to(bf16)), bf16, 50
+        yield "A at column offset 1, staged", (
+            rnd(2048, 2049).to(bf16)[:, 1:], rnd(2048, 2048).to(bf16)), \
+            bf16, 10
         yield "", (rnd(300, 700), rnd(700, 260)), f32, 50
         yield "class (a)", (rnd(N_MAIN, N_MAIN), rnd(N_MAIN, N_MAIN)), f32, 2
         u = rnd(N_MAIN, N_MAIN)
@@ -563,9 +573,7 @@ def kernel_checks(torch):
                 if c != before.get(name, 0)]
         check(len(body) == 1, f"K1 {layout}: bodies launched {body}")
         body = body[0]
-        want_body = ("fp32" if dt == f32 else "bf16_ffma"
-                     if layout == "rows not 16-byte aligned" else
-                     "bf16_wgmma")
+        want_body = "fp32" if dt == f32 else "bf16_wgmma"
         check(body == want_body, f"K1 {dt} {layout}: the {body} body ran, "
               f"not {want_body}")
         want = matmul_ref(a, b, out_dtype=odt)
@@ -666,12 +674,13 @@ def lm_kernel_checks(torch):
     reference's test shapes (the ragged edge, the non-causal branch, GQA,
     each head dim), at head dims 16, 80 and 160 (zero-padded to 64, 96 and
     256 by the wrapper), at 256, at 320 (padded to 384) and 512 (the wide
-    body, whose fp32 sums of bf16 loads round once, at the output; also at
-    the ragged S 300, non-causal with B 2 and causal), and
-    its launcher's and wrapper's refusal of a head dim whose tiles do not
-    fit; K5 at hymba-1.5b's SSD shape, at xlstm-350m's 256 x 257 mLSTM
-    state (v with the normaliser's ones column), at the widest state the
-    reference tests and at small ragged shapes, and its launcher's refusal
+    bodies; also at the ragged S 300, non-causal with B 2 and causal), at a
+    prefill's B 1, H 16, KV 4, S 4096, causal, at 320, 512 and 640 (each
+    plain version once), and its launcher's and wrapper's refusal of a head
+    dim above the widest the wide bodies take; K5 at hymba-1.5b's SSD
+    shape, at xlstm-350m's 256 x 257 mLSTM state (v with the normaliser's
+    ones column), at the widest state the reference tests and at small
+    ragged shapes, and its launcher's refusal
     of dk = 257; K6 and its backward (:func:`k6_checks`).  The path's
     shapes take the path's layouts: the heads as transposed views of the
     projections.  The error is taken per output row, relative to the row's
@@ -708,6 +717,9 @@ def lm_kernel_checks(torch):
             (2, 4, 2, 300, 512, False, bf16, False, 10),
             (1, 4, 2, 300, 320, True, bf16, False, 10),
             (1, 4, 2, 256, 512, True, bf16, False, 10),
+            (1, 16, 4, 4096, 320, True, bf16, False, 5),
+            (1, 16, 4, 4096, 512, True, bf16, False, 5),
+            (1, 16, 4, 4096, 640, True, bf16, False, 5),
             (1, 8, 1, 384, 128, True, fp32, False, 20),
             (2, 4, 4, 300, 64, False, fp32, False, 20),
             (1, 6, 3, 256, 96, True, fp32, False, 20),
@@ -719,7 +731,10 @@ def lm_kernel_checks(torch):
             (2, 4, 2, 300, 320, False, fp32, False, 10),
             (2, 4, 2, 300, 512, False, fp32, False, 10),
             (1, 4, 2, 300, 320, True, fp32, False, 10),
-            (1, 4, 2, 256, 512, True, fp32, False, 10)):
+            (1, 4, 2, 256, 512, True, fp32, False, 10),
+            (1, 16, 4, 4096, 320, True, fp32, False, 5),
+            (1, 16, 4, 4096, 512, True, fp32, False, 5),
+            (1, 16, 4, 4096, 640, True, fp32, False, 5)):
         if path:
             q = heads_view(torch, b, h, s, d, gen, dt)
             k = heads_view(torch, b, kv, s, d, gen, dt)
@@ -747,7 +762,8 @@ def lm_kernel_checks(torch):
                                                  enable_gqa=True),
               reps, 4.0 * b * h * d * pairs,
               PEAK_BF16 if dt == bf16 else PEAK_FP32,
-              2 * (b * h + b * kv) * s * d * isz, plain_reps=2,
+              2 * (b * h + b * kv) * s * d * isz,
+              plain_reps=1 if d > 256 and s >= 4096 else 2,
               layout="heads of a projection" if path else "contiguous")
         del q, k, v
         torch.cuda.empty_cache()
@@ -1009,13 +1025,14 @@ def k5_refuses_dk(torch, wrapper):
 
 
 def k4_refuses_head_dim(torch, wrapper):
-    """Above 256, K4's wide body holds a 64-row fp32 accumulator of the
-    head dim in shared memory, so the launcher takes head dims up to the
-    widest that fits the device's opt-in shared memory of a block, and its
-    refusal states that limit: read from the wrapper's refusal of d = 1000
-    (padded to 1024), then, at the next multiple of 128 above the limit
-    (the wrapper pads to multiples of 128), the binding raises and nothing
-    runs, in either type, and the wrapper refuses with the same limit."""
+    """Above 256, K4's launcher takes head dims up to the widest both wide
+    bodies take (768 on an H100: the bf16 body's resident query tile beside
+    its ring, the fp32 body's registers of O), and its refusal states that
+    limit: read from the wrapper's refusal of d = 1000 (padded to 1024),
+    which must be at least 704, the earlier wide body's limit; then, at the
+    next multiple of 128 above the limit (the wrapper pads to multiples of
+    128), the binding raises and nothing runs, in either type, and the
+    wrapper refuses with the same limit."""
     import re
     from repro_torch.kernels import _build
     big = torch.zeros(1, 1, 128, 1000, device="cuda")
@@ -1030,7 +1047,7 @@ def k4_refuses_head_dim(torch, wrapper):
     widest = int(found.group(1))
     d = (widest // 128 + 1) * 128
     emit({"k4_widest_head_dim": widest, "refused_head_dim": d})
-    check(widest >= 512, f"K4's widest head dim is {widest}, below 512")
+    check(widest >= 704, f"K4's widest head dim is {widest}, below 704")
     for dt, code in ((torch.bfloat16, 1), (torch.float32, 0)):
         q = torch.zeros(1, 1, 128, d, device="cuda", dtype=dt)
         o = torch.full_like(q, float("nan"))

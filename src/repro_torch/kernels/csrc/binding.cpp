@@ -30,9 +30,9 @@ cudaStream_t as_stream(i64 s) {
 }
 
 // Returns the body that ran (kernels.h: 0 fp32, 1 bf16 on the tensor
-// cores, 2 bf16 on FFMA).  Raises, having launched nothing, for arguments
-// the launcher refuses (a CTA tile that is not compiled among them) and
-// when a body's shared-memory limit cannot be raised.
+// cores).  Raises, having launched nothing, for arguments the launcher
+// refuses (a CTA tile that is not compiled among them), for bf16 operands
+// TMA cannot load, and when a body's shared-memory limit cannot be raised.
 int matmul(i64 a, i64 b, i64 c, int in_type, int out_type, int batch, int m,
            int n, int k, i64 sa, i64 lda, i64 sb, i64 ldb, i64 sc, i64 ldc,
            int tile_m, int tile_n, i64 stream) {
@@ -47,12 +47,15 @@ int matmul(i64 a, i64 b, i64 c, int in_type, int out_type, int batch, int m,
     char msg[256];
     std::snprintf(msg, sizeof msg,
                   "matmul: the launcher refused the arguments (type codes, "
-                  "m, n, batch >= 1, k >= 0, batch <= 65535, a compiled CTA "
-                  "tile; got %dx%d)",
+                  "m, n, batch >= 1, k >= 0 (bf16: k >= 1), batch <= 65535, "
+                  "a compiled CTA tile; got %dx%d)",
                   tile_m, tile_n);
     const char* what = msg;
     TORCH_CHECK(false, what);
   }
+  TORCH_CHECK(err != cudaErrorMisalignedAddress,
+              "matmul: bf16 A and B must be 16-byte aligned, with row and "
+              "batch strides that are multiples of 8 elements");
   TORCH_CHECK(err == cudaSuccess, cudaGetErrorString(err));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return body;
@@ -96,9 +99,9 @@ void cholesky_block(i64 a, i64 l, int batch, int nb, i64 sa, i64 lda, i64 sl,
 }
 
 // Raises, having launched nothing, for a head dim other than 64, 96, 128,
-// 256 or a multiple of 64 up to the widest whose tiles fit the device's
-// shared memory of a block (the message states it), and for bf16 operands
-// that the TMA loads cannot take (head dims up to 256).
+// 256 or a multiple of 64 up to the widest the wide bodies take on this
+// device (the message states it), and for operands the loads cannot take
+// (bf16; above d = 256 fp32 too).
 void flash_attention(i64 q, i64 k, i64 v, i64 o, int dtype, int batch,
                      int heads, int kv_heads, int sq, int skv, int d,
                      std::vector<i64> strides, double scale, bool causal,
@@ -115,15 +118,16 @@ void flash_attention(i64 q, i64 k, i64 v, i64 o, int dtype, int batch,
     char msg[256];
     std::snprintf(msg, sizeof msg,
                   "flash_attention: head dim must be 64, 96, 128, 256 or a "
-                  "multiple of 64 up to %d, the widest whose tiles fit this "
-                  "device's shared memory of a block; got %d",
+                  "multiple of 64 up to %d, the widest the wide bodies take "
+                  "on this device; got %d",
                   repro_flash_attention_max_head_dim(), d);
     const char* what = msg;
     TORCH_CHECK(false, what);
   }
   TORCH_CHECK(err != cudaErrorMisalignedAddress,
-              "flash_attention: bf16 q, k and v must be 16-byte aligned, "
-              "with strides that are multiples of 8 elements");
+              "flash_attention: q, k and v (bf16, or any type above head "
+              "dim 256) must be 16-byte aligned, with strides that are "
+              "multiples of 16 bytes");
   TORCH_CHECK(err == cudaSuccess, cudaGetErrorString(err));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }

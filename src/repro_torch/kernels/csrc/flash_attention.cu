@@ -62,16 +62,36 @@
 // a warpgroup, or ping-pong between the two), which gained too little to
 // pay for their code.
 //
-// wide body (flash_wide_kernel): head dims above 256, which the reference
-// takes by padding D to a multiple of 128 and no config uses; taken simple,
-// for either type. The fp32 body's tiles (64 query rows, 64 keys, a 4x4
-// block of scores a thread) with D a runtime loop over 64-column slices:
-// the scores sum over the slices of q and k loaded (widened to fp32, q
-// scaled) into shared memory one slice at a time, and the 64 x D fp32
-// accumulator lives in shared memory, each element owned by one thread,
-// rescaled and updated slice by slice as V's slices arrive. Shared memory
-// is 51 KB of tiles plus 256 bytes a column of D, so the device's opt-in
-// limit (227 KB on an H100) bounds D at 704; the launcher refuses wider.
+// wide bodies: head dims above 256, which the reference takes by padding D
+// to a multiple of 128 and no config uses; the launcher takes multiples of
+// 64 up to 768 (the widest whose tiles fit both bodies on an H100).
+//  - bf16 (tc::flash_tc_wide_kernel): the tensor-core body's structure
+//    (TMA, mbarriers, two consumer warpgroups of 64 query rows, the softmax
+//    on ex2 in the accumulator's layout, P rounded to bf16 once), with a
+//    producer warpgroup that hands its registers to the consumers
+//    (setmaxnreg). What shapes it: a 64-row fp32 O is D / 2 registers a
+//    thread of one warpgroup, which past 256 columns no longer fits beside
+//    the scores. So each CTA owns one slice of at most 256 of O's columns
+//    (m64n64k16 chains, one a 64-column panel), a grid axis walks the
+//    slices, and each slice computes S = Q K^T over the whole head dim
+//    again: (slices * 2 D + 2 D) / 4 D of the least work, 1.5x at D 384 and
+//    512, 2x at 640 and 768. Chosen over one CTA for all slices with S
+//    computed once and shared as a bf16 P tile in shared memory: that O is
+//    64 x D fp32 in one CTA's registers (160 KB at D 640 of the SM's 256
+//    KB) and the scores beside it spill. The query tile (128 rows x D)
+//    stays in shared memory; K's and V's 64-row panels stream through a
+//    ring of 4 to 8 slots of 8 KB, each freed once the products that read
+//    it are done (wgmma.wait_group 1), so loads run ahead of the products.
+//  - fp32 (wide_f32::flash_f32_wide_kernel): IEEE FFMA, O in registers. A
+//    CTA of 256 threads owns 64 query rows (32 above D 512, and where 64
+//    would give fewer CTAs than SMs), all of D: a
+//    thread holds 4 rows x 8 columns of every tile it computes, 128 fp32
+//    registers of O at D 512. Q, scaled, is loaded into shared memory once;
+//    K's and V's slices (16 KB-class stages of 16-byte cp.async copies,
+//    zero-filled past the edges) go through a double buffer, so the next
+//    stage's copies overlap this stage's FFMAs, one barrier a stage. The
+//    scores take key tiles of 128 (256) keys so that the thread tile is
+//    4 x 8 in both products.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -704,51 +724,387 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaSuccess;
 }
 
+// ---------------------------------------------------------------------------
+// wide bf16 body: head dims above 256, O's columns in slices (the note at
+// the top of this file says why)
+
+constexpr int WIDE_SLICE = 4;                 // panels of O a CTA, at most
+constexpr int WIDE_RING = 8;                  // panel slots of the ring
+constexpr int WIDE_MIN_RING = 4;              // the fewest a launch takes
+constexpr int WIDE_BKV = 64;                  // key / value rows of a tile
+// two consumer warpgroups and a producer warpgroup, whose registers go to
+// the consumers (setmaxnreg): 64 KB of registers hold 2 x 128 x 232 + 128 x
+// 40, where 288 threads without it would get 168 a thread (the launch
+// bound counts whole warpgroups) and the consumers' 128 registers of O
+// beside the scores spill
+constexpr int WIDE_THREADS = CONSUMERS + 128;
+constexpr int CONSUMER_REGS = 232;
+constexpr int PRODUCER_REGS = 40;
+static_assert(2 * 128 * CONSUMER_REGS + 128 * PRODUCER_REGS <= 65536,
+              "the register file holds both budgets");
+constexpr int PANEL_BYTES = WIDE_BKV * ROW_BYTES;   // 8 KB
+constexpr int QPANEL_BYTES = BQ * ROW_BYTES;        // 16 KB
+
+// Shared memory of a CTA at np panels of the head dim and `ring` slots:
+// the resident query tile (np panels of 128 rows), the ring, its
+// mbarriers (for WIDE_RING slots), slack to align the base.
+constexpr size_t wide_bytes(int np, int ring) {
+  return static_cast<size_t>(np) * QPANEL_BYTES +
+         static_cast<size_t>(ring) * PANEL_BYTES + 8 * (1 + 2 * WIDE_RING) +
+         1024;
+}
+
+// The ring's slots at np panels within `optin` bytes of shared memory (at
+// most WIDE_RING; below WIDE_MIN_RING the launcher refuses the head dim).
+int wide_ring(int np, int optin) {
+  const long long room = static_cast<long long>(optin) -
+                         static_cast<long long>(wide_bytes(np, 0));
+  const long long slots = room < 0 ? 0 : room / PANEL_BYTES;
+  return static_cast<int>(slots < WIDE_RING ? slots : WIDE_RING);
+}
+
+// One CTA: 128 query rows (two consumer warpgroups of 64) of one (batch,
+// head) and the slice's nv <= 4 panels of O's columns, from panel p0. The
+// producer's one lane loads the query tile once (np panels of 128 rows x 64
+// columns) and then, for each key tile, K's np panels and V's nv panels of
+// 64 rows into a ring of 8 KB slots, each completing on its "full"
+// mbarrier and freed on its "empty" one (one arrival a consumer warp) once
+// the products that read it are done. A consumer warpgroup runs S = Q K^T
+// as np chained groups of four wgmma m64n64k16 (both operands K-major),
+// waiting for the previous group only (wgmma.wait_group 1) so that a
+// panel's slot is freed while the next panel's products run; the softmax
+// of flash_tc_kernel in the accumulator's layout; then O += P V as nv
+// m64n64k16 chains with P (rounded to bf16 once) the register A operand and
+// each V panel the MN-major B operand.
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+    flash_tc_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         __nv_bfloat16* __restrict__ o, int H, int group,
+                         int sq, int skv, int np, int slices, int ring,
+                         long long osb, long long osh, long long oss,
+                         float scale, int causal) {
+  constexpr int NS = WIDE_BKV / 2;          // score registers of a thread
+  constexpr int NO = WIDE_SLICE * 32;       // output registers of a thread
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t s_q = base;
+  const uint32_t s_ring = base + np * QPANEL_BYTES;
+  const uint32_t bar_q = s_ring + ring * PANEL_BYTES;
+  const uint32_t full = bar_q + 8;                  // [ring]
+  const uint32_t empty = full + 8 * WIDE_RING;      // [ring]
+
+  const int slice = blockIdx.x % slices;
+  const int bh = blockIdx.x / slices;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int hk = h / group;
+  const int p0 = slice * np / slices;               // the slice's panels
+  const int nv = (slice + 1) * np / slices - p0;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // longest rows first
+  // key tiles that start at or before the tile's last row (causal), or all
+  const int kv_end = causal ? min(skv, q0 + BQ) : skv;
+  const int n_kv = (kv_end + WIDE_BKV - 1) / WIDE_BKV;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < ring; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMERS / 32);   // one arrival a warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    // the producer warpgroup: one lane issues every load, in the order the
+    // consumers read them
+    reg_dealloc<PRODUCER_REGS>();
+    if (tid == CONSUMERS) {
+      mbar_expect_tx(bar_q, np * QPANEL_BYTES);
+      for (int p = 0; p < np; ++p)
+        tma_load(s_q + p * QPANEL_BYTES, &tq, bar_q, p * PANEL, q0, h, b);
+      int slot = 0, used = 0;
+      uint32_t phase = 0;
+      for (int t = 0; t < n_kv; ++t)
+        for (int p = 0; p < np + nv; ++p) {
+          if (used++ >= ring)   // the panel that held this slot is done
+            mbar_wait(empty + 8 * slot, phase ^ 1);
+          mbar_expect_tx(full + 8 * slot, PANEL_BYTES);
+          if (p < np)
+            tma_load(s_ring + slot * PANEL_BYTES, &tk, full + 8 * slot,
+                     p * PANEL, t * WIDE_BKV, hk, b);
+          else
+            tma_load(s_ring + slot * PANEL_BYTES, &tv, full + 8 * slot,
+                     (p0 + p - np) * PANEL, t * WIDE_BKV, hk, b);
+          if (++slot == ring) {
+            slot = 0;
+            phase ^= 1;
+          }
+        }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: 64 query rows
+  reg_alloc<CONSUMER_REGS>();
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int row_min = q0 + wg * 64;
+  const int r0 = row_min + warp * 16 + lane / 4;
+  const int r1 = r0 + 8;
+  const int cq = 2 * (lane % 4);
+  const uint32_t q_rows = s_q + wg * 64 * ROW_BYTES;
+  const float sl2 = scale * LOG2E;   // exp(scale x) = 2^(sl2 x)
+
+  float acc[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+  float sc[NS];                      // raw scores of a key tile
+#pragma unroll
+  for (int i = 0; i < NS; ++i) sc[i] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF;  // running max of the two rows (raw)
+  float l0 = 0.f, l1 = 0.f;          // this thread's part of the sums
+  int slot = 0;
+  uint32_t phase = 0;
+  int held = 0;                      // the slot of the group in flight
+
+  mbar_wait(bar_q, 0);
+  for (int t = 0; t < n_kv; ++t) {
+    const int k0 = t * WIDE_BKV;
+
+    // S = Q K^T over np panels of 64 columns, four steps of 16 each
+    fence_regs<NS>(sc);
+    for (int p = 0; p < np; ++p) {
+      mbar_wait(full + 8 * slot, phase);
+      wg_fence();
+      const uint32_t kp = s_ring + slot * PANEL_BYTES;
+      const uint32_t qp = q_rows + p * QPANEL_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<64>(sc, desc(qp + kk * 32, 16, 1024),
+                     desc(kp + kk * 32, 16, 1024), p > 0 || kk > 0);
+      wg_commit();
+      wg_wait<1>();   // the previous panel's products are done ...
+      if (p > 0 && lane == 0) mbar_arrive(empty + 8 * held);   // ... free it
+      held = slot;
+      if (++slot == ring) {
+        slot = 0;
+        phase ^= 1;
+      }
+    }
+    wg_wait<0>();
+    fence_regs<NS>(sc);
+    if (lane == 0) mbar_arrive(empty + 8 * held);
+
+    // the mask, then the reference's online update, two rows a thread; the
+    // scale enters the exponent in fp32: exp(scale (s - m))
+    const bool edge =
+        k0 + WIDE_BKV > skv || (causal && k0 + WIDE_BKV - 1 > row_min);
+    float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      if (edge) {
+        const int col = k0 + 8 * (i >> 2) + cq + (i & 1);
+        const int row = (i & 2) ? r1 : r0;
+        if (col >= skv || (causal && col > row)) sc[i] = NEG_INF;
+      }
+      if (i & 2)
+        mx1 = fmaxf(mx1, sc[i]);
+      else
+        mx0 = fmaxf(mx0, sc[i]);
+    }
+#pragma unroll
+    for (int x = 1; x < 4; x <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+    }
+    const float mn0 = fmaxf(m0, mx0);
+    const float mn1 = fmaxf(m1, mx1);
+    const float alpha0 = exp2_fast((m0 - mn0) * sl2);
+    const float alpha1 = exp2_fast((m1 - mn1) * sl2);
+    m0 = mn0;
+    m1 = mn1;
+    const float ml0 = mn0 * sl2;
+    const float ml1 = mn1 * sl2;
+    // P in bf16 pairs: registers 4 kk .. 4 kk + 3 are the A fragment of
+    // the kk-th 16-key step of P V
+    uint32_t pa[NS / 2];
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < NS; i += 2) {
+      const float ml = (i & 2) ? ml1 : ml0;
+      const float e0 = exp2_fast(fmaf(sc[i], sl2, -ml));
+      const float e1 = exp2_fast(fmaf(sc[i + 1], sl2, -ml));
+      if (i & 2)
+        ps1 += e0 + e1;
+      else
+        ps0 += e0 + e1;
+      pa[i / 2] = pack_bf16(e0, e1);
+    }
+    l0 = l0 * alpha0 + ps0;
+    l1 = l1 * alpha1 + ps1;
+#pragma unroll
+    for (int i = 0; i < NO; ++i) acc[i] *= (i & 2) ? alpha1 : alpha0;
+
+    // O += P V: the slice's panels, four steps of 16 keys each
+#pragma unroll
+    for (int j = 0; j < WIDE_SLICE; ++j) {
+      if (j >= nv) break;
+      mbar_wait(full + 8 * slot, phase);
+      wg_fence();
+      const uint32_t vp = s_ring + slot * PANEL_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<64>(acc + 32 * j, &pa[4 * kk],
+                     desc(vp + kk * 16 * ROW_BYTES, PANEL_BYTES, 1024));
+      wg_commit();
+      wg_wait<1>();
+      if (j > 0 && lane == 0) mbar_arrive(empty + 8 * held);
+      held = slot;
+      if (++slot == ring) {
+        slot = 0;
+        phase ^= 1;
+      }
+    }
+    wg_wait<0>();
+    fence_regs<NO>(acc);
+    if (lane == 0) mbar_arrive(empty + 8 * held);
+  }
+
+#pragma unroll
+  for (int x = 1; x < 4; x <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, x);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, x);
+  }
+  const float li0 = l0 == 0.f ? 1.f : l0;
+  const float li1 = l1 == 0.f ? 1.f : l1;
+  __nv_bfloat16* o_row = o + b * osb + h * osh;
+#pragma unroll
+  for (int j = 0; j < WIDE_SLICE; ++j) {
+    if (j >= nv) break;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int col = (p0 + j) * PANEL + 8 * jj + cq;
+      const float* a = acc + 32 * j + 4 * jj;
+      if (r0 < sq)
+        *reinterpret_cast<__nv_bfloat162*>(o_row + r0 * oss + col) =
+            __floats2bfloat162_rn(a[0] / li0, a[1] / li0);
+      if (r1 < sq)
+        *reinterpret_cast<__nv_bfloat162*>(o_row + r1 * oss + col) =
+            __floats2bfloat162_rn(a[2] / li1, a[3] / li1);
+    }
+  }
+}
+
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o,
+                        int batch, int heads, int kv_heads, int sq, int skv,
+                        int d, const long long* st, float scale, int causal,
+                        int optin, cudaStream_t stream) {
+  const int np = d / PANEL;
+  const int ring = wide_ring(np, optin);
+  if (ring < WIDE_MIN_RING) return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(&tq, q, d, sq, heads, batch, st[2], st[1], st[0], BQ) ||
+      !tensor_map(&tk, k, d, skv, kv_heads, batch, st[5], st[4], st[3],
+                  WIDE_BKV) ||
+      !tensor_map(&tv, v, d, skv, kv_heads, batch, st[8], st[7], st[6],
+                  WIDE_BKV))
+    return cudaErrorMisalignedAddress;
+  const size_t smem = wide_bytes(np, ring);
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_tc_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int slices = (np + WIDE_SLICE - 1) / WIDE_SLICE;
+  const dim3 grid(batch * heads * slices, (sq + BQ - 1) / BQ);
+  flash_tc_wide_kernel<<<grid, WIDE_THREADS, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), heads, heads / kv_heads, sq,
+      skv, np, slices, ring, st[9], st[10], st[11], scale, causal);
+  return cudaSuccess;
+}
+
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// wide body: head dims above 256 (the wrapper pads D to a multiple of 128),
-// in either type, D a runtime loop over 64-column slices
+// wide fp32 body: head dims above 256 on the CUDA cores (IEEE FFMA)
 
-namespace wide {
+namespace wide_f32 {
 
-constexpr int BQ = 64;          // query rows of a CTA
-constexpr int BKV = 64;         // key / value rows of one step
-constexpr int SLICE = 64;       // head-dim columns of one pass
-constexpr int THREADS = 256;    // 16 x 16: ty owns 4 rows, tx 4 columns
-constexpr int LDT = BQ + 4;     // row stride of the transposed tiles
+using repro_hopper::smem_u32;
 
-// Qt [SLICE][LDT] and the k slice (transposed) or v slice [SLICE][LDT],
-// Pt [BKV][LDT], then the accumulator O [BQ][d]
-size_t smem_bytes(int d) {
-  return sizeof(float) *
-         (3 * SLICE * LDT + static_cast<size_t>(BQ) * static_cast<size_t>(d));
+constexpr int THREADS = 256;
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src,
+                                           bool valid) {
+  // 16 bytes, or zeros where the source lies outside the operand
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void put(float* p, float x) { *p = x; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
+// The tiles of a CTA of BQ query rows (64 or 32, rows_for): its 256
+// threads are RG row groups of 4 rows by CG column groups, and a thread
+// owns 4 rows by 8 columns of every tile it computes: of the scores, 8 of a
+// tile's BKV keys (key tx + CG c), and of each chunk of W columns of O (two
+// runs of 4: tx * 4 and 4 * CG + tx * 4).
+template <int BQ>
+struct Tiles {
+  static constexpr int RG = BQ / 4;
+  static constexpr int CG = THREADS / RG;
+  static constexpr int BKV = 8 * CG;            // keys of a tile: 128, 256
+  static constexpr int W = 8 * CG;              // columns of O a chunk
+  static constexpr int CHUNKS = BQ == 64 ? 4 : 3;   // d up to 512, 768
+  static constexpr int DS = BQ == 64 ? 32 : 16; // columns of K a stage
+  static constexpr int KLD = DS + 4;            // row stride of K's stage
+  static constexpr int KS = 4096 / W;           // keys of V a stage: 32, 16
+  static constexpr int KG = BKV / KS;           // stages of V a chunk
+  static constexpr int PLD = BQ + 4;            // row stride of P^T
+  static constexpr int BUF = BKV * KLD > KS * W ? BKV * KLD : KS * W;
+  static_assert(BKV * DS / 4 == 4 * THREADS && KS * W / 4 == 4 * THREADS,
+                "a stage is four 16-byte copies a thread");
+  // Q [BQ][d + 4], two stage buffers, P^T [BKV][PLD], in floats
+  static size_t bytes(int d) {
+    return sizeof(float) * (static_cast<size_t>(BQ) * (d + 4) + 2 * BUF +
+                            static_cast<size_t>(BKV) * PLD);
+  }
+};
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ o, int H,
-                      int group, int sq, int skv, int d, long long qsb,
-                      long long qsh, long long qss, long long ksb,
-                      long long ksh, long long kss, long long vsb,
-                      long long vsh, long long vss, long long osb,
-                      long long osh, long long oss, float scale,
-                      int causal) {
+// One CTA: BQ query rows of one (batch, head), all d columns of O in
+// registers (4 rows x 8 columns a chunk, a thread). Q, scaled, is loaded
+// into shared memory once. Each key tile is a run of stages, each one
+// 16 KB-class buffer filled by 16-byte cp.async copies while the other
+// buffer is multiplied: d / DS stages of K (BKV keys x DS columns), the
+// online softmax, then for each chunk of O's columns KG stages of V (KS
+// keys x W columns). Every FFMA is IEEE fp32; every element of S sums its
+// products in ascending d.
+template <int BQ>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_f32_wide_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ o,
+                          int H, int group, int sq, int skv, int d,
+                          long long qsb, long long qsh, long long qss,
+                          long long ksb, long long ksh, long long kss,
+                          long long vsb, long long vsh, long long vss,
+                          long long osb, long long osh, long long oss,
+                          float scale, int causal) {
+  using T = Tiles<BQ>;
+  constexpr int CG = T::CG;
+  constexpr int NC = T::CHUNKS * 8;
   extern __shared__ __align__(16) float smem[];
-  float* Qt = smem;              // [SLICE][LDT]  q slice, transposed, scaled
-  float* KV = Qt + SLICE * LDT;  // [SLICE][LDT] k slice transposed; v slice
-  float* Pt = KV + SLICE * LDT;  // [BKV][LDT] probabilities, transposed
-  float* O = Pt + BKV * LDT;     // [BQ][d] the fp32 accumulator
+  const int qld = d + 4;
+  float* Qs = smem;                          // [BQ][d + 4], scaled
+  float* bufs = Qs + BQ * qld;               // [2][BUF]
+  float* Pt = bufs + 2 * T::BUF;             // [BKV][PLD]
 
   const int n_q = (sq + BQ - 1) / BQ;
   const int q0 = (n_q - 1 - blockIdx.x) * BQ;   // longest causal rows first
@@ -761,129 +1117,196 @@ __global__ void __launch_bounds__(THREADS)
   o += b * osb + h * osh;
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
+  const int tx = tid % CG;
+  const int ty = tid / CG;
 
-  // a thread owns rows ty * 4 + i and, in every slice, columns tx * 4 + j
-  // of O: no other thread reads or writes them
-  for (int e = tid; e < BQ * d; e += THREADS) O[e] = 0.f;
-  float m[4];
-  float l[4];
+  // the query tile, scaled in fp32 as the reference scales, zeros past sq
+  for (int e = tid; e < BQ * d / 4; e += THREADS) {
+    const int r = e / (d / 4);
+    const int c = (e % (d / 4)) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < sq) {
+      x = *reinterpret_cast<const float4*>(q + (q0 + r) * qss + c);
+      x.x *= scale;
+      x.y *= scale;
+      x.z *= scale;
+      x.w *= scale;
+    }
+    *reinterpret_cast<float4*>(&Qs[r * qld + c]) = x;
+  }
+
+  const int kv_end = causal ? min(skv, q0 + BQ) : skv;
+  const int n_kv = (kv_end + T::BKV - 1) / T::BKV;
+  const int nsk = d / T::DS;                    // stages of K a tile
+  const int nch = (d + T::W - 1) / T::W;        // chunks of O's columns
+  const int per_tile = nsk + nch * T::KG;
+
+  // the copies of one stage: the u-th of key tile t, into buffer `buf`
+  auto issue = [&](int t, int u, int buf) {
+    const uint32_t dst = smem_u32(bufs + buf * T::BUF);
+    const int k0 = t * T::BKV;
+    if (u < nsk) {
+      const int c0 = u * T::DS;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int e = tid + i * THREADS;
+        const int key = e / (T::DS / 4);
+        const int c4 = e % (T::DS / 4);
+        const bool ok = k0 + key < skv;
+        cp_async16(dst + 4 * (key * T::KLD + c4 * 4),
+                   ok ? k + (k0 + key) * kss + c0 + c4 * 4 : k, ok);
+      }
+    } else {
+      const int cg = (u - nsk) / T::KG;
+      const int key0 = k0 + (u - nsk) % T::KG * T::KS;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int e = tid + i * THREADS;
+        const int key = e / (T::W / 4);
+        const int col = cg * T::W + e % (T::W / 4) * 4;
+        const bool ok = key0 + key < skv && col < d;
+        cp_async16(dst + 4 * (key * T::W + col - cg * T::W),
+                   ok ? v + (key0 + key) * vss + col : v, ok);
+      }
+    }
+    cp_async_commit();
+  };
+  // the stage counter g and the next stage to issue (tile nt, index nu)
+  int g = 0, nt = 0, nu = 0;
+  auto advance = [&]() {
+    if (++nu == per_tile) {
+      nu = 0;
+      ++nt;
+    }
+  };
+  // waits for stage g's copies (and every thread's work on stage g - 1),
+  // issues stage g + 1 into the other buffer, returns stage g's buffer
+  auto begin = [&]() -> const float* {
+    cp_async_wait_all();
+    __syncthreads();
+    if (nt < n_kv) {
+      issue(nt, nu, (g + 1) & 1);
+      advance();
+    }
+    return bufs + (g++ & 1) * T::BUF;
+  };
+
+  float acc[4][NC];
+  float m[4], l[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = NEG_INF;
     l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
   }
 
-  const int kv_end = causal ? min(skv, q0 + BQ) : skv;
-  const int n_kv = (kv_end + BKV - 1) / BKV;
+  issue(0, 0, 0);
+  advance();
   for (int t = 0; t < n_kv; ++t) {
-    const int k0 = t * BKV;
-    float s[4][4];
+    const int k0 = t * T::BKV;
+    float s[4][8];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int c0 = 0; c0 < d; c0 += SLICE) {
-      __syncthreads();   // the last reads of Qt and KV are done
-      for (int e = tid; e < BQ * SLICE; e += THREADS) {
-        const int r = e / SLICE;
-        const int c = e % SLICE;
-        const int row = q0 + r;
-        const int col = k0 + r;
-        Qt[c * LDT + r] = row < sq ? widen(q[row * qss + c0 + c]) * scale
-                                   : 0.f;
-        KV[c * LDT + r] = col < skv ? widen(k[col * kss + c0 + c]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int c = 0; c < SLICE; ++c) {
-        const float4 a =
-            *reinterpret_cast<const float4*>(&Qt[c * LDT + ty * 4]);
-        const float4 w =
-            *reinterpret_cast<const float4*>(&KV[c * LDT + tx * 4]);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float wv[4] = {w.x, w.y, w.z, w.w};
+      for (int c = 0; c < 8; ++c) s[i][c] = 0.f;
+    for (int u = 0; u < nsk; ++u) {
+      const float* Ks = begin();
+      const float* Qc = Qs + ty * 4 * qld + u * T::DS;
+#pragma unroll 2
+      for (int dd = 0; dd < T::DS; dd += 4) {
+        float4 a[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
+          a[i] = *reinterpret_cast<const float4*>(Qc + i * qld + dd);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], wv[j], s[i][j]);
+        for (int c = 0; c < 8; ++c) {
+          const float4 w = *reinterpret_cast<const float4*>(
+              Ks + (tx + CG * c) * T::KLD + dd);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            s[i][c] = fmaf(a[i].x, w.x, s[i][c]);
+            s[i][c] = fmaf(a[i].y, w.y, s[i][c]);
+            s[i][c] = fmaf(a[i].z, w.z, s[i][c]);
+            s[i][c] = fmaf(a[i].w, w.w, s[i][c]);
+          }
+        }
       }
     }
 
-    // mask, then the online-softmax update, row by row
-    float alpha[4];
+    // mask, then the online-softmax update of the reference, row by row;
+    // P^T goes to shared memory (its last readers, the previous tile's
+    // stages of V, are past this tile's first barrier)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = q0 + ty * 4 + i;
       float mt = NEG_INF;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx * 4 + j;
+      for (int c = 0; c < 8; ++c) {
+        const int col = k0 + tx + CG * c;
         const bool valid = col < skv && (!causal || row >= col);
-        s[i][j] = valid ? s[i][j] : NEG_INF;
-        mt = fmaxf(mt, s[i][j]);
+        s[i][c] = valid ? s[i][c] : NEG_INF;
+        mt = fmaxf(mt, s[i][c]);
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
+      for (int off = CG / 2; off > 0; off >>= 1)
         mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
       const float m_new = fmaxf(m[i], mt);
-      alpha[i] = expf(m[i] - m_new);
+      const float alpha = expf(m[i] - m_new);
       float ps = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        ps += s[i][j];
+      for (int c = 0; c < 8; ++c) {
+        s[i][c] = expf(s[i][c] - m_new);
+        ps += s[i][c];
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
+      for (int off = CG / 2; off > 0; off >>= 1)
         ps += __shfl_xor_sync(0xffffffffu, ps, off);
-      l[i] = l[i] * alpha[i] + ps;
+      l[i] = l[i] * alpha + ps;
       m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(&Pt[(tx * 4 + j) * LDT + ty * 4]) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+    for (int c = 0; c < 8; ++c)
+      *reinterpret_cast<float4*>(&Pt[(tx + CG * c) * T::PLD + ty * 4]) =
+          make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
 
-    // O = alpha O + P V, one slice of V's columns at a time
-    for (int c0 = 0; c0 < d; c0 += SLICE) {
-      __syncthreads();   // Pt is written; the last reads of KV are done
-      for (int e = tid; e < BKV * SLICE; e += THREADS) {
-        const int r = e / SLICE;
-        const int c = e % SLICE;
-        const int col = k0 + r;
-        KV[r * SLICE + c] = col < skv ? widen(v[col * vss + c0 + c]) : 0.f;
-      }
-      __syncthreads();
-      float acc[4][4];
+    // O += P V, chunk by chunk of O's columns; a chunk's second run of 4
+    // columns a thread lies wholly past d or not (d a multiple of 64)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 x = *reinterpret_cast<const float4*>(
-            &O[(ty * 4 + i) * d + c0 + tx * 4]);
-        acc[i][0] = x.x * alpha[i];
-        acc[i][1] = x.y * alpha[i];
-        acc[i][2] = x.z * alpha[i];
-        acc[i][3] = x.w * alpha[i];
-      }
+    for (int cg = 0; cg < T::CHUNKS; ++cg) {
+      if (cg >= nch) break;
+      const bool second = cg * T::W + 4 * CG < d;
+      for (int kg = 0; kg < T::KG; ++kg) {
+        const float* Vs = begin();
+        const float* P = Pt + kg * T::KS * T::PLD + ty * 4;
 #pragma unroll 4
-      for (int jj = 0; jj < BKV; ++jj) {
-        const float4 p =
-            *reinterpret_cast<const float4*>(&Pt[jj * LDT + ty * 4]);
-        const float4 w =
-            *reinterpret_cast<const float4*>(&KV[jj * SLICE + tx * 4]);
-        const float pv[4] = {p.x, p.y, p.z, p.w};
-        const float wv[4] = {w.x, w.y, w.z, w.w};
+        for (int j = 0; j < T::KS; ++j) {
+          const float4 p = *reinterpret_cast<const float4*>(P + j * T::PLD);
+          const float pv[4] = {p.x, p.y, p.z, p.w};
+          const float4 w0 =
+              *reinterpret_cast<const float4*>(Vs + j * T::W + tx * 4);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+          for (int i = 0; i < 4; ++i) {
+            acc[i][cg * 8 + 0] = fmaf(pv[i], w0.x, acc[i][cg * 8 + 0]);
+            acc[i][cg * 8 + 1] = fmaf(pv[i], w0.y, acc[i][cg * 8 + 1]);
+            acc[i][cg * 8 + 2] = fmaf(pv[i], w0.z, acc[i][cg * 8 + 2]);
+            acc[i][cg * 8 + 3] = fmaf(pv[i], w0.w, acc[i][cg * 8 + 3]);
+          }
+          if (second) {
+            const float4 w1 = *reinterpret_cast<const float4*>(
+                Vs + j * T::W + 4 * CG + tx * 4);
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            acc[i][j] = fmaf(pv[i], wv[j], acc[i][j]);
+            for (int i = 0; i < 4; ++i) {
+              acc[i][cg * 8 + 4] = fmaf(pv[i], w1.x, acc[i][cg * 8 + 4]);
+              acc[i][cg * 8 + 5] = fmaf(pv[i], w1.y, acc[i][cg * 8 + 5]);
+              acc[i][cg * 8 + 6] = fmaf(pv[i], w1.z, acc[i][cg * 8 + 6]);
+              acc[i][cg * 8 + 7] = fmaf(pv[i], w1.w, acc[i][cg * 8 + 7]);
+            }
+          }
+        }
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        *reinterpret_cast<float4*>(&O[(ty * 4 + i) * d + c0 + tx * 4]) =
-            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
     }
   }
 
@@ -892,52 +1315,114 @@ __global__ void __launch_bounds__(THREADS)
     const int row = q0 + ty * 4 + i;
     if (row >= sq) continue;
     const float li = l[i] == 0.f ? 1.f : l[i];
-    for (int c0 = 0; c0 < d; c0 += SLICE)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = c0 + tx * 4 + j;
-        put(&o[row * oss + col], O[(ty * 4 + i) * d + col] / li);
+    for (int cg = 0; cg < T::CHUNKS; ++cg)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int col = cg * T::W + r * 4 * CG + tx * 4;
+        if (cg < nch && col < d)
+          *reinterpret_cast<float4*>(o + row * oss + col) = make_float4(
+              acc[i][cg * 8 + 4 * r] / li, acc[i][cg * 8 + 4 * r + 1] / li,
+              acc[i][cg * 8 + 4 * r + 2] / li,
+              acc[i][cg * 8 + 4 * r + 3] / li);
       }
   }
 }
 
-// The widest d (a multiple of SLICE) whose tiles fit the device's opt-in
-// shared memory of a block; 0 if the device cannot be read.
-int max_head_dim() {
+// The widest d whose O the 64-row tiles hold in registers.
+constexpr int MAX_D64 = Tiles<64>::W * Tiles<64>::CHUNKS;
+
+// The query rows of a CTA: 64 up to MAX_D64 columns, 32 above; and 32 as
+// well where 64-row tiles would give fewer CTAs than the device has SMs
+// (small batches and short sequences), which doubles the grid. The
+// shared memory at d is the larger of the two.
+int rows_for(int d, long long ctas64, int sms) {
+  return d <= MAX_D64 && ctas64 >= sms ? 64 : 32;
+}
+size_t bytes_for(int d) {
+  return d <= MAX_D64 ? Tiles<64>::bytes(d) : Tiles<32>::bytes(d);
+}
+
+// 16-byte cp.async and float4 stores need 16-byte aligned operands with
+// (batch, head, row) strides in multiples of 4 floats wherever they move.
+bool aligned(const void* p, const long long* st, int n0, int n1, int n2) {
+  const int n[3] = {n0, n1, n2};
+  if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  for (int i = 0; i < 3; ++i)
+    if (n[i] > 1 && st[i] % 4 != 0) return false;
+  return true;
+}
+
+template <int BQ>
+cudaError_t launch_at(const float* q, const float* k, const float* v,
+                      float* o, int batch, int heads, int kv_heads, int sq,
+                      int skv, int d, const long long* st, float scale,
+                      int causal, cudaStream_t stream) {
+  const size_t smem = Tiles<BQ>::bytes(d);
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_f32_wide_kernel<BQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((sq + BQ - 1) / BQ, batch * heads);
+  flash_f32_wide_kernel<BQ><<<grid, THREADS, smem, stream>>>(
+      q, k, v, o, heads, heads / kv_heads, sq, skv, d, st[0], st[1], st[2],
+      st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale,
+      causal);
+  return cudaSuccess;
+}
+
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int batch, int heads, int kv_heads, int sq, int skv, int d,
+                   const long long* st, float scale, int causal,
+                   cudaStream_t stream) {
+  if (!aligned(q, st, batch, heads, sq) ||
+      !aligned(k, st + 3, batch, kv_heads, skv) ||
+      !aligned(v, st + 6, batch, kv_heads, skv) ||
+      !aligned(o, st + 9, batch, heads, sq))
+    return cudaErrorMisalignedAddress;
+  int dev = 0;
+  int sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const long long ctas64 =
+      static_cast<long long>((sq + 63) / 64) * batch * heads;
+  const auto* qf = static_cast<const float*>(q);
+  const auto* kf = static_cast<const float*>(k);
+  const auto* vf = static_cast<const float*>(v);
+  auto* of = static_cast<float*>(o);
+  if (rows_for(d, ctas64, sms) == 64)
+    return launch_at<64>(qf, kf, vf, of, batch, heads, kv_heads, sq, skv, d,
+                         st, scale, causal, stream);
+  return launch_at<32>(qf, kf, vf, of, batch, heads, kv_heads, sq, skv, d, st,
+                       scale, causal, stream);
+}
+
+}  // namespace wide_f32
+
+// The widest head dim above 256 that both wide bodies take: a multiple of
+// 64 up to WIDE_MAX (the fp32 body's registers: 3 chunks of 256 columns)
+// whose tiles fit the device's opt-in shared memory of a block, with the
+// bf16 body's ring at WIDE_MIN_RING slots or more; 0 if the device cannot
+// be read.
+constexpr int WIDE_MAX = 768;
+
+int max_head_dim(int* optin_out = nullptr) {
   int dev = 0;
   int optin = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                              dev) != cudaSuccess)
     return 0;
-  const long long room =
-      static_cast<long long>(optin) - static_cast<long long>(smem_bytes(0));
-  return room <= 0 ? 0
-                   : static_cast<int>(room / (sizeof(float) * BQ) / SLICE *
-                                      SLICE);
+  if (optin_out) *optin_out = optin;
+  int widest = 0;
+  for (int d = 320; d <= WIDE_MAX; d += 64)
+    if (tc::wide_ring(d / tc::PANEL, optin) >= tc::WIDE_MIN_RING &&
+        wide_f32::bytes_for(d) <= static_cast<size_t>(optin))
+      widest = d;
+  return widest;
 }
-
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int batch, int heads, int kv_heads, int sq, int skv, int d,
-                   const long long* st, float scale, int causal,
-                   cudaStream_t stream) {
-  if (d % SLICE != 0 || d > max_head_dim()) return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(d);
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((sq + BQ - 1) / BQ, batch * heads);
-  flash_wide_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), heads, heads / kv_heads,
-      sq, skv, d, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], st[9], st[10], st[11], scale, causal);
-  return cudaSuccess;
-}
-
-}  // namespace wide
 
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         int batch, int heads, int kv_heads, int sq, int skv,
@@ -985,21 +1470,20 @@ cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-extern "C" int repro_flash_attention_max_head_dim() {
-  return wide::max_head_dim();
-}
+extern "C" int repro_flash_attention_max_head_dim() { return max_head_dim(); }
 
 extern "C" cudaError_t repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, int dtype,
     int batch, int heads, int kv_heads, int sq, int skv, int d,
     const long long* strides, float scale, int causal, cudaStream_t stream) {
   if (d > 256) {
+    int optin = 0;
+    if (d % 64 != 0 || d > max_head_dim(&optin)) return cudaErrorInvalidValue;
     if (dtype == REPRO_BF16)
-      return wide::launch<__nv_bfloat16>(q, k, v, o, batch, heads, kv_heads,
-                                         sq, skv, d, strides, scale, causal,
-                                         stream);
-    return wide::launch<float>(q, k, v, o, batch, heads, kv_heads, sq, skv,
-                               d, strides, scale, causal, stream);
+      return tc::launch_wide(q, k, v, o, batch, heads, kv_heads, sq, skv, d,
+                             strides, scale, causal, optin, stream);
+    return wide_f32::launch(q, k, v, o, batch, heads, kv_heads, sq, skv, d,
+                            strides, scale, causal, stream);
   }
   if (d != 64 && d != 96 && d != 128 && d != 256)
     return cudaErrorInvalidValue;

@@ -3,7 +3,8 @@
 // fp32 body (matmul_f32.cuh), K1's bf16 body (matmul_bf16.cu) and K4's
 // bf16 body (flash_attention.cu).  Shared-memory addresses, the mbarriers a
 // TMA box completes on, the TMA loads themselves, the wgmma shared-memory
-// descriptor and fences, and the driver's tensor-map encoder looked up
+// descriptor and fences, the warpgroups' register budgets (setmaxnreg),
+// and the CUDA driver's tensor-map encoder looked up
 // through the runtime.  Everything here is inline; each kernel source keeps
 // its own tiles and its own wgmma shapes.
 #pragma once
@@ -96,6 +97,18 @@ __device__ __forceinline__ void wg_commit() {
 template <int N = 0>
 __device__ __forceinline__ void wg_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Sets this warpgroup's registers a thread to N (a multiple of 8 in 24 ..
+// 256): producers give theirs back (dec) to consumers (inc). Every warp of
+// the warpgroup executes it.
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
 }
 
 // Keeps the compiler from moving register accesses across the asynchronous

@@ -19,8 +19,8 @@ extern "C" {
 enum { REPRO_F32 = 0, REPRO_BF16 = 1 };
 
 // The body a matmul launch ran: fp32 inputs' FFMA body, bf16 inputs'
-// tensor-core body, bf16 inputs' FFMA body (operands TMA cannot load).
-enum { REPRO_K1_F32 = 0, REPRO_K1_BF16_TC = 1, REPRO_K1_BF16_FFMA = 2 };
+// tensor-core body.
+enum { REPRO_K1_F32 = 0, REPRO_K1_BF16_TC = 1 };
 
 // K1: C[z] = A[z] @ B[z] with A (m, k), B (k, n), C (m, n), row-major with
 // row strides lda/ldb/ldc; fp32 accumulation, C written in out_type.  fp32
@@ -29,14 +29,15 @@ enum { REPRO_K1_F32 = 0, REPRO_K1_BF16_TC = 1, REPRO_K1_BF16_FFMA = 2 };
 // the CTA tile tile_m x tile_n, one of the compiled configurations (64x64,
 // 64x128, 128x64, 128x128, 256x64, 256x128).  bf16 inputs take the tile
 // 128x128 alone (no plan reaches them) and run the tensor-core body (wgmma
-// on TMA tiles of 128 x 256) where A's and B's rows and batch starts are
-// 16-byte aligned and k > 0, the FFMA body otherwise.  On success
-// *body is the body that ran (REPRO_K1_F32, REPRO_K1_BF16_TC or
-// REPRO_K1_BF16_FFMA).  Returns cudaErrorInvalidValue, and launches
-// nothing, for an unknown type code, m, n or batch below 1, k below 0,
-// batch above 65535, a tile that is not compiled for the input type or
-// more than INT_MAX tiles; and the error of raising a body's shared-memory
-// limit if that fails.
+// on TMA tiles of 128 x 256), which needs A's and B's starts 16-byte
+// aligned and their row and batch strides multiples of 8 elements (the
+// wrapper stages operands that are not).  On success *body is the body
+// that ran (REPRO_K1_F32 or REPRO_K1_BF16_TC).  Returns
+// cudaErrorInvalidValue, and launches nothing, for an unknown type code, m,
+// n or batch below 1, k below 0 (below 1 for bf16), batch above 65535, a
+// tile that is not compiled for the input type or more than INT_MAX tiles;
+// cudaErrorMisalignedAddress for bf16 operands TMA cannot load; and the
+// error of raising a body's shared-memory limit if that fails.
 cudaError_t repro_matmul(const void* a, const void* b, void* c, int in_type,
                          int out_type, int batch, int m, int n, int k,
                          long long sa, long long lda, long long sb,
@@ -73,23 +74,26 @@ cudaError_t repro_cholesky_block(const float* a, float* l, int batch,
 // KV)], causal or not, with q, o (batch, heads, sq, d) and k, v (batch,
 // kv_heads, skv, d) addressed by element strides, 12 of them in the order
 // (batch, head, row) for q, k, v, o; unit stride along d. The type
-// (REPRO_F32 or REPRO_BF16) is that of all four: up to d = 256 fp32 runs on
-// the CUDA cores, bf16 on the tensor cores with TMA loads; above 256 both
-// run the wide body (fp32 sums, d a loop over 64-column slices). Launches
-// nothing and returns cudaErrorInvalidValue unless d is 64, 96, 128, 256 or
-// a multiple of 64 up to repro_flash_attention_max_head_dim(), and
-// cudaErrorMisalignedAddress for bf16 operands of d <= 256 that TMA cannot
-// load (q, k and v 16-byte aligned, their strides multiples of 8 elements).
+// (REPRO_F32 or REPRO_BF16) is that of all four: fp32 runs on the CUDA
+// cores (FFMA), bf16 on the tensor cores with TMA loads; above d = 256 each
+// type has its wide body (bf16: O's columns in slices of 256 a CTA; fp32: O
+// in registers, cp.async stages). Launches nothing and returns
+// cudaErrorInvalidValue unless d is 64, 96, 128, 256 or a multiple of 64 up
+// to repro_flash_attention_max_head_dim(), and cudaErrorMisalignedAddress
+// for operands the loads cannot take: bf16 q, k and v, and above d = 256
+// also fp32 q, k, v and o, must be 16-byte aligned with strides in
+// multiples of 16 bytes.
 cudaError_t repro_flash_attention(const void* q, const void* k, const void* v,
                                   void* o, int dtype, int batch, int heads,
                                   int kv_heads, int sq, int skv, int d,
                                   const long long* strides, float scale,
                                   int causal, cudaStream_t stream);
 
-// K4's widest head dim above 256: the largest multiple of 64 whose tiles
-// (the wide body's fp32 accumulator of 64 rows x d beside three 64 x 68
-// tiles) fit the current device's opt-in shared memory of a block; 0 when
-// the device cannot be read.
+// K4's widest head dim above 256: the largest multiple of 64, up to 768,
+// whose tiles fit the current device's opt-in shared memory of a block in
+// both wide bodies (the bf16 body's resident 128-row query tile beside a
+// ring of at least 4 panels; the fp32 body's query tile, stages and P);
+// 0 when the device cannot be read.
 int repro_flash_attention_max_head_dim(void);
 
 // K5: y[b, h] = the decayed linear attention of q, k (s, dk), v (s, dv) and

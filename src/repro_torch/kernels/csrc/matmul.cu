@@ -62,12 +62,10 @@
 // bf16 inputs run the bf16 body on the tensor cores (matmul_bf16.cu:
 // wgmma on TMA tiles of 128 x 256), which repro_torch.linalg.matmul reaches
 // whenever its operands are bf16 (the dispatch hands every local product
-// to K1 in the operands' type).  Where TMA cannot load the operands (rows
-// or batch starts not 16-byte aligned, K = 0) they run the FFMA body
-// below instead (matmul_kernel: 128x128 tiles, BK = 8, staged through
-// registers, widened on load); the launcher reports which body ran, and
-// the wrapper counts the two apart.
-#include <cuda_bf16.h>
+// to K1 in the operands' type).  It is the one bf16 body: operands whose
+// rows or batch starts TMA cannot load are staged by the wrapper into
+// aligned buffers first, and K = 0 never reaches the launcher
+// (kernels/matmul/ops.py).
 #include <cuda_runtime.h>
 
 #include "kernels.h"
@@ -75,121 +73,9 @@
 
 namespace {
 
+// the only CTA tile a bf16 launch may request (the default)
 constexpr int BM = 128;
 constexpr int BN = 128;
-constexpr int BK = 8;
-constexpr int THREADS = 256;
-
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-using repro_k1::put;
-
-template <typename TI, typename TO>
-__global__ void __launch_bounds__(THREADS)
-    matmul_kernel(const TI* __restrict__ A, const TI* __restrict__ B,
-                  TO* __restrict__ C, int M, int N, int K, long long sa,
-                  long long lda, long long sb, long long ldb, long long sc,
-                  long long ldc) {
-  __shared__ __align__(16) float As[2][BK][BM];
-  __shared__ __align__(16) float Bs[2][BK][BN];
-
-  const long long z = blockIdx.z;
-  A += z * sa;
-  B += z * sb;
-  C += z * sc;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x;
-
-  // global -> shared: each thread moves 4 elements of the A slice (one row,
-  // 4 consecutive k) and 4 of the B slice (one k, 4 consecutive columns)
-  const int a_row = tid >> 1;
-  const int a_col = (tid & 1) * 4;
-  const int b_row = tid >> 5;
-  const int b_col = (tid & 31) * 4;
-  // register tile: rows ty*4 + {0..3} and 64 + ty*4 + {0..3}, same for cols
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-
-  float ra[4];
-  float rb[4];
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  auto load = [&](int k0) {
-    const int gr = m0 + a_row;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int gc = k0 + a_col + i;
-      ra[i] = (gr < M && gc < K) ? widen(A[gr * lda + gc]) : 0.f;
-    }
-    const int gk = k0 + b_row;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gc = n0 + b_col + j;
-      rb[j] = (gk < K && gc < N) ? widen(B[gk * ldb + gc]) : 0.f;
-    }
-  };
-  auto stage = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) As[buf][a_col + i][a_row] = ra[i];
-    *reinterpret_cast<float4*>(&Bs[buf][b_row][b_col]) =
-        make_float4(rb[0], rb[1], rb[2], rb[3]);
-  };
-
-  const int steps = (K + BK - 1) / BK;
-  load(0);
-  stage(0);
-  __syncthreads();
-  for (int t = 0; t < steps; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < steps) load((t + 1) * BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][kk][ty * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[buf][kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[buf][kk][tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&Bs[buf][kk][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    // the other buffer was last read before the previous barrier
-    if (t + 1 < steps) stage(buf ^ 1);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (row >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (col < N) put(&C[row * ldc + col], acc[i][j]);
-    }
-  }
-}
-
-template <typename TI, typename TO>
-void launch(const void* a, const void* b, void* c, int batch, int m, int n,
-            int k, long long sa, long long lda, long long sb, long long ldb,
-            long long sc, long long ldc, cudaStream_t stream) {
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, batch);
-  matmul_kernel<TI, TO><<<grid, THREADS, 0, stream>>>(
-      static_cast<const TI*>(a), static_cast<const TI*>(b),
-      static_cast<TO*>(c), m, n, k, sa, lda, sb, ldb, sc, ldc);
-}
 
 }  // namespace
 
@@ -210,18 +96,8 @@ extern "C" cudaError_t repro_matmul(const void* a, const void* b, void* c,
     // bf16 takes no plan: the default tile request alone
     if (tile_m != BM || tile_n != BN) return cudaErrorInvalidValue;
     const cudaError_t err = repro_k1::run_bf16(call);
-    if (err != cudaErrorMisalignedAddress) {
-      if (err == cudaSuccess) *body = REPRO_K1_BF16_TC;
-      return err;
-    }
-    if (out_type == REPRO_F32)
-      launch<__nv_bfloat16, float>(a, b, c, batch, m, n, k, sa, lda, sb, ldb,
-                                   sc, ldc, stream);
-    else
-      launch<__nv_bfloat16, __nv_bfloat16>(a, b, c, batch, m, n, k, sa, lda,
-                                           sb, ldb, sc, ldc, stream);
-    *body = REPRO_K1_BF16_FFMA;
-    return cudaSuccess;
+    if (err == cudaSuccess) *body = REPRO_K1_BF16_TC;
+    return err;
   }
   const cudaError_t err = repro_k1::with_tile(tile_m, tile_n, [&](auto cta) {
     using C = decltype(cta);

@@ -7,8 +7,9 @@
 // operands allow.  What bounds it: at 4096^3 the product is 2 n^3 = 137
 // GFLOP on 3 x 32 MB (bf16 in, fp32 out), far above the card's balance of
 // operations to bytes, so the bound is the tensor cores' 989 TFLOP/s
-// (0.139 ms).  The FFMA body (matmul.cu), which widens bf16 to fp32 on
-// load, runs at 3 % of that bound; the tensor cores are the one way to it.
+// (0.139 ms).  An FFMA body that widened bf16 to fp32 on load ran at 3 %
+// of that bound; the tensor cores are the one way to it, and this is K1's
+// one bf16 body.
 //
 // What the design does about it:
 //  - One CTA owns a 128 x 256 tile of C: two consumer warpgroups of 64
@@ -32,11 +33,15 @@
 //    for the previous group only (wgmma.wait_group 1), so the tensor cores
 //    always hold the next stage's products while a stage is freed.
 //  - TMA zero-fills the ragged edges of M, N and K, so every stage is a
-//    whole one.  It needs A's and B's rows (and batch starts) 16-byte
-//    aligned: K and N multiples of 8 elements.  Elsewhere (and at K = 0)
-//    the launcher returns cudaErrorMisalignedAddress and matmul.cu runs
-//    the FFMA body, counted apart (kernels/matmul/ops.py,
-//    launches_by_body).
+//    whole one.  It needs A's and B's starts 16-byte aligned and their row
+//    and batch strides multiples of 8 elements.  The wrapper stages an
+//    operand that is not so (K or N not a multiple of 8, a view at an odd
+//    column) into a buffer whose rows are rounded up to 8 elements
+//    (kernels/matmul/ops.py, tma_staged): O(MK + KN) bytes against the
+//    product's O(MNK) work, and the map's extents stay the logical K and
+//    N, so the padding is never read as data.  Given such an operand all
+//    the same, the launcher returns cudaErrorMisalignedAddress, which the
+//    binding raises; K = 0 is refused (the wrapper returns zeros itself).
 //  - The epilogue converts the fp32 accumulators once, to bf16 or fp32,
 //    and stores each thread's column pairs straight from registers: a
 //    warp's store covers 8 rows x 8 columns, whole 32-byte sectors of fp32
@@ -338,8 +343,8 @@ cudaError_t run_bf16(const Call& c) {
       static_cast<long long>((c.m + tc::BM - 1) / tc::BM) *
       ((c.n + tc::BN - 1) / tc::BN);
   if (tiles > INT_MAX) return cudaErrorInvalidValue;
+  if (c.k < 1) return cudaErrorInvalidValue;
   const bool aligned =
-      c.k > 0 &&
       ((reinterpret_cast<uintptr_t>(c.a) | reinterpret_cast<uintptr_t>(c.b)) &
        15) == 0 &&
       ((c.sa | c.lda | c.sb | c.ldb) & 7) == 0;

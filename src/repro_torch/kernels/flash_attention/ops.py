@@ -30,7 +30,8 @@ from .ref import flash_attention_ref
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the kernel is compiled for (csrc/flash_attention.cu); above
-#: the widest, the wide body takes multiples of 128 up to the device's limit
+#: the widest, the wide bodies take multiples of 128 up to the launcher's
+#: limit
 HEAD_DIMS = (64, 96, 128, 256)
 
 
@@ -64,17 +65,19 @@ def pad_head_dim(*ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
 
 def loadable(t: torch.Tensor) -> bool:
     """Whether K4 takes ``t`` as it lies: unit stride along D and, for the
-    bf16 body's TMA loads, a 16-byte aligned start and (batch, head, row)
-    strides that are multiples of 8 elements wherever the axis is longer
-    than 1."""
+    bf16 bodies' TMA loads and the wide fp32 body's 16-byte ``cp.async``
+    copies (D above 256), a 16-byte aligned start and (batch, head, row)
+    strides that are multiples of 16 bytes wherever the axis is longer than
+    1."""
     if t.stride(-1) != 1:
         return False
-    if t.dtype != torch.bfloat16:
+    if t.dtype != torch.bfloat16 and t.shape[-1] <= HEAD_DIMS[-1]:
         return True
     # the start's alignment from the storage offset: the allocator aligns
     # every storage's base, and a meta tensor has no address to read
+    vec = 16 // t.element_size()
     return (t.storage_offset() * t.element_size()) % 16 == 0 and all(
-        st % 8 == 0 for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1)
+        st % vec == 0 for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1)
 
 
 def flash_attention_flops(b: int, h: int, sq: int, skv: int, d: int,
@@ -127,12 +130,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scaled by D^-0.5; D zero-padded to :func:`padded_head_dim` and the
     output sliced back; operands the kernel cannot take as they lie (see
     :func:`loadable`) are copied first.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel (up to D = 256, fp32: the FFMA
-    body, bf16: the tensor-core body; above, the wide body in either type)
-    and meta tensors take its shape (a counted run), or they raise, also
-    (from the launcher, with the limit in the message) for a padded D
-    above the widest whose tiles fit the device's shared memory of a
-    block."""
+    version; CUDA tensors launch the kernel (fp32: an FFMA body, bf16: a
+    tensor-core body; above D = 256 each type's wide body) and meta tensors
+    take its shape (a counted run), or they raise, also (from the launcher,
+    with the limit in the message) for a padded D above the widest the
+    wide bodies take."""
     b, h, sq, d = q.shape
     _, kv, skv, _ = k.shape
     if all(t.device.type == "cpu" for t in (q, k, v)):

@@ -16,6 +16,7 @@ products in the same order, so the tile changes the time, not the bits.
 
 from __future__ import annotations
 
+import math
 from collections import Counter
 from typing import Optional, Tuple
 
@@ -36,9 +37,9 @@ DEFAULT_CTA_TILE = (128, 128)
 
 #: K1's bodies by the code the launcher reports (``csrc/kernels.h``): fp32
 #: inputs' FFMA body; bf16 inputs' tensor-core body (``csrc/
-#: matmul_bf16.cu``, wgmma on TMA tiles), and their FFMA body where TMA
-#: cannot load the operands (rows not 16-byte aligned, K = 0)
-BODIES = ("fp32", "bf16_wgmma", "bf16_ffma")
+#: matmul_bf16.cu``, wgmma on TMA tiles), which takes every bf16 operand
+#: (:func:`tma_staged` copies those TMA cannot load)
+BODIES = ("fp32", "bf16_wgmma")
 
 
 def _edge(block: int, most: int) -> int:
@@ -58,15 +59,45 @@ def cta_tile(tiles: Optional[TilePlan]) -> Tuple[int, int]:
     return _edge(tiles["bm"], 256), _edge(tiles["bn"], 128)
 
 
+def tma_loadable(x: torch.Tensor) -> bool:
+    """Whether K1's bf16 body loads the (batch, rows, cols) operand ``x`` as
+    it lies: a 16-byte aligned start, and row and batch strides that are
+    multiples of 8 elements (16 bytes; a batch stride of 0, one matrix
+    shared by the batch, is one).  The launcher's own test, from the
+    storage offset: the allocator aligns every storage's base."""
+    return ((x.storage_offset() * x.element_size()) % 16 == 0
+            and x.stride(0) % 8 == 0 and x.stride(1) % 8 == 0)
+
+
+def tma_staged(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (batch, rows, cols, unit column stride) as K1's bf16 body
+    loads it: ``x`` itself where :func:`tma_loadable`, else a copy into a
+    fresh buffer whose rows are ``cols`` rounded up to a multiple of 8
+    elements, viewed back to (batch, rows, cols), with a batch stride of
+    rows times that, or 0 where ``x`` shares one matrix across the batch.
+    The padding is never read as data: the tensor map's extents are the
+    logical ``cols`` and ``rows``."""
+    if tma_loadable(x):
+        return x
+    batch, rows, cols = x.shape
+    ld = -(-cols // 8) * 8
+    shared = x.stride(0) == 0
+    buf = torch.empty((1 if shared else batch, rows, ld), dtype=x.dtype,
+                      device=x.device)[..., :cols]
+    buf.copy_(x[:1] if shared else x)
+    return buf.expand(batch, rows, cols) if shared else buf
+
+
 def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
                 out_dtype: Optional[torch.dtype] = None,
                 tile: Tuple[int, int] = DEFAULT_CTA_TILE) -> torch.Tensor:
     """K1 (``csrc/matmul.cu``), the counterpart of the reference's
     ``matmul_pallas``: C = A @ B with fp32 accumulation, fp32 inputs at
     the CTA tile ``tile`` (one of :data:`CTA_TILES`), bf16 inputs on the
-    tensor cores (``tile`` the default; ``csrc/matmul_bf16.cu``), or on
-    their FFMA body where TMA cannot load them.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise."""
+    tensor cores (``tile`` the default; ``csrc/matmul_bf16.cu``), each
+    operand TMA cannot load staged first (:func:`tma_staged`).  CPU tensors
+    take the plain version; CUDA tensors launch the kernel or raise.  K = 0
+    gives zeros without a launch (none counted)."""
     out_dtype = out_dtype or a.dtype
     if a.device.type == "cpu" and b.device.type == "cpu":
         return matmul_ref(a, b, out_dtype=out_dtype)
@@ -82,9 +113,11 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
         raise ValueError(f"matmul: shapes {tuple(a.shape)} x "
                          f"{tuple(b.shape)} do not contract")
     batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    if k * m * n * math.prod(batch) == 0:
+        return torch.zeros((*batch, m, n), dtype=out_dtype, device=a.device)
     a3, b3 = as_batched(a, batch), as_batched(b, batch)
-    if a3.shape[0] * m * n == 0:
-        return torch.empty((*batch, m, n), dtype=out_dtype, device=a.device)
+    if a3.dtype == torch.bfloat16:
+        a3, b3 = tma_staged(a3), tma_staged(b3)
     with torch.cuda.device(a.device):
         out = launch_matmul(a3, b3, out_dtype, stream_of(a), tile)
     return out.reshape(*batch, m, n)
@@ -105,8 +138,9 @@ def launch_matmul(a3: torch.Tensor, b3: torch.Tensor,
     (also by the body the launcher ran, and the fp32 body's by tile), for
     operands that are already checked: (batch, m, k) and (batch, k, n) of
     one type the kernel takes, on the current CUDA device, unit column
-    stride.  The launcher refuses a tile it does not compile, and a bf16
-    launch at any tile but the default; it picks the bf16 body itself."""
+    stride; bf16 operands as :func:`tma_staged` gives them.  The launcher
+    refuses a tile it does not compile, a bf16 launch at any tile but the
+    default, and bf16 operands TMA cannot load."""
     batch, m, k = a3.shape
     n = b3.shape[-1]
     out = torch.empty((batch, m, n), dtype=out_dtype, device=a3.device)
@@ -130,7 +164,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
     ``tiles`` is a matmul :class:`TilePlan` (dims bm/bn/bk); its family is
     checked as the reference checks it, and :func:`cta_tile` maps it onto
     K1's CTA tile (the default when omitted).  bf16 inputs run K1's bf16
-    bodies, which take no plan, whatever the plan.
+    body, which takes no plan, whatever the plan.
     """
     out_dtype = out_dtype or a.dtype
     tile = cta_tile(tiles)

@@ -180,6 +180,40 @@ class TestMatmul:
                                    torch.bfloat16) for x in local)
         assert _rel(_np(got), want) < 2e-2
 
+    @pytest.mark.parametrize("case", ["300x700", "700x260",
+                                      "column offset 1", "odd batch stride",
+                                      "shared B", "aligned"])
+    def test_bf16_staging_for_tma(self, case):
+        # K1's bf16 body loads operands by TMA: a 16-byte aligned start and
+        # row and batch strides in multiples of 8 elements; the wrapper
+        # stages any other operand into such a buffer (the values equal,
+        # the logical shape kept) and passes a loadable one as it is
+        from repro_torch.kernels.matmul.ops import tma_loadable, tma_staged
+        rng = np.random.default_rng(22)
+
+        def bf16(*shape):
+            return torch.tensor(rng.standard_normal(shape),
+                                dtype=torch.float32).bfloat16()
+
+        x = {"300x700": lambda: bf16(1, 300, 700),
+             "700x260": lambda: bf16(1, 700, 260),
+             "column offset 1": lambda: bf16(1, 256, 257)[..., 1:],
+             "odd batch stride": lambda: bf16(3 * 21761).as_strided(
+                 (3, 160, 136), (21761, 136, 1)),
+             "shared B": lambda: bf16(256, 130).expand(4, 256, 130),
+             "aligned": lambda: bf16(2, 128, 64)}[case]()
+        assert tma_loadable(x) == (case == "aligned")
+        if case == "odd batch stride":
+            assert x.stride(0) % 2 == 1 and x.stride(1) % 8 == 0
+        got = tma_staged(x)
+        if case == "aligned":
+            assert got is x
+        assert got.shape == x.shape and torch.equal(got, x)
+        assert got.data_ptr() % 16 == 0 and tma_loadable(got)
+        assert got.stride(0) % 8 == 0 and got.stride(1) % 8 == 0
+        assert got.stride(-1) == 1
+        assert (got.stride(0) == 0) == (case == "shared B")
+
     def test_two_ctas_fit_an_sm(self):
         # each compiled CTA tile's ring fits the CTAs an SM its launch
         # bounds ask for (227 KB a CTA at most, 228 KB an SM with 1 KB

@@ -54,7 +54,8 @@ class TestFlashAttention:
     @pytest.mark.parametrize("b,h,kv,s,d,causal", [
         (2, 4, 2, 256, 64, True), (1, 8, 1, 384, 128, True),
         (2, 4, 4, 300, 64, False), (1, 2, 2, 64, 64, True),
-        (1, 6, 3, 256, 96, True),
+        (1, 6, 3, 256, 96, True), (1, 4, 2, 256, 320, True),
+        (1, 2, 1, 130, 512, False),
     ])
     def test_sweep(self, b, h, kv, s, d, causal):
         rng = np.random.default_rng(b * 1000 + h * 100 + s + d)
@@ -172,24 +173,26 @@ class TestFlashAttention:
         assert torch.equal(got[0], want)
 
 
-def _tensor_core_numerics(q, k, v, causal, bkv=128):
+def _tensor_core_numerics(q, k, v, causal, bkv=128, scale=None):
     """K4's bf16 body, its arithmetic in plain PyTorch on (B, H, S, D) bf16
     operands: fp32 products and sums of the bf16 values, key tiles of
-    ``bkv`` with a running max and sum, S scaled in fp32 after the product,
-    P rounded to bf16 before P V, l summed in fp32 from the unrounded P,
-    and the output divided by l and rounded to bf16 once."""
+    ``bkv`` with a running max and sum, S scaled in fp32 after the product
+    (by ``scale``, D^-0.5 when omitted), P rounded to bf16 before P V, l
+    summed in fp32 from the unrounded P, and the output divided by l and
+    rounded to bf16 once."""
     b, h, s, d = q.shape
+    scale = d ** -0.5 if scale is None else scale
     group = h // k.shape[1]
     qf = q.float()
     kf = k.float().repeat_interleave(group, 1)
     vf = v.float().repeat_interleave(group, 1)
     m = torch.full((b, h, s, 1), -1e30)
     l = torch.zeros(b, h, s, 1)
-    acc = torch.zeros(b, h, s, d)
+    acc = torch.zeros(b, h, s, v.shape[-1])
     rows = torch.arange(s)[:, None]
     for k0 in range(0, k.shape[2], bkv):
         sc = torch.einsum("bhqd,bhkd->bhqk", qf,
-                          kf[:, :, k0:k0 + bkv]) * d ** -0.5
+                          kf[:, :, k0:k0 + bkv]) * scale
         if causal:
             cols = k0 + torch.arange(sc.shape[-1])[None, :]
             sc = torch.where(rows >= cols, sc, -1e30)
@@ -201,6 +204,26 @@ def _tensor_core_numerics(q, k, v, causal, bkv=128):
             "bhqk,bhkd->bhqd", p.bfloat16().float(), vf[:, :, k0:k0 + bkv])
         m = m_new
     return (acc / torch.where(l == 0, 1.0, l)).bfloat16()
+
+
+def _wide_numerics(q, k, v, causal):
+    """K4's wide bf16 body, its arithmetic in plain PyTorch: the operands
+    zero-padded to a multiple of 128 columns (as the wrapper pads), scaled
+    by the true D^-0.5, and O's columns in slices of at most four 64-column
+    panels (the slices split as the launcher splits them), each slice's
+    key tiles of 64 recomputing S over every column, as the tensor-core body
+    does; the output's padding sliced off."""
+    d = q.shape[-1]
+    qp, kp, vp = pad_head_dim(q, k, v)
+    np_ = qp.shape[-1] // 64
+    slices = -(-np_ // 4)
+    cuts = [64 * (i * np_ // slices) for i in range(slices + 1)]
+    out = torch.cat([
+        _tensor_core_numerics(qp, kp, vp[..., lo:hi], causal, bkv=64,
+                              scale=d ** -0.5)
+        for lo, hi in zip(cuts, cuts[1:])], -1)
+    assert all(hi - lo <= 256 for lo, hi in zip(cuts, cuts[1:]))
+    return out[..., :d]
 
 
 def _row_err(got, want):
@@ -217,21 +240,26 @@ class TestTensorCoreNumerics:
     output (at most 2^-8 of a value, 3.9e-3) and P's rounding before P V
     (errors of either sign, about 1e-3 of a row's largest value) stay
     within the 8e-3 per row that the card's check allows, against the fp32
-    plain version and against the reference's jnp version."""
+    plain version and against the reference's jnp version; above D = 256
+    for the wide body too (64-key tiles, O in column slices each
+    recomputing S)."""
 
     @pytest.mark.parametrize("b,h,kv,s,d,causal", [
         (1, 4, 1, 512, 128, True), (2, 4, 4, 300, 64, False),
         (1, 6, 3, 256, 96, True), (1, 8, 1, 384, 128, True),
-        (1, 4, 2, 256, 256, True),
+        (1, 4, 2, 256, 256, True), (1, 4, 2, 256, 320, True),
+        (2, 2, 1, 200, 512, False), (1, 2, 2, 130, 640, True),
     ])
     def test_within_budget(self, b, h, kv, s, d, causal):
         rng = np.random.default_rng(b * 1000 + h * 100 + s + d + 5)
         q, k, v = (torch.tensor(rng.standard_normal((b, n, s, d)),
                                 dtype=torch.float32).bfloat16()
                    for n in (h, kv, kv))
-        # the D = 256 body walks the keys in tiles of 64
-        got = _tensor_core_numerics(q, k, v, causal, bkv=128 if d <= 128
-                                    else 64)
+        # the D = 256 body walks the keys in tiles of 64; above 256 the
+        # wide body's arithmetic
+        got = (_wide_numerics(q, k, v, causal) if d > 256 else
+               _tensor_core_numerics(q, k, v, causal,
+                                     bkv=128 if d <= 128 else 64))
         want = _ref4(q.float(), k.float(), v.float(), causal)
         jq, jk, jv = (jnp.asarray(t.float().reshape(-1, s, d).numpy())
                       for t in (q, k, v))
@@ -241,6 +269,19 @@ class TestTensorCoreNumerics:
         assert _row_err(_np(got).reshape(-1, s, d), jax_want) < 8e-3
         # the budget is spent: the emulation is not the fp32 result
         assert _row_err(_np(got), _np(want)) > 1e-4
+
+    def test_loadable_wide_fp32(self):
+        """Above D = 256 the fp32 body copies by 16-byte cp.async too: a
+        16-byte aligned start and strides in multiples of 4 floats."""
+        proj = torch.zeros(2, 256, 4 * 384)
+        heads = proj.unflatten(-1, (4, 384)).transpose(1, 2)
+        assert loadable(heads) and loadable(heads.contiguous())
+        wide = torch.zeros(2, 256, 4 * 384 + 2)
+        odd = wide[..., :4 * 384].unflatten(-1, (4, 384)).transpose(1, 2)
+        assert not loadable(odd)
+        assert loadable(odd[..., :256])      # the 256 body takes any stride
+        shifted = proj.flatten()[2:2 + 256 * 384].view(1, 1, 256, 384)
+        assert not loadable(shifted)
 
     def test_loadable(self):
         """Operands K4 takes as they lie, and those the wrapper copies
