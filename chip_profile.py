@@ -63,6 +63,21 @@ Usage, from the root of a checkout on a machine with a CUDA GPU:
         # beside its library call, by CUDA function; copied into an
         # unpacked checkout of another version it times that version's
         # bodies
+    python3 chip_profile.py --k4-f32
+        # the ptxas report of K4's source, K4's fp32 body at the paths'
+        # fp32 shapes (starcoder2-3b's prefill B 4, H 24, KV 2, S 4096, d
+        # 128; the fp32 checks' B 1, H 24, KV 2, S 2304; whisper-tiny's
+        # self-attention B 1, H 6, S 2304, d 64; B 1, H 16, KV 4, S 4096, d
+        # 256), causal, the heads transposed views of a projection, beside
+        # SDPA, by CUDA function (SDPA's backend by its kernels' names);
+        # copied into an unpacked checkout of another version it times that
+        # version's body
+    python3 chip_profile.py --k4-f32-designs
+        # K4's fp32 body at the same shapes at each tile its launcher
+        # picks among at that d (query rows a CTA, rows a thread, chunks
+        # of O), and the tile the launcher reports through the wrapper: the
+        # source built again with nvcc into a library beside a small entry
+        # point and called through ctypes, each against the plain version
 """
 
 from __future__ import annotations
@@ -124,11 +139,18 @@ def main() -> int:
     k1_only = "--k1-tiles" in sys.argv[1:]
     redesigned = "--k1-bf16-k6-bwd" in sys.argv[1:]
     k4_wide = "--k4-wide" in sys.argv[1:]
+    k4_f32 = "--k4-f32" in sys.argv[1:]
+    if "--k4-f32-designs" in sys.argv[1:]:
+        k4_f32_designs(torch, torch.Generator(device="cuda").manual_seed(0))
+        return 0
     ptxas_report(_build, only="matmul" if k1_only else
                  ("matmul_bf16", "slstm") if redesigned else
                  ("flash_attention", "matmul.cu", "matmul_bf16") if k4_wide
-                 else None)
+                 else "flash_attention" if k4_f32 else None)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if k4_f32:
+        k4_f32_device_times(torch, gen)
+        return 0
     if k4_wide:
         k4_wide_device_times(torch, gen)
         k1_staged_device_times(torch, gen)
@@ -650,6 +672,122 @@ def k4_wide_device_times(torch, gen) -> None:
                 flush=True)
             del q, k, v
             torch.cuda.empty_cache()
+
+
+# K4's fp32 shapes on the paths (chip_smoke.py §2's): (B, H, KV, S, D, reps)
+K4_F32 = ((4, 24, 2, 4096, 128, 3), (1, 24, 2, 2304, 128, 10),
+          (1, 6, 6, 2304, 64, 20), (1, 16, 4, 4096, 256, 5))
+
+
+def k4_f32_device_times(torch, gen) -> None:
+    """Device time per call of K4 on fp32 operands at the paths' shapes
+    (causal; q, k and v the heads of (B, S, heads * D) projections, as the
+    prefill hands them over), and of SDPA's on the same inputs, each split
+    by CUDA function; the K4 bodies that ran (``launches_by_body``, where
+    the version counts them); one JSON line each."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention_cuda
+    for b, h, kv, s, d, reps in K4_F32:
+        q, k, v = (torch.randn(b, s, n, d, device="cuda",
+                               generator=gen).transpose(1, 2)
+                   for n in (h, kv, kv))
+        bodies = dict(getattr(flash_attention_cuda, "launches_by_body", {}))
+        kernel = by_function(torch, lambda: flash_attention_cuda(
+            q, k, v, causal=True), reps)
+        ran = {n: c - bodies.get(n, 0) for n, c in
+               getattr(flash_attention_cuda, "launches_by_body", {}).items()
+               if c != bodies.get(n, 0)}
+        print(json.dumps({
+            "kernel": "K4 flash_attention", "dtype": "float32",
+            "shape": [b, h, kv, s, d], "causal": True,
+            "layout": "heads of a projection", "body": ran, **kernel,
+            "library": by_function(
+                torch, lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True), reps)}),
+            flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
+# the tiles of K4's fp32 body (csrc/flash_attention_f32.cu,
+# flash_f32_kernel<BQ, TR, NCH>) that its launcher picks among at each d
+K4_F32_DESIGNS = {128: ((128, 8, 1), (64, 4, 4)),
+                  64: ((128, 8, 1), (64, 4, 4)),
+                  256: ((64, 8, 1), (64, 4, 4), (32, 4, 3))}
+K4_F32_ENTRY = """#include "%s"
+extern "C" cudaError_t k4_f32_design(
+    const void* q, const void* k, const void* v, void* o, int batch,
+    int heads, int kv_heads, int sq, int skv, int d, const long long* st,
+    float scale, int causal, int bq, int tr, int nch, cudaStream_t stream) {
+%s  return cudaErrorInvalidValue;
+}
+"""
+
+
+def k4_f32_designs(torch, gen, reps: int = 3) -> None:
+    """Device time per call of K4's fp32 body at the paths' fp32 shapes
+    (K4_F32) at each tile of K4_F32_DESIGNS, its largest error per row
+    against the plain version, and the tile the launcher reports through
+    the wrapper; one JSON line a shape."""
+    import ctypes
+    from repro_torch.kernels import _build, flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ops import _ref4
+    from torch.utils.cpp_extension import CUDA_HOME
+    out = os.path.join(HERE, "build", "profile_k4")
+    os.makedirs(out, exist_ok=True)
+    calls = "".join(
+        f"  if (bq == {bq} && tr == {tr} && nch == {nch}) return "
+        f"launch_at<{bq}, {tr}, {nch}>(q, k, v, o, batch, heads, kv_heads, "
+        "sq, skv, d, st, scale, causal, stream);\n"
+        for bq, tr, nch in sorted({c for cs in K4_F32_DESIGNS.values()
+                                   for c in cs}))
+    src = os.path.join(out, "designs.cu")
+    with open(src, "w") as f:
+        f.write(K4_F32_ENTRY % (os.path.join(_build.CSRC,
+                                             "flash_attention_f32.cu"),
+                                calls))
+    lib_path = os.path.join(out, "designs.so")
+    subprocess.run([os.path.join(CUDA_HOME, "bin", "nvcc"),
+                    *_build.CUDA_FLAGS, "-shared", "-Xcompiler", "-fPIC",
+                    "-I", _build.CSRC, "-o", lib_path, src], check=True)
+    lib = ctypes.CDLL(lib_path)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.k4_f32_design.argtypes = [vp] * 4 + [ci] * 6 + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float] + [ci] * 4 + [vp]
+    for b, h, kv, s, d, _ in K4_F32:
+        q, k, v = (torch.randn(b, s, n, d, device="cuda",
+                               generator=gen).transpose(1, 2)
+                   for n in (h, kv, kv))
+        want = _ref4(q, k, v, True)
+        o = torch.empty(b, h, s, d, device="cuda")
+        st = (ctypes.c_longlong * 12)(*[x for t in (q, k, v, o)
+                                        for x in t.stride()[:3]])
+        designs = {}
+        for bq, tr, nch in K4_F32_DESIGNS[d]:
+            def call(bq=bq, tr=tr, nch=nch):
+                err = lib.k4_f32_design(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    b, h, kv, s, s, d, st, d ** -0.5, 1, bq, tr, nch,
+                    torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"k4_f32_design: error {err}")
+            call()
+            torch.cuda.synchronize()
+            e = (o - want).abs().amax(-1) / want.abs().amax(-1).clamp(
+                min=1e-30)
+            designs[f"{bq}x{tr}x{nch}"] = {
+                "max_rel_err": float(e.max()),
+                "device_ms": by_function(torch, call, reps)["device_ms"]}
+        before = dict(flash_attention_cuda.launches_by_body)
+        flash_attention_cuda(q, k, v, causal=True)
+        chosen = [n for n, c in flash_attention_cuda.launches_by_body.items()
+                  if c != before.get(n, 0)]
+        print(json.dumps({
+            "kernel": "K4 flash_attention fp32 designs",
+            "shape": [b, h, kv, s, d], "causal": True,
+            "launcher_chose": chosen, "designs": designs}), flush=True)
+        del q, k, v, o, want
+        torch.cuda.empty_cache()
 
 
 def k1_staged_device_times(torch, gen, reps: int = 20) -> None:

@@ -318,6 +318,18 @@ TILE_LAUNCHES = {}
 #: K1's launches by body in §3's bf16 call: the kernels line gives each
 #: bf16 entry its body's count
 BODY_LAUNCHES = {}
+#: K4's launches by body (flash_attention_cuda.launches_by_body, the body
+#: the launcher reported) in §5's cold prefills, §6's checks and §13's
+#: ranks: the kernels line gives them under keys that name that scope, as
+#: its ``launches`` counts other runs
+K4_BODY_LAUNCHES = {}
+#: the fp32 tile K4's launcher must report at the paths' fp32 shapes in §2,
+#: (B, H, KV, S, D): the fastest of the kept tiles at each (PERF.md's
+#: kernel table; ``chip_profile.py --k4-f32-designs``)
+K4_F32_PATH_TILES = {(4, 24, 2, 4096, 128): "fp32_128x8x1",
+                     (1, 24, 2, 2304, 128): "fp32_128x8x1",
+                     (1, 6, 6, 2304, 64): "fp32_64x4x4",
+                     (1, 16, 4, 4096, 256): "fp32_64x8x1"}
 
 
 class SmokeFailure(Exception):
@@ -327,6 +339,22 @@ class SmokeFailure(Exception):
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
+
+
+def on_body(name, family: str) -> bool:
+    """Whether K4's launcher reported a body of ``family``: ``fp32`` (any
+    of its tiles, ``fp32_<rows>x<rows a thread>x<chunks>``) or one bf16
+    body by its name."""
+    if name is None:
+        return False
+    return name.startswith("fp32_") if family == "fp32" else name == family
+
+
+def k4_bodies_are(bodies: dict, k4: int, family: str) -> bool:
+    """Whether ``bodies`` (launches by body) holds ``k4`` launches, all on
+    bodies of ``family`` (:func:`on_body`)."""
+    return sum(bodies.values()) == k4 and all(
+        on_body(n, family) for n, c in bodies.items() if c)
 
 
 def emit(obj) -> None:
@@ -406,7 +434,11 @@ def main() -> int:
         if "cta_tile" in entry:
             entry["launches_at_tile"] = TILE_LAUNCHES.get(
                 tuple(entry["cta_tile"]), 0)
-        if entry.get("body", "").startswith("bf16"):
+        if entry["wrapper"] == "flash_attention_cuda":
+            entry["launches_by_body_s5_s6_s13"] = dict(K4_BODY_LAUNCHES)
+            entry["launches_of_body_s5_s6_s13"] = K4_BODY_LAUNCHES.get(
+                entry["body"], 0)
+        elif entry.get("body", "").startswith("bf16"):
             entry["launches_of_body"] = BODY_LAUNCHES.get(entry["body"], 0)
     emit({"sections_s": walls})
     emit({"script_s": time.perf_counter() - t_start})
@@ -675,12 +707,16 @@ def lm_kernel_checks(torch):
     each head dim), at head dims 16, 80 and 160 (zero-padded to 64, 96 and
     256 by the wrapper), at 256, at 320 (padded to 384) and 512 (the wide
     bodies; also at the ragged S 300, non-causal with B 2 and causal), at a
-    prefill's B 1, H 16, KV 4, S 4096, causal, at 320, 512 and 640 (each
-    plain version once), and its launcher's and wrapper's refusal of a head
-    dim above the widest the wide bodies take; K5 at hymba-1.5b's SSD
-    shape, at xlstm-350m's 256 x 257 mLSTM state (v with the normaliser's
-    ones column), at the widest state the reference tests and at small
-    ragged shapes, and its launcher's refusal
+    prefill's B 1, H 16, KV 4, S 4096, causal, at 320, 512 and 640, in fp32
+    at the paths' shapes (starcoder2-3b's prefill B 4, H 24, KV 2, S 4096,
+    D 128; the fp32 checks' S 2304; whisper-tiny's B 1, H 6, S 2304, D 64;
+    B 1, H 16, KV 4, S 4096, D 256; the plain version once at S 4096), each
+    entry naming the body the launcher reported (at the paths' fp32 shapes
+    gated to the tile :data:`K4_F32_PATH_TILES` names), and its launcher's
+    and wrapper's refusal of a head dim above the widest the wide bodies
+    take; K5 at hymba-1.5b's SSD shape, at xlstm-350m's 256 x 257 mLSTM
+    state (v with the normaliser's ones column), at the widest state the
+    reference tests and at small ragged shapes, and its launcher's refusal
     of dk = 257; K6 and its backward (:func:`k6_checks`).  The path's
     shapes take the path's layouts: the heads as transposed views of the
     projections.  The error is taken per output row, relative to the row's
@@ -692,6 +728,7 @@ def lm_kernel_checks(torch):
     import torch.nn.functional as F
     from repro_torch.kernels import _build, flash_attention_cuda, ssm_scan_cuda
     from repro_torch.kernels.flash_attention.ops import _ref4 as flash_ref
+    from repro_torch.kernels.flash_attention.ops import padded_head_dim
     from repro_torch.kernels.ssm_scan.ops import _ref4 as scan_ref
     from repro_torch.kernels.ssm_scan.ops import ssm_scan_workspace
     dev = torch.device("cuda")
@@ -734,7 +771,11 @@ def lm_kernel_checks(torch):
             (1, 4, 2, 256, 512, True, fp32, False, 10),
             (1, 16, 4, 4096, 320, True, fp32, False, 5),
             (1, 16, 4, 4096, 512, True, fp32, False, 5),
-            (1, 16, 4, 4096, 640, True, fp32, False, 5)):
+            (1, 16, 4, 4096, 640, True, fp32, False, 5),
+            (4, 24, 2, 4096, 128, True, fp32, True, 5),
+            (1, 24, 2, 2304, 128, True, fp32, True, 10),
+            (1, 6, 6, 2304, 64, True, fp32, True, 10),
+            (1, 16, 4, 4096, 256, True, fp32, True, 5)):
         if path:
             q = heads_view(torch, b, h, s, d, gen, dt)
             k = heads_view(torch, b, kv, s, d, gen, dt)
@@ -745,13 +786,27 @@ def lm_kernel_checks(torch):
             v = torch.randn(b, kv, s, d, device=dev, generator=gen).to(dt)
         pairs = s * (s + 1) // 2 if causal else s * s
         isz = q.element_size()
+        before = dict(flash_attention_cuda.launches_by_body)
+        got = flash_attention_cuda(q, k, v, causal=causal)
+        ran = [n for n, c in flash_attention_cuda.launches_by_body.items()
+               if c != before.get(n, 0)]
+        body = ran[0] if len(ran) == 1 else None
+        if dt == fp32:
+            want = K4_F32_PATH_TILES.get((b, h, kv, s, d) if path else None)
+            ok = body == want if want else on_body(body, "fp32")
+        else:
+            want = "bf16_wgmma" + ("_wide" if padded_head_dim(d) > 256
+                                   else "")
+            ok = body == want
+        check(ok, f"K4 {dt} B{b} H{h} S{s} d {d}: bodies {ran} ran"
+              + (f", not {want}" if want else ""))
         entry(f"K4 flash_attention B{b} H{h} KV{kv} S{s} D{d} "
               f"{'causal' if causal else 'full'} {str(dt)[6:]}",
               "flash_attention_cuda",
-              "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "src/repro_torch/kernels/csrc/flash_attention"
+              + ("_f32.cu" if dt == fp32 else ".cu"),
               "src/repro/kernels/flash_attention/flash_attention.py:95",
-              [b, h, kv, s, d],
-              flash_attention_cuda(q, k, v, causal=causal),
+              [b, h, kv, s, d], got,
               flash_ref(q.float(), k.float(), v.float(), causal),
               8e-3 if dt == bf16 else 1e-5,
               lambda q=q, k=k, v=v, c=causal: flash_attention_cuda(
@@ -763,9 +818,10 @@ def lm_kernel_checks(torch):
               reps, 4.0 * b * h * d * pairs,
               PEAK_BF16 if dt == bf16 else PEAK_FP32,
               2 * (b * h + b * kv) * s * d * isz,
-              plain_reps=1 if d > 256 and s >= 4096 else 2,
-              layout="heads of a projection" if path else "contiguous")
-        del q, k, v
+              plain_reps=1 if s >= 4096 else 2,
+              layout="heads of a projection" if path else "contiguous",
+              extra={"body": body})
+        del q, k, v, got
         torch.cuda.empty_cache()
 
     k4_refuses_head_dim(torch, flash_attention_cuda)
@@ -1501,7 +1557,7 @@ def prefill_path(torch):
         torch.cuda.synchronize()
         weights_peak = torch.cuda.max_memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        calls = []
+        calls, bodies = [], None
         for _ in ("cold", "warm"):
             kernels.reset_launches()
             t0 = time.perf_counter()
@@ -1509,7 +1565,10 @@ def prefill_path(torch):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             calls.append((wall, kernels.launches(), logits))
+            if not bodies:
+                bodies = dict(kernels.flash_attention_cuda.launches_by_body)
         (cold, cold_counts, logits), (warm, warm_counts, warm_logits) = calls
+        add_counts(K4_BODY_LAUNCHES, bodies)
         tokens_n = PREFILL_BATCH * PREFILL_LEN
         finite = bool(torch.isfinite(logits).all())
         line = {"prefill": arch, "dtype": cfg.dtype, "batch": PREFILL_BATCH,
@@ -1522,6 +1581,7 @@ def prefill_path(torch):
                 "max_memory_allocated": torch.cuda.max_memory_allocated(),
                 "max_memory_allocated_init": weights_peak,
                 "launches_cold": cold_counts, "launches_warm": warm_counts,
+                "k4_launches_by_body_cold": bodies,
                 "logits_shape": list(logits.shape), "logits_finite": finite,
                 "argmax": logits[:, -1].argmax(-1).tolist()}
         if cut:
@@ -1652,6 +1712,8 @@ def prefill_against_cpu(torch):
             got = step(net, tokens, **stubs)
             torch.cuda.synchronize()
         counts = kernels.launches()
+        bodies = dict(kernels.flash_attention_cuda.launches_by_body)
+        add_counts(K4_BODY_LAUNCHES, bodies)
         t0 = time.perf_counter()
         with RoutingLog() as cpu_routes:
             want = step(net_cpu, tokens.cpu(),
@@ -1667,7 +1729,7 @@ def prefill_against_cpu(torch):
                 "prompt_len": CHECK_LEN, "config_changes": changes,
                 "max_abs_err": abs_err, "max_rel_err": rel_err, "tol": tol,
                 "argmax_card_cpu": argmax, "launches": counts,
-                "cpu_s": cpu_s}
+                "k4_launches_by_body": bodies, "cpu_s": cpu_s}
         if cfg.moe:
             line["routing_card_vs_cpu"] = routing_differences(
                 card_routes.calls, cpu_routes.calls)
@@ -1679,6 +1741,10 @@ def prefill_against_cpu(torch):
         for name, n in want_counts.items():
             check(counts[name] == n, f"prefill vs cpu {arch} {dtype}: "
                   f"{name} launched {counts[name]} times, not {n}")
+        k4 = counts["flash_attention_cuda"]
+        family = "fp32" if dtype == "float32" else "bf16_wgmma"
+        check(k4_bodies_are(bodies, k4, family),
+              f"prefill vs cpu {arch} {dtype}: K4 bodies {bodies}")
         check(rel_err < tol, f"prefill vs cpu {arch} {dtype}: rel err "
               f"{rel_err:.3e}")
         if dtype == "float32":
@@ -3665,14 +3731,21 @@ def path_unsharded(torch):
     return layers, est, walls, peak
 
 
-def check_k4(rs, tag):
-    """K4 launched in every rank of ``rs``, its plain version on no CUDA
-    tensor; returns the ranks' launches summed."""
+def check_k4(rs, tag, family):
+    """K4 launched in every rank of ``rs``, every launch on a body of
+    ``family`` (:func:`on_body`), its plain version on no CUDA tensor;
+    returns the ranks' launches summed."""
     totals = {}
+    emit({"k4_bodies": tag, "by_rank": [r["k4_by_body"] for r in rs]})
     for rank, r in enumerate(rs):
         check(r["on_card"], f"{tag}: a rank's tensors left the card")
         check(r["launches"]["flash_attention_cuda"] > 0,
               f"{tag}: K4 never launched in rank {rank}")
+        k4 = r["launches"]["flash_attention_cuda"]
+        check(k4_bodies_are(r["k4_by_body"], k4, family), f"{tag}: K4 "
+              f"bodies {r['k4_by_body']} in rank {rank}, not {family} "
+              "alone")
+        add_counts(K4_BODY_LAUNCHES, r["k4_by_body"])
         check(r["k4_plain"] == 0, f"{tag}: K4's plain version ran on the "
               f"card in rank {rank}")
         add_counts(totals, r["launches"])
@@ -3707,7 +3780,7 @@ def exact_report(rs, shape, want_losses):
     check(errs[worst] < SHARD_PARAM_TOL,
           f"§13.1 {tag}: {worst} rel err {errs[worst]:.3e}")
     check(all(r["leaves_match"] for r in rs), f"§13.1 {tag}: leaves differ")
-    return check_k4(rs, f"§13.1 {tag}")
+    return check_k4(rs, f"§13.1 {tag}", "fp32")
 
 
 def path_report(rs, layers, est, whole_walls, whole_peak):
@@ -3733,7 +3806,7 @@ def path_report(rs, layers, est, whole_walls, whole_peak):
               f"§13.2: non-finite loss {r['losses']}")
     check(max(peaks) < whole_peak, f"§13.2: a rank's peak {max(peaks)} is "
           f"not below the unsharded run's {whole_peak}")
-    return check_k4(rs, "§13.2")
+    return check_k4(rs, "§13.2", "bf16_wgmma")
 
 
 def pods_report(rs):
@@ -3889,6 +3962,7 @@ def shard_rank_exact(torch, mesh, want_file, cfg=None):
             losses.append(float(tr.train_step(rows)["loss"]))
             walls.append(time.perf_counter() - t0)
     counts = kernels.launches()
+    bodies = dict(kernels.flash_attention_cuda.launches_by_body)
     stats = collective_stats()
     t0 = time.perf_counter()
     errs, leaves_match = block_errors(torch, tr, want_file)
@@ -3903,7 +3977,8 @@ def shard_rank_exact(torch, mesh, want_file, cfg=None):
                  tuple(p.shape)) for n, p in tr.net.named_parameters()
              if n.rsplit(".", 1)[-1] in ("w_up", "w_gate", "w_down")}
     return {"losses": losses, "launches": counts, "k4_plain": plain.calls,
-            "on_card": on_card(tr), "init_s": init_s, "step_wall_s": walls,
+            "k4_by_body": bodies, "on_card": on_card(tr),
+            "init_s": init_s, "step_wall_s": walls,
             "collectives": stats, "errs": errs, "leaves_match": leaves_match,
             "compare_s": time.perf_counter() - t0,
             "model_gathers": gathers.shapes, "banks": banks,
@@ -3941,6 +4016,7 @@ def shard_rank_path(torch, mesh, layers):
             "peak_reserved": torch.cuda.max_memory_reserved(),
             "init_s": init_s,
             "launches": kernels.launches(), "k4_plain": plain.calls,
+            "k4_by_body": dict(kernels.flash_attention_cuda.launches_by_body),
             "on_card": on_card(tr)}
 
 
@@ -4064,7 +4140,7 @@ def ep_report(rs, shape, want_losses):
     check(modes == ["ep"], f"§13.5 {tag}: bank modes {modes}")
     check(bank_gathers == 0, f"§13.5 {tag}: {bank_gathers} all-gathers "
           f"over model of an expert bank's block")
-    return check_k4(rs, f"§13.5 {tag}")
+    return check_k4(rs, f"§13.5 {tag}", "fp32")
 
 
 def materialise(torch, net, mesh, seed):
@@ -4148,6 +4224,7 @@ def arctic_rank(torch, mesh):
            "logits_shape": tuple(logits.shape), "bank_modes": modes,
            "bank_gathers": sum(g in banks for g in gathers.shapes),
            "launches": kernels.launches(), "k4_plain": plain.calls,
+           "k4_by_body": dict(kernels.flash_attention_cuda.launches_by_body),
            "on_card": all(p.is_cuda for p in net.parameters())}
     del net, logits
     return out
@@ -4176,7 +4253,7 @@ def arctic_report(rs):
           f"§13.5 arctic: bank modes {rs[0]['bank_modes']}")
     check(all(r["bank_gathers"] == 0 for r in rs),
           "§13.5 arctic: an expert bank gathered over model")
-    return check_k4(rs, "§13.5 arctic")
+    return check_k4(rs, "§13.5 arctic", "bf16_wgmma")
 
 
 def mesh_decode_tokens(cfg):
@@ -4447,6 +4524,7 @@ def profile_rank(torch, world_mesh, root, runs):
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         counts = kernels.launches()
+        bodies = dict(kernels.flash_attention_cuda.launches_by_body)
         stats = collective_stats()
         errs, leaves_match = block_errors(torch, tr, want_file)
         tp_leaves = {n: p for n, p in tr.net.named_parameters()
@@ -4465,7 +4543,7 @@ def profile_rank(torch, world_mesh, root, runs):
                     "leaves_match": leaves_match,
                     "peak": torch.cuda.max_memory_allocated(),
                     "step_wall_s": walls, "launches": counts,
-                    "k4_plain": plain.calls,
+                    "k4_plain": plain.calls, "k4_by_body": bodies,
                     "k6_plain": sum(plain_k6.calls.values()),
                     "bytes_by_kind": stats["bytes_by_kind"],
                     "calls_by_kind": stats["calls_by_kind"],
@@ -4523,6 +4601,7 @@ def profiles_report(rs, root, runs=PROFILE_RUNS, section="13.7"):
               "launches_by_rank": [{k: x["launches"][k] for k in need}
                                    for x in a],
               "k4_plain_on_cuda_by_rank": [x["k4_plain"] for x in a],
+              "k4_launches_by_body_by_rank": [x["k4_by_body"] for x in a],
               "k6_plain_on_cuda_by_rank": [x["k6_plain"] for x in a]})
         check(loss_err < SHARD_LOSS_TOL, f"{tag}: loss rel err "
               f"{loss_err:.3e}")
@@ -4544,6 +4623,10 @@ def profiles_report(rs, root, runs=PROFILE_RUNS, section="13.7"):
                       f"{tag}: {k} never launched in rank {rank}")
             check(x["k4_plain"] == 0 and x["k6_plain"] == 0,
                   f"{tag}: a plain version ran on the card in rank {rank}")
+            k4 = x["launches"]["flash_attention_cuda"]
+            check(k4_bodies_are(x["k4_by_body"], k4, "fp32"),
+                  f"{tag}: K4 bodies {x['k4_by_body']} in rank {rank}")
+            add_counts(K4_BODY_LAUNCHES, x["k4_by_body"])
             add_counts(totals, x["launches"])
     return totals
 

@@ -27,12 +27,13 @@ LAUNCH_COUNTED = (matmul_cuda, trsm_diag_cuda, cholesky_block_cuda,
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0 (K1's by body and tile
-    too)."""
+    """Set every kernel's launch count to 0 (K1's by body and tile, K4's
+    by body too)."""
     for fn in LAUNCH_COUNTED:
         fn.launches = 0
     matmul_cuda.launches_by_body.clear()
     matmul_cuda.launches_by_tile.clear()
+    flash_attention_cuda.launches_by_body.clear()
 
 
 def launches() -> dict:

@@ -98,20 +98,21 @@ void cholesky_block(i64 a, i64 l, int batch, int nb, i64 sa, i64 lda, i64 sl,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// Raises, having launched nothing, for a head dim other than 64, 96, 128,
-// 256 or a multiple of 64 up to the widest the wide bodies take on this
-// device (the message states it), and for operands the loads cannot take
-// (bf16; above d = 256 fp32 too).
-void flash_attention(i64 q, i64 k, i64 v, i64 o, int dtype, int batch,
-                     int heads, int kv_heads, int sq, int skv, int d,
-                     std::vector<i64> strides, double scale, bool causal,
-                     i64 stream) {
+// Returns the body that ran (kernels.h: REPRO_K4_*).  Raises, having
+// launched nothing, for a head dim other than 64, 96, 128, 256 or a
+// multiple of 64 up to the widest the wide bodies take on this device (the
+// message states it), and for operands the loads cannot take.
+int flash_attention(i64 q, i64 k, i64 v, i64 o, int dtype, int batch,
+                    int heads, int kv_heads, int sq, int skv, int d,
+                    std::vector<i64> strides, double scale, bool causal,
+                    i64 stream) {
   TORCH_CHECK(strides.size() == 12, "flash_attention: 12 strides");
+  int body = -1;
   const cudaError_t err = repro_flash_attention(
       ptr<const void>(q), ptr<const void>(k), ptr<const void>(v),
       ptr<void>(o), dtype, batch, heads, kv_heads, sq, skv, d,
       reinterpret_cast<const long long*>(strides.data()),
-      static_cast<float>(scale), causal ? 1 : 0, as_stream(stream));
+      static_cast<float>(scale), causal ? 1 : 0, &body, as_stream(stream));
   if (err == cudaErrorInvalidValue) {
     // formatted here and passed as one C string: TORCH_CHECK's own
     // formatting of several arguments crashes in this extension
@@ -125,11 +126,11 @@ void flash_attention(i64 q, i64 k, i64 v, i64 o, int dtype, int batch,
     TORCH_CHECK(false, what);
   }
   TORCH_CHECK(err != cudaErrorMisalignedAddress,
-              "flash_attention: q, k and v (bf16, or any type above head "
-              "dim 256) must be 16-byte aligned, with strides that are "
-              "multiples of 16 bytes");
+              "flash_attention: q, k and v (fp32: and o) must be 16-byte "
+              "aligned, with strides that are multiples of 16 bytes");
   TORCH_CHECK(err == cudaSuccess, cudaGetErrorString(err));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return body;
 }
 
 i64 ssm_scan_workspace(int batch, int heads, int s, int dk, int dv) {
@@ -276,7 +277,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("cholesky_block", &cholesky_block,
         "K3: batched Cholesky factor of one SPD block");
   m.def("flash_attention", &flash_attention,
-        "K4: GQA forward attention with an online softmax");
+        "K4: GQA forward attention with an online softmax; returns the "
+        "body run");
   m.def("ssm_scan_workspace", &ssm_scan_workspace,
         "K5: fp32 workspace floats a call needs");
   m.def("ssm_scan", &ssm_scan, "K5: chunked decayed linear attention");

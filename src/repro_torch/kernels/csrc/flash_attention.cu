@@ -1,6 +1,9 @@
-// K4: forward GQA attention with an online softmax, in two bodies chosen by
-// the operands' type: fp32 on the CUDA cores (FFMA), bf16 on the tensor
-// cores (wgmma) with tiles loaded by the Tensor Memory Accelerator (TMA).
+// K4: forward GQA attention with an online softmax, in bodies chosen by the
+// operands' type: fp32 on the CUDA cores (IEEE FFMA; flash_attention_f32.cu
+// holds that body and its note), bf16 on the tensor cores (wgmma) with
+// tiles loaded by the Tensor Memory Accelerator (TMA), with a wide body of
+// each type above head dim 256. This file holds the launcher and the bf16
+// bodies.
 //
 // Replaces the reference package's Pallas flash kernel
 // (src/repro/kernels/flash_attention/flash_attention.py,
@@ -15,24 +18,6 @@
 // prefill's shapes (S = 4096, D = 128) it is far above the card's
 // operations-per-byte balance and bound by operations: 989 TFLOP/s for bf16
 // operands on the tensor cores, 67 TFLOP/s of fp32 FFMA.
-//
-// fp32 body (flash_kernel): IEEE fp32 throughout, as the repo's fp32 rule
-// wants; the tensor cores take fp32 only as TF32. One CTA of 256 threads
-// owns a 64-row query tile of one (batch, head) and walks the key/value rows
-// in tiles of 64. The TPU kernel's sequential kv grid axis becomes this
-// loop; its plan blocks (bq/bkv) are VMEM choices and set nothing here.
-// Tiles wholly above the causal diagonal are never visited, which halves the
-// work at Sq = Skv, and the CTAs with the longest causal rows are scheduled
-// first. The query tile (scaled in fp32 after widening, as the reference
-// scales) and the key tile sit transposed in shared memory so that each
-// thread reads float4 rows of both: a thread owns a 4x4 block of scores and
-// does 16 FFMAs per two shared loads. The scores' row max and sum are
-// reduced over the 16 threads of a row with warp shuffles; the
-// probabilities go through shared memory (transposed) into the P.V product,
-// where a thread owns 4 rows x D/16 columns of the accumulator. The value
-// tile reuses the key tile's buffer, so a CTA needs 85 KB at D = 128 and two
-// CTAs fit an SM (153 KB and one CTA at D = 256). Ragged edges are
-// zero-filled on load and masked on store.
 //
 // bf16 body (flash_tc_kernel): bf16 operands on the tensor cores with fp32
 // sums, the arithmetic the TPU's MXU gives the reference at its default
@@ -64,7 +49,7 @@
 //
 // wide bodies: head dims above 256, which the reference takes by padding D
 // to a multiple of 128 and no config uses; the launcher takes multiples of
-// 64 up to 768 (the widest whose tiles fit both bodies on an H100).
+// 64 up to 768 (the widest whose tiles fit both types' bodies on an H100).
 //  - bf16 (tc::flash_tc_wide_kernel): the tensor-core body's structure
 //    (TMA, mbarriers, two consumer warpgroups of 64 query rows, the softmax
 //    on ex2 in the accumulator's layout, P rounded to bf16 once), with a
@@ -82,213 +67,23 @@
 //    stays in shared memory; K's and V's 64-row panels stream through a
 //    ring of 4 to 8 slots of 8 KB, each freed once the products that read
 //    it are done (wgmma.wait_group 1), so loads run ahead of the products.
-//  - fp32 (wide_f32::flash_f32_wide_kernel): IEEE FFMA, O in registers. A
-//    CTA of 256 threads owns 64 query rows (32 above D 512, and where 64
-//    would give fewer CTAs than SMs), all of D: a
-//    thread holds 4 rows x 8 columns of every tile it computes, 128 fp32
-//    registers of O at D 512. Q, scaled, is loaded into shared memory once;
-//    K's and V's slices (16 KB-class stages of 16-byte cp.async copies,
-//    zero-filled past the edges) go through a double buffer, so the next
-//    stage's copies overlap this stage's FFMAs, one barrier a stage. The
-//    scores take key tiles of 128 (256) keys so that the thread tile is
-//    4 x 8 in both products.
+//  - fp32: the fp32 body (flash_attention_f32.cu) at 4 rows x 8 columns a
+//    thread and as many chunks of O's columns as d needs, 64 query rows a
+//    CTA up to D 512, 32 above or where 64 would leave SMs without a CTA
+//    (repro_k4::launch_f32 picks the tile and reports it).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "flash_attention_f32.cuh"
 #include "hopper.cuh"
 #include "kernels.h"
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-
-// ---------------------------------------------------------------------------
-// fp32 body: FFMA on the CUDA cores
-
-constexpr int BQ = 64;          // query rows of a CTA
-constexpr int BKV = 64;         // key / value rows of one step
-constexpr int THREADS = 256;    // 16 x 16: ty owns 4 rows, tx 4 columns
-constexpr int LDT = BQ + 4;     // row stride of the transposed tiles
-
-template <int D>
-constexpr size_t smem_bytes() {
-  // Qt [D][LDT], the k (transposed) / v buffer [D][LDT], Pt [BKV][LDT]
-  return sizeof(float) * (2 * D * LDT + BKV * LDT);
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS, D <= 128 ? 2 : 1)
-    flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int H,
-                 int group, int sq, int skv, long long qsb, long long qsh,
-                 long long qss, long long ksb, long long ksh, long long kss,
-                 long long vsb, long long vsh, long long vss, long long osb,
-                 long long osh, long long oss, float scale, int causal) {
-  static_assert(D % 32 == 0 && D <= 256, "head dim");
-  constexpr int NC = D / 16;     // accumulator columns of a thread
-  extern __shared__ __align__(16) float smem[];
-  float* Qt = smem;              // [D][LDT]  q tile, transposed and scaled
-  float* KV = Qt + D * LDT;      // [D][LDT] k tile transposed; [BKV][D] v
-  float* Pt = KV + D * LDT;      // [BKV][LDT] probabilities, transposed
-
-  const int n_q = (sq + BQ - 1) / BQ;
-  const int q0 = (n_q - 1 - blockIdx.x) * BQ;   // longest causal rows first
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y % H;
-  const int hk = h / group;
-  q += b * qsb + h * qsh;
-  k += b * ksb + hk * ksh;
-  v += b * vsb + hk * vsh;
-  o += b * osb + h * osh;
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-
-  for (int e = tid; e < BQ * D; e += THREADS) {
-    const int r = e / D;
-    const int d = e % D;
-    const int row = q0 + r;
-    Qt[d * LDT + r] = row < sq ? q[row * qss + d] * scale : 0.f;
-  }
-
-  float acc[4][NC];
-  float m[4];
-  float l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
-
-  // key tiles that start at or before the tile's last row (causal), or all
-  const int kv_end = causal ? min(skv, q0 + BQ) : skv;
-  const int n_kv = (kv_end + BKV - 1) / BKV;
-  for (int t = 0; t < n_kv; ++t) {
-    const int k0 = t * BKV;
-    __syncthreads();   // the last step's reads of KV and Pt are done
-    for (int e = tid; e < BKV * D; e += THREADS) {
-      const int r = e / D;
-      const int d = e % D;
-      const int col = k0 + r;
-      KV[d * LDT + r] = col < skv ? k[col * kss + d] : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(&Qt[d * LDT + ty * 4]);
-      const float4 c = *reinterpret_cast<const float4*>(&KV[d * LDT + tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float cv[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], cv[j], s[i][j]);
-    }
-
-    // mask, then the online-softmax update of the reference, row by row
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-      float mt = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx * 4 + j;
-        const bool valid = col < skv && (!causal || row >= col);
-        s[i][j] = valid ? s[i][j] : NEG_INF;
-        mt = fmaxf(mt, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      const float m_new = fmaxf(m[i], mt);
-      const float alpha = expf(m[i] - m_new);
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        ps += s[i][j];
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        ps += __shfl_xor_sync(0xffffffffu, ps, off);
-      l[i] = l[i] * alpha + ps;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(&Pt[(tx * 4 + j) * LDT + ty * 4]) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();   // every thread is done with the key tile
-
-    for (int e = tid; e < BKV * D; e += THREADS) {
-      const int r = e / D;
-      const int d = e % D;
-      const int col = k0 + r;
-      KV[r * D + d] = col < skv ? v[col * vss + d] : 0.f;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < BKV; ++j) {
-      const float4 p = *reinterpret_cast<const float4*>(&Pt[j * LDT + ty * 4]);
-      const float pv[4] = {p.x, p.y, p.z, p.w};
-#pragma unroll
-      for (int g = 0; g < D / 32; ++g) {
-        const float2 w =
-            *reinterpret_cast<const float2*>(&KV[j * D + g * 32 + tx * 2]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][2 * g] = fmaf(pv[i], w.x, acc[i][2 * g]);
-          acc[i][2 * g + 1] = fmaf(pv[i], w.y, acc[i][2 * g + 1]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= sq) continue;
-    const float li = l[i] == 0.f ? 1.f : l[i];
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = (c / 2) * 32 + tx * 2 + (c & 1);
-      o[row * oss + col] = acc[i][c] / li;
-    }
-  }
-}
-
-template <int D>
-cudaError_t launch_ffma(const float* q, const float* k, const float* v,
-                        float* o, int batch, int heads, int kv_heads, int sq,
-                        int skv, const long long* st, float scale, int causal,
-                        cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((sq + BQ - 1) / BQ, batch * heads);
-  flash_kernel<D><<<grid, THREADS, smem, stream>>>(
-      q, k, v, o, heads, heads / kv_heads, sq, skv, st[0], st[1], st[2],
-      st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale,
-      causal);
-  return cudaSuccess;
-}
 
 // ---------------------------------------------------------------------------
 // bf16 body: wgmma on the tensor cores, tiles loaded by TMA
@@ -1028,378 +823,6 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace tc
 
-// ---------------------------------------------------------------------------
-// wide fp32 body: head dims above 256 on the CUDA cores (IEEE FFMA)
-
-namespace wide_f32 {
-
-using repro_hopper::smem_u32;
-
-constexpr int THREADS = 256;
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src,
-                                           bool valid) {
-  // 16 bytes, or zeros where the source lies outside the operand
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// The tiles of a CTA of BQ query rows (64 or 32, rows_for): its 256
-// threads are RG row groups of 4 rows by CG column groups, and a thread
-// owns 4 rows by 8 columns of every tile it computes: of the scores, 8 of a
-// tile's BKV keys (key tx + CG c), and of each chunk of W columns of O (two
-// runs of 4: tx * 4 and 4 * CG + tx * 4).
-template <int BQ>
-struct Tiles {
-  static constexpr int RG = BQ / 4;
-  static constexpr int CG = THREADS / RG;
-  static constexpr int BKV = 8 * CG;            // keys of a tile: 128, 256
-  static constexpr int W = 8 * CG;              // columns of O a chunk
-  static constexpr int CHUNKS = BQ == 64 ? 4 : 3;   // d up to 512, 768
-  static constexpr int DS = BQ == 64 ? 32 : 16; // columns of K a stage
-  static constexpr int KLD = DS + 4;            // row stride of K's stage
-  static constexpr int KS = 4096 / W;           // keys of V a stage: 32, 16
-  static constexpr int KG = BKV / KS;           // stages of V a chunk
-  static constexpr int PLD = BQ + 4;            // row stride of P^T
-  static constexpr int BUF = BKV * KLD > KS * W ? BKV * KLD : KS * W;
-  static_assert(BKV * DS / 4 == 4 * THREADS && KS * W / 4 == 4 * THREADS,
-                "a stage is four 16-byte copies a thread");
-  // Q [BQ][d + 4], two stage buffers, P^T [BKV][PLD], in floats
-  static size_t bytes(int d) {
-    return sizeof(float) * (static_cast<size_t>(BQ) * (d + 4) + 2 * BUF +
-                            static_cast<size_t>(BKV) * PLD);
-  }
-};
-
-// One CTA: BQ query rows of one (batch, head), all d columns of O in
-// registers (4 rows x 8 columns a chunk, a thread). Q, scaled, is loaded
-// into shared memory once. Each key tile is a run of stages, each one
-// 16 KB-class buffer filled by 16-byte cp.async copies while the other
-// buffer is multiplied: d / DS stages of K (BKV keys x DS columns), the
-// online softmax, then for each chunk of O's columns KG stages of V (KS
-// keys x W columns). Every FFMA is IEEE fp32; every element of S sums its
-// products in ascending d.
-template <int BQ>
-__global__ void __launch_bounds__(THREADS, 1)
-    flash_f32_wide_kernel(const float* __restrict__ q,
-                          const float* __restrict__ k,
-                          const float* __restrict__ v, float* __restrict__ o,
-                          int H, int group, int sq, int skv, int d,
-                          long long qsb, long long qsh, long long qss,
-                          long long ksb, long long ksh, long long kss,
-                          long long vsb, long long vsh, long long vss,
-                          long long osb, long long osh, long long oss,
-                          float scale, int causal) {
-  using T = Tiles<BQ>;
-  constexpr int CG = T::CG;
-  constexpr int NC = T::CHUNKS * 8;
-  extern __shared__ __align__(16) float smem[];
-  const int qld = d + 4;
-  float* Qs = smem;                          // [BQ][d + 4], scaled
-  float* bufs = Qs + BQ * qld;               // [2][BUF]
-  float* Pt = bufs + 2 * T::BUF;             // [BKV][PLD]
-
-  const int n_q = (sq + BQ - 1) / BQ;
-  const int q0 = (n_q - 1 - blockIdx.x) * BQ;   // longest causal rows first
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y % H;
-  const int hk = h / group;
-  q += b * qsb + h * qsh;
-  k += b * ksb + hk * ksh;
-  v += b * vsb + hk * vsh;
-  o += b * osb + h * osh;
-
-  const int tid = threadIdx.x;
-  const int tx = tid % CG;
-  const int ty = tid / CG;
-
-  // the query tile, scaled in fp32 as the reference scales, zeros past sq
-  for (int e = tid; e < BQ * d / 4; e += THREADS) {
-    const int r = e / (d / 4);
-    const int c = (e % (d / 4)) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < sq) {
-      x = *reinterpret_cast<const float4*>(q + (q0 + r) * qss + c);
-      x.x *= scale;
-      x.y *= scale;
-      x.z *= scale;
-      x.w *= scale;
-    }
-    *reinterpret_cast<float4*>(&Qs[r * qld + c]) = x;
-  }
-
-  const int kv_end = causal ? min(skv, q0 + BQ) : skv;
-  const int n_kv = (kv_end + T::BKV - 1) / T::BKV;
-  const int nsk = d / T::DS;                    // stages of K a tile
-  const int nch = (d + T::W - 1) / T::W;        // chunks of O's columns
-  const int per_tile = nsk + nch * T::KG;
-
-  // the copies of one stage: the u-th of key tile t, into buffer `buf`
-  auto issue = [&](int t, int u, int buf) {
-    const uint32_t dst = smem_u32(bufs + buf * T::BUF);
-    const int k0 = t * T::BKV;
-    if (u < nsk) {
-      const int c0 = u * T::DS;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int e = tid + i * THREADS;
-        const int key = e / (T::DS / 4);
-        const int c4 = e % (T::DS / 4);
-        const bool ok = k0 + key < skv;
-        cp_async16(dst + 4 * (key * T::KLD + c4 * 4),
-                   ok ? k + (k0 + key) * kss + c0 + c4 * 4 : k, ok);
-      }
-    } else {
-      const int cg = (u - nsk) / T::KG;
-      const int key0 = k0 + (u - nsk) % T::KG * T::KS;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int e = tid + i * THREADS;
-        const int key = e / (T::W / 4);
-        const int col = cg * T::W + e % (T::W / 4) * 4;
-        const bool ok = key0 + key < skv && col < d;
-        cp_async16(dst + 4 * (key * T::W + col - cg * T::W),
-                   ok ? v + (key0 + key) * vss + col : v, ok);
-      }
-    }
-    cp_async_commit();
-  };
-  // the stage counter g and the next stage to issue (tile nt, index nu)
-  int g = 0, nt = 0, nu = 0;
-  auto advance = [&]() {
-    if (++nu == per_tile) {
-      nu = 0;
-      ++nt;
-    }
-  };
-  // waits for stage g's copies (and every thread's work on stage g - 1),
-  // issues stage g + 1 into the other buffer, returns stage g's buffer
-  auto begin = [&]() -> const float* {
-    cp_async_wait_all();
-    __syncthreads();
-    if (nt < n_kv) {
-      issue(nt, nu, (g + 1) & 1);
-      advance();
-    }
-    return bufs + (g++ & 1) * T::BUF;
-  };
-
-  float acc[4][NC];
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
-
-  issue(0, 0, 0);
-  advance();
-  for (int t = 0; t < n_kv; ++t) {
-    const int k0 = t * T::BKV;
-    float s[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) s[i][c] = 0.f;
-    for (int u = 0; u < nsk; ++u) {
-      const float* Ks = begin();
-      const float* Qc = Qs + ty * 4 * qld + u * T::DS;
-#pragma unroll 2
-      for (int dd = 0; dd < T::DS; dd += 4) {
-        float4 a[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          a[i] = *reinterpret_cast<const float4*>(Qc + i * qld + dd);
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          const float4 w = *reinterpret_cast<const float4*>(
-              Ks + (tx + CG * c) * T::KLD + dd);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            s[i][c] = fmaf(a[i].x, w.x, s[i][c]);
-            s[i][c] = fmaf(a[i].y, w.y, s[i][c]);
-            s[i][c] = fmaf(a[i].z, w.z, s[i][c]);
-            s[i][c] = fmaf(a[i].w, w.w, s[i][c]);
-          }
-        }
-      }
-    }
-
-    // mask, then the online-softmax update of the reference, row by row;
-    // P^T goes to shared memory (its last readers, the previous tile's
-    // stages of V, are past this tile's first barrier)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-      float mt = NEG_INF;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int col = k0 + tx + CG * c;
-        const bool valid = col < skv && (!causal || row >= col);
-        s[i][c] = valid ? s[i][c] : NEG_INF;
-        mt = fmaxf(mt, s[i][c]);
-      }
-#pragma unroll
-      for (int off = CG / 2; off > 0; off >>= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      const float m_new = fmaxf(m[i], mt);
-      const float alpha = expf(m[i] - m_new);
-      float ps = 0.f;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        s[i][c] = expf(s[i][c] - m_new);
-        ps += s[i][c];
-      }
-#pragma unroll
-      for (int off = CG / 2; off > 0; off >>= 1)
-        ps += __shfl_xor_sync(0xffffffffu, ps, off);
-      l[i] = l[i] * alpha + ps;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
-    }
-#pragma unroll
-    for (int c = 0; c < 8; ++c)
-      *reinterpret_cast<float4*>(&Pt[(tx + CG * c) * T::PLD + ty * 4]) =
-          make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
-
-    // O += P V, chunk by chunk of O's columns; a chunk's second run of 4
-    // columns a thread lies wholly past d or not (d a multiple of 64)
-#pragma unroll
-    for (int cg = 0; cg < T::CHUNKS; ++cg) {
-      if (cg >= nch) break;
-      const bool second = cg * T::W + 4 * CG < d;
-      for (int kg = 0; kg < T::KG; ++kg) {
-        const float* Vs = begin();
-        const float* P = Pt + kg * T::KS * T::PLD + ty * 4;
-#pragma unroll 4
-        for (int j = 0; j < T::KS; ++j) {
-          const float4 p = *reinterpret_cast<const float4*>(P + j * T::PLD);
-          const float pv[4] = {p.x, p.y, p.z, p.w};
-          const float4 w0 =
-              *reinterpret_cast<const float4*>(Vs + j * T::W + tx * 4);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc[i][cg * 8 + 0] = fmaf(pv[i], w0.x, acc[i][cg * 8 + 0]);
-            acc[i][cg * 8 + 1] = fmaf(pv[i], w0.y, acc[i][cg * 8 + 1]);
-            acc[i][cg * 8 + 2] = fmaf(pv[i], w0.z, acc[i][cg * 8 + 2]);
-            acc[i][cg * 8 + 3] = fmaf(pv[i], w0.w, acc[i][cg * 8 + 3]);
-          }
-          if (second) {
-            const float4 w1 = *reinterpret_cast<const float4*>(
-                Vs + j * T::W + 4 * CG + tx * 4);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              acc[i][cg * 8 + 4] = fmaf(pv[i], w1.x, acc[i][cg * 8 + 4]);
-              acc[i][cg * 8 + 5] = fmaf(pv[i], w1.y, acc[i][cg * 8 + 5]);
-              acc[i][cg * 8 + 6] = fmaf(pv[i], w1.z, acc[i][cg * 8 + 6]);
-              acc[i][cg * 8 + 7] = fmaf(pv[i], w1.w, acc[i][cg * 8 + 7]);
-            }
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= sq) continue;
-    const float li = l[i] == 0.f ? 1.f : l[i];
-#pragma unroll
-    for (int cg = 0; cg < T::CHUNKS; ++cg)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int col = cg * T::W + r * 4 * CG + tx * 4;
-        if (cg < nch && col < d)
-          *reinterpret_cast<float4*>(o + row * oss + col) = make_float4(
-              acc[i][cg * 8 + 4 * r] / li, acc[i][cg * 8 + 4 * r + 1] / li,
-              acc[i][cg * 8 + 4 * r + 2] / li,
-              acc[i][cg * 8 + 4 * r + 3] / li);
-      }
-  }
-}
-
-// The widest d whose O the 64-row tiles hold in registers.
-constexpr int MAX_D64 = Tiles<64>::W * Tiles<64>::CHUNKS;
-
-// The query rows of a CTA: 64 up to MAX_D64 columns, 32 above; and 32 as
-// well where 64-row tiles would give fewer CTAs than the device has SMs
-// (small batches and short sequences), which doubles the grid. The
-// shared memory at d is the larger of the two.
-int rows_for(int d, long long ctas64, int sms) {
-  return d <= MAX_D64 && ctas64 >= sms ? 64 : 32;
-}
-size_t bytes_for(int d) {
-  return d <= MAX_D64 ? Tiles<64>::bytes(d) : Tiles<32>::bytes(d);
-}
-
-// 16-byte cp.async and float4 stores need 16-byte aligned operands with
-// (batch, head, row) strides in multiples of 4 floats wherever they move.
-bool aligned(const void* p, const long long* st, int n0, int n1, int n2) {
-  const int n[3] = {n0, n1, n2};
-  if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
-  for (int i = 0; i < 3; ++i)
-    if (n[i] > 1 && st[i] % 4 != 0) return false;
-  return true;
-}
-
-template <int BQ>
-cudaError_t launch_at(const float* q, const float* k, const float* v,
-                      float* o, int batch, int heads, int kv_heads, int sq,
-                      int skv, int d, const long long* st, float scale,
-                      int causal, cudaStream_t stream) {
-  const size_t smem = Tiles<BQ>::bytes(d);
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_f32_wide_kernel<BQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((sq + BQ - 1) / BQ, batch * heads);
-  flash_f32_wide_kernel<BQ><<<grid, THREADS, smem, stream>>>(
-      q, k, v, o, heads, heads / kv_heads, sq, skv, d, st[0], st[1], st[2],
-      st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale,
-      causal);
-  return cudaSuccess;
-}
-
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int batch, int heads, int kv_heads, int sq, int skv, int d,
-                   const long long* st, float scale, int causal,
-                   cudaStream_t stream) {
-  if (!aligned(q, st, batch, heads, sq) ||
-      !aligned(k, st + 3, batch, kv_heads, skv) ||
-      !aligned(v, st + 6, batch, kv_heads, skv) ||
-      !aligned(o, st + 9, batch, heads, sq))
-    return cudaErrorMisalignedAddress;
-  int dev = 0;
-  int sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  const long long ctas64 =
-      static_cast<long long>((sq + 63) / 64) * batch * heads;
-  const auto* qf = static_cast<const float*>(q);
-  const auto* kf = static_cast<const float*>(k);
-  const auto* vf = static_cast<const float*>(v);
-  auto* of = static_cast<float*>(o);
-  if (rows_for(d, ctas64, sms) == 64)
-    return launch_at<64>(qf, kf, vf, of, batch, heads, kv_heads, sq, skv, d,
-                         st, scale, causal, stream);
-  return launch_at<32>(qf, kf, vf, of, batch, heads, kv_heads, sq, skv, d, st,
-                       scale, causal, stream);
-}
-
-}  // namespace wide_f32
 
 // The widest head dim above 256 that both wide bodies take: a multiple of
 // 64 up to WIDE_MAX (the fp32 body's registers: 3 chunks of 256 columns)
@@ -1419,7 +842,7 @@ int max_head_dim(int* optin_out = nullptr) {
   int widest = 0;
   for (int d = 320; d <= WIDE_MAX; d += 64)
     if (tc::wide_ring(d / tc::PANEL, optin) >= tc::WIDE_MIN_RING &&
-        wide_f32::bytes_for(d) <= static_cast<size_t>(optin))
+        repro_k4::f32_bytes(d) <= static_cast<size_t>(optin))
       widest = d;
   return widest;
 }
@@ -1444,30 +867,6 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   }
 }
 
-cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o,
-                        int batch, int heads, int kv_heads, int sq, int skv,
-                        int d, const long long* st, float scale, int causal,
-                        cudaStream_t stream) {
-  const auto* qf = static_cast<const float*>(q);
-  const auto* kf = static_cast<const float*>(k);
-  const auto* vf = static_cast<const float*>(v);
-  auto* of = static_cast<float*>(o);
-  switch (d) {
-    case 64:
-      return launch_ffma<64>(qf, kf, vf, of, batch, heads, kv_heads, sq, skv,
-                             st, scale, causal, stream);
-    case 96:
-      return launch_ffma<96>(qf, kf, vf, of, batch, heads, kv_heads, sq, skv,
-                             st, scale, causal, stream);
-    case 128:
-      return launch_ffma<128>(qf, kf, vf, of, batch, heads, kv_heads, sq,
-                              skv, st, scale, causal, stream);
-    default:
-      return launch_ffma<256>(qf, kf, vf, of, batch, heads, kv_heads, sq,
-                              skv, st, scale, causal, stream);
-  }
-}
-
 }  // namespace
 
 extern "C" int repro_flash_attention_max_head_dim() { return max_head_dim(); }
@@ -1475,21 +874,20 @@ extern "C" int repro_flash_attention_max_head_dim() { return max_head_dim(); }
 extern "C" cudaError_t repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, int dtype,
     int batch, int heads, int kv_heads, int sq, int skv, int d,
-    const long long* strides, float scale, int causal, cudaStream_t stream) {
-  if (d > 256) {
-    int optin = 0;
-    if (d % 64 != 0 || d > max_head_dim(&optin)) return cudaErrorInvalidValue;
-    if (dtype == REPRO_BF16)
-      return tc::launch_wide(q, k, v, o, batch, heads, kv_heads, sq, skv, d,
-                             strides, scale, causal, optin, stream);
-    return wide_f32::launch(q, k, v, o, batch, heads, kv_heads, sq, skv, d,
-                            strides, scale, causal, stream);
-  }
-  if (d != 64 && d != 96 && d != 128 && d != 256)
+    const long long* strides, float scale, int causal, int* body,
+    cudaStream_t stream) {
+  int optin = 0;
+  if (d > 256 && (d % 64 != 0 || d > max_head_dim(&optin)))
     return cudaErrorInvalidValue;
-  if (dtype == REPRO_BF16)
-    return launch_bf16(q, k, v, o, batch, heads, kv_heads, sq, skv, d,
-                       strides, scale, causal, stream);
-  return launch_fp32(q, k, v, o, batch, heads, kv_heads, sq, skv, d, strides,
+  if (d <= 256 && d != 64 && d != 96 && d != 128 && d != 256)
+    return cudaErrorInvalidValue;
+  if (dtype != REPRO_BF16)
+    return repro_k4::launch_f32(q, k, v, o, batch, heads, kv_heads, sq, skv,
+                                d, strides, scale, causal, body, stream);
+  *body = d > 256 ? REPRO_K4_BF16_TC_WIDE : REPRO_K4_BF16_TC;
+  if (d > 256)
+    return tc::launch_wide(q, k, v, o, batch, heads, kv_heads, sq, skv, d,
+                           strides, scale, causal, optin, stream);
+  return launch_bf16(q, k, v, o, batch, heads, kv_heads, sq, skv, d, strides,
                      scale, causal, stream);
 }

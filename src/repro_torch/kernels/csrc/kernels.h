@@ -70,24 +70,36 @@ cudaError_t repro_cholesky_block(const float* a, float* l, int batch,
                                  long long sl, long long ldl,
                                  cudaStream_t stream);
 
+// The body a K4 launch ran (repro_flash_attention's *body): bf16 on the
+// tensor cores, up to d = 256 or wide; fp32 FFMA at one tile of its
+// template, <query rows a CTA>x<rows a thread>x<chunks of O's columns>.
+enum {
+  REPRO_K4_BF16_TC = 0,
+  REPRO_K4_BF16_TC_WIDE = 1,
+  REPRO_K4_F32_128X8X1 = 2,
+  REPRO_K4_F32_64X8X1 = 3,
+  REPRO_K4_F32_64X4X4 = 4,
+  REPRO_K4_F32_32X4X3 = 5
+};
+
 // K4: o[b, h] = softmax(q[b, h] k[b, h / (H / KV)]^T * scale) v[b, h / (H /
 // KV)], causal or not, with q, o (batch, heads, sq, d) and k, v (batch,
 // kv_heads, skv, d) addressed by element strides, 12 of them in the order
 // (batch, head, row) for q, k, v, o; unit stride along d. The type
 // (REPRO_F32 or REPRO_BF16) is that of all four: fp32 runs on the CUDA
-// cores (FFMA), bf16 on the tensor cores with TMA loads; above d = 256 each
-// type has its wide body (bf16: O's columns in slices of 256 a CTA; fp32: O
-// in registers, cp.async stages). Launches nothing and returns
+// cores (IEEE FFMA, O in registers, cp.async stages) at a tile the launcher
+// picks from d and the grid, bf16 on the tensor cores with TMA loads, above
+// d = 256 in its wide body (O's columns in slices of 256 a CTA). On success
+// *body is the body that ran (REPRO_K4_*). Launches nothing and returns
 // cudaErrorInvalidValue unless d is 64, 96, 128, 256 or a multiple of 64 up
 // to repro_flash_attention_max_head_dim(), and cudaErrorMisalignedAddress
-// for operands the loads cannot take: bf16 q, k and v, and above d = 256
-// also fp32 q, k, v and o, must be 16-byte aligned with strides in
-// multiples of 16 bytes.
+// for operands the loads cannot take: q, k and v (fp32: and o) must be
+// 16-byte aligned with strides in multiples of 16 bytes.
 cudaError_t repro_flash_attention(const void* q, const void* k, const void* v,
                                   void* o, int dtype, int batch, int heads,
                                   int kv_heads, int sq, int skv, int d,
                                   const long long* strides, float scale,
-                                  int causal, cudaStream_t stream);
+                                  int causal, int* body, cudaStream_t stream);
 
 // K4's widest head dim above 256: the largest multiple of 64, up to 768,
 // whose tiles fit the current device's opt-in shared memory of a block in

@@ -16,6 +16,7 @@ alone, so a counted run on ``meta`` sees the copies the card makes."""
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Optional, Tuple
 
 import torch
@@ -33,6 +34,13 @@ _CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the widest, the wide bodies take multiples of 128 up to the launcher's
 #: limit
 HEAD_DIMS = (64, 96, 128, 256)
+#: K4's bodies by the code the launcher reports (``csrc/kernels.h``,
+#: ``REPRO_K4_*``): bf16 on the tensor cores, up to d 256 and wide; fp32
+#: FFMA at the tile the launcher picks from d and the grid, named
+#: ``fp32_<query rows a CTA>x<rows a thread>x<chunks of O>``
+#: (``csrc/flash_attention_f32.cu``)
+BODIES = ("bf16_wgmma", "bf16_wgmma_wide", "fp32_128x8x1", "fp32_64x8x1",
+          "fp32_64x4x4", "fp32_32x4x3")
 
 
 def _ref4(q, k, v, causal):
@@ -64,15 +72,12 @@ def pad_head_dim(*ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
 
 
 def loadable(t: torch.Tensor) -> bool:
-    """Whether K4 takes ``t`` as it lies: unit stride along D and, for the
-    bf16 bodies' TMA loads and the wide fp32 body's 16-byte ``cp.async``
-    copies (D above 256), a 16-byte aligned start and (batch, head, row)
-    strides that are multiples of 16 bytes wherever the axis is longer than
-    1."""
+    """Whether K4 takes ``t`` as it lies: unit stride along D, a 16-byte
+    aligned start and (batch, head, row) strides that are multiples of 16
+    bytes wherever the axis is longer than 1, as every body's 16-byte
+    copies need (TMA boxes for bf16, ``cp.async`` for fp32)."""
     if t.stride(-1) != 1:
         return False
-    if t.dtype != torch.bfloat16 and t.shape[-1] <= HEAD_DIMS[-1]:
-        return True
     # the start's alignment from the storage offset: the allocator aligns
     # every storage's base, and a meta tensor has no address to read
     vec = 16 // t.element_size()
@@ -99,11 +104,12 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, d: int,
     if out.numel():
         strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
         with torch.cuda.device(q.device):
-            _build.extension().flash_attention(
+            body = BODIES[_build.extension().flash_attention(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 _CODES[q.dtype], b, h, kv, sq, skv, dp, strides, d ** -0.5,
-                bool(causal), stream_of(q))
+                bool(causal), stream_of(q))]
         flash_attention_cuda.launches += 1
+        flash_attention_cuda.launches_by_body[body] += 1
     return out
 
 
@@ -130,11 +136,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scaled by D^-0.5; D zero-padded to :func:`padded_head_dim` and the
     output sliced back; operands the kernel cannot take as they lie (see
     :func:`loadable`) are copied first.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel (fp32: an FFMA body, bf16: a
-    tensor-core body; above D = 256 each type's wide body) and meta tensors
+    version; CUDA tensors launch the kernel (fp32: the FFMA body at a tile
+    the launcher picks, bf16: a tensor-core body, with a wide body above
+    D = 256) and meta tensors
     take its shape (a counted run), or they raise, also (from the launcher,
     with the limit in the message) for a padded D above the widest the
-    wide bodies take."""
+    wide bodies take.  Each launch is counted on ``launches`` and on
+    ``launches_by_body`` under the body the launcher reports."""
     b, h, sq, d = q.shape
     _, kv, skv, _ = k.shape
     if all(t.device.type == "cpu" for t in (q, k, v)):
@@ -159,6 +167,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_cuda.launches = 0
+#: launches by body (:data:`BODIES`); their sum is ``launches``
+flash_attention_cuda.launches_by_body = Counter()
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -13,6 +13,9 @@ row's largest value; ``TestTensorCoreNumerics`` shows here that its
 arithmetic fits that budget.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,8 +28,9 @@ from repro.kernels.ssm_scan import ssm_scan as ref_scan
 from repro.models import ssm as ref_ssm
 from repro_torch import kernels as tk
 from repro_torch.kernels.common import TilePlan
-from repro_torch.kernels.flash_attention.ops import (HEAD_DIMS, _ref4,
-                                                     loadable, pad_head_dim,
+from repro_torch.kernels.flash_attention.ops import (BODIES, HEAD_DIMS,
+                                                     _ref4, loadable,
+                                                     pad_head_dim,
                                                      padded_head_dim)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -279,9 +283,39 @@ class TestTensorCoreNumerics:
         wide = torch.zeros(2, 256, 4 * 384 + 2)
         odd = wide[..., :4 * 384].unflatten(-1, (4, 384)).transpose(1, 2)
         assert not loadable(odd)
-        assert loadable(odd[..., :256])      # the 256 body takes any stride
+        # the body for D <= 256 copies by 16 bytes as well
+        assert not loadable(odd[..., :256])
         shifted = proj.flatten()[2:2 + 256 * 384].view(1, 1, 256, 384)
         assert not loadable(shifted)
+
+    @pytest.mark.parametrize("d", [64, 128])
+    def test_loadable_fp32_path_layout(self, d):
+        """The fp32 body at D <= 256 takes the prefill's heads as they lie:
+        transposed views of a (B, S, H * D) projection, the key and value
+        heads split off a fused one at an offset of H * D floats; a view
+        whose start or row stride is off by 4 bytes is copied first."""
+        b, s, h, kv = 2, 256, 4, 2
+        proj = torch.zeros(b, s, (h + 2 * kv) * d)
+        q, k, v = (t.unflatten(-1, (-1, d)).transpose(1, 2) for t in
+                   proj.split((h * d, kv * d, kv * d), -1))
+        assert k.storage_offset() == h * d
+        assert all(loadable(t) for t in (q, k, v))
+        shifted = proj.flatten()[1:1 + s * h * d].view(1, s, h, d)
+        assert not loadable(shifted.transpose(1, 2))
+        odd = torch.zeros(b, s, h * d + 1)[..., :h * d]
+        assert not loadable(odd.unflatten(-1, (h, d)).transpose(1, 2))
+
+    def test_bodies_name_the_launchers_codes(self):
+        """``BODIES[code]`` names the body the launcher reports as ``code``
+        (``csrc/kernels.h``, ``REPRO_K4_*``): the fp32 tiles by their
+        shape, the bf16 bodies as K1 names its tensor-core body."""
+        header = (Path(tk.__file__).parent / "csrc" / "kernels.h").read_text()
+        codes = {int(c): n for n, c in
+                 re.findall(r"REPRO_K4_(\w+) = (\d+)", header)}
+        assert sorted(codes) == list(range(len(BODIES)))
+        names = [codes[c].lower().replace("_tc", "_wgmma")
+                 .replace("f32_", "fp32_") for c in sorted(codes)]
+        assert names == list(BODIES)
 
     def test_loadable(self):
         """Operands K4 takes as they lie, and those the wrapper copies
@@ -294,7 +328,7 @@ class TestTensorCoreNumerics:
         wide = torch.zeros(2, 256, 4 * 64 + 4, dtype=torch.bfloat16)
         odd = wide[..., :256].unflatten(-1, (4, 64)).transpose(1, 2)
         assert not loadable(odd)
-        assert loadable(odd.float())          # fp32 takes any row stride
+        assert loadable(odd.float())          # a dense copy in fp32
         shifted = proj.flatten()[4:4 + 256 * 64].view(1, 1, 256, 64)
         assert shifted.data_ptr() % 16 == 8 and not loadable(shifted)
         assert not loadable(heads.transpose(-1, -2))
